@@ -1,0 +1,93 @@
+"""ctypes binding of the hand-written CUDA kernels (``csrc/*.cu``).
+
+Every C entry point is ``int hpf_<name>_<f32|f64>(..., void* stream)``: it
+launches on the given stream, does not synchronize, allocates nothing, and
+returns ``cudaGetLastError()``.  :func:`launch` passes tensor pointers and
+PyTorch's current stream, and raises when the return code is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# Warps (= segments or rows) per 256-thread block; must match
+# csrc/common.cuh kWarpsPerBlock.
+WARPS_PER_BLOCK = 8
+# Widest k the kernels are instantiated for (8 elements per lane).
+MAX_K = 256
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+_D = ctypes.c_double
+
+# argument types of each entry point, before the trailing stream
+_SIGNATURES = {
+    # t_self, t_other, rows, cols, vals, out, m, w, k, col_off, wps
+    "ell_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32],
+    # seg, inv_perm, split_indptr, split_seg_pos, out, n_rows, k, P
+    "segment_table_sums": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
+    # sums, scaler_old, colsum_other, prior, scaler_shape, add_scaler,
+    # shp, rte, tab, scaler_new, partials, n, k, nblocks
+    "table_update": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I32, _I32],
+    # shp, rte, tab, partials, n, k, nblocks
+    "table_derive": [_P, _P, _P, _P, _I64, _I32, _I32],
+    # partials, colsum, nblocks, k
+    "colsum_finish": [_P, _P, _I32, _I32],
+    # theta, beta, rows, cols, vals, partials, m, w, k, col_off, full_llk
+    "ell_llk": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32],
+}
+
+_lib = None
+
+
+def load():
+    """Build (first use) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        from .build import build_kernels
+
+        lib = ctypes.CDLL(build_kernels())
+        for name, args in _SIGNATURES.items():
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"hpf_{name}_{suffix}")
+                fn.argtypes = [*args, _P]
+                fn.restype = ctypes.c_int
+        lib.hpf_error_string.argtypes = [ctypes.c_int]
+        lib.hpf_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(*tensors, dtype):
+    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype`` on
+    one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"expected CUDA tensors on {dev}, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("expected contiguous tensors")
+
+
+def launch(name: str, dtype, k: int, *args):
+    """Launch ``hpf_<name>`` for ``dtype`` on the current stream of the
+    first tensor argument's device."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: kernels take float32 or float64, not {dtype}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{name}: k={k} outside the kernels' range 1..{MAX_K}")
+    lib = load()
+    fn = getattr(lib, f"hpf_{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: "
+                           f"{lib.hpf_error_string(err).decode()} ({err})")

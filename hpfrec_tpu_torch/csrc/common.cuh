@@ -1,0 +1,97 @@
+// Shared device helpers of the hpfrec_tpu_torch kernels.
+//
+// Every kernel maps one warp to one row (a table row or an ELL segment);
+// a row's k factors are spread over the 32 lanes, KPL = ceil(k/32)
+// elements per lane, held in registers.  Dot products and row maxima are
+// xor-butterfly shuffle reductions: every lane ends with the same bits, so
+// a value that all lanes use (a phi denominator, a row max) is uniform.
+// No kernel uses atomics, so every result is bit-identical from run to run.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace hpf {
+
+constexpr int kWarp = 32;
+constexpr int kWarpsPerBlock = 8;  // hpfrec_tpu_torch/_cuda WARPS_PER_BLOCK
+constexpr int kThreads = kWarp * kWarpsPerBlock;
+
+// Elements per lane for k factors: the kernels are instantiated for
+// k <= 32, 64, 128 and 256; 0 = unsupported.
+inline int kpl_for(int k) {
+  return k <= 0 ? 0 : k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : k <= 256 ? 8 : 0;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = u > v ? u : v;
+  }
+  return v;
+}
+
+__device__ __forceinline__ float dlog(float x) { return logf(x); }
+__device__ __forceinline__ double dlog(double x) { return log(x); }
+__device__ __forceinline__ float dexp(float x) { return expf(x); }
+__device__ __forceinline__ double dexp(double x) { return exp(x); }
+__device__ __forceinline__ float dlgamma(float x) { return lgammaf(x); }
+__device__ __forceinline__ double dlgamma(double x) { return lgamma(x); }
+
+// digamma(x) for x > 0 (CUDA's math library has none): the recurrence
+// psi(x) = psi(x + 1) - 1/x up to x >= X0, then the asymptotic series
+// ln x - 1/(2x) - sum_n B_2n / (2n x^2n).  Float stops at x^-10 with
+// X0 = 6 (next term < 1e-9), double at x^-14 with X0 = 10 (next term
+// < 1e-16).  x = 0 gives -inf; x < 0 and NaN give NaN (the shapes it is
+// called on are prior + non-negative sums, always > 0).
+__device__ __forceinline__ float digamma(float x) {
+  if (!(x > 0.f)) return x == 0.f ? -INFINITY : NAN;
+  float r = 0.f;
+  while (x < 6.f) {
+    r -= 1.f / x;
+    x += 1.f;
+  }
+  const float f = 1.f / (x * x);
+  const float t =
+      f * (-1.f / 12.f + f * (1.f / 120.f + f * (-1.f / 252.f + f * (1.f / 240.f + f * (-1.f / 132.f)))));
+  return r + logf(x) - 0.5f / x + t;
+}
+
+__device__ __forceinline__ double digamma(double x) {
+  if (!(x > 0.0)) return x == 0.0 ? -INFINITY : NAN;
+  double r = 0.0;
+  while (x < 10.0) {
+    r -= 1.0 / x;
+    x += 1.0;
+  }
+  const double f = 1.0 / (x * x);
+  const double t =
+      f * (-1.0 / 12.0 +
+           f * (1.0 / 120.0 +
+                f * (-1.0 / 252.0 +
+                     f * (1.0 / 240.0 + f * (-1.0 / 132.0 + f * (691.0 / 32760.0 + f * (-1.0 / 12.0)))))));
+  return r + log(x) - 0.5 / x + t;
+}
+
+}  // namespace hpf
+
+// One switch over the supported elements-per-lane counts; FN is a function
+// template whose first template parameter is KPL.
+#define HPF_DISPATCH_KPL(k, FN, ...)      \
+  switch (::hpf::kpl_for(k)) {            \
+    case 1: return FN<1>(__VA_ARGS__);    \
+    case 2: return FN<2>(__VA_ARGS__);    \
+    case 4: return FN<4>(__VA_ARGS__);    \
+    case 8: return FN<8>(__VA_ARGS__);    \
+    default: return cudaErrorInvalidValue; \
+  }

@@ -1,0 +1,194 @@
+"""Host-side data layer: ingestion, filtering, reindexing, CSR.
+
+A jax-free copy of ``hpfrec_tpu/utils/data.py`` (reference
+``hpfrec/__init__.py:434-633``) for the full-batch path.  pandas is
+optional here: DataFrame input needs it, ndarray and scipy ``coo_array``
+input do not, and reindexing and id mapping have numpy and native
+fallbacks.  The O(nnz) passes use the native helpers in ``_native`` when
+they built, numpy/scipy otherwise.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+
+class ProcessedData(NamedTuple):
+    """Flat, filtered, reindexed COO triplets (host numpy, user-sorted
+    whenever ``sorted_by_user``)."""
+
+    y: np.ndarray  # (nnz,) real dtype
+    ix_u: np.ndarray  # (nnz,) int32
+    ix_i: np.ndarray  # (nnz,) int32
+    nusers: int
+    nitems: int
+    user_mapping: Optional[np.ndarray]
+    item_mapping: Optional[np.ndarray]
+    sorted_by_user: bool
+
+
+def _pandas():
+    try:
+        import pandas as pd
+    except ImportError:
+        return None
+    return pd
+
+
+def coerce_triplets(input_df):
+    """Accept a pandas DataFrame with UserId/ItemId/Count columns, an
+    (n, >=3) ndarray, or a scipy COO array.  Returns (u, i, y, nusers,
+    nitems, forced_no_reindex); nusers/nitems are None unless the input
+    dictates them."""
+    from scipy.sparse import issparse
+
+    if isinstance(input_df, np.ndarray):
+        assert len(input_df.shape) > 1
+        assert input_df.shape[1] >= 3
+        return (np.asarray(input_df[:, 0]), np.asarray(input_df[:, 1]),
+                np.asarray(input_df[:, 2]), None, None, False)
+    if issparse(input_df) and input_df.format == "coo":
+        nusers, nitems = input_df.shape
+        return (np.asarray(input_df.row), np.asarray(input_df.col),
+                np.asarray(input_df.data), int(nusers), int(nitems), True)
+    pd = _pandas()
+    if pd is not None and isinstance(input_df, pd.DataFrame):
+        assert input_df.shape[0] > 0
+        for col in ("UserId", "ItemId", "Count"):
+            assert col in input_df.columns, f"'{col}' column missing"
+        return (input_df["UserId"].to_numpy(), input_df["ItemId"].to_numpy(),
+                input_df["Count"].to_numpy(), None, None, False)
+    raise ValueError(
+        "'input_df' must be a pandas data frame, numpy array, or scipy sparse coo_array.")
+
+
+def filter_low_counts(u, i, y, stop_crit: str, what: str = "counts_df"):
+    """Drop observations with Count <= thr; thr is 0 for maxiter/diff-norm and
+    0.9 for likelihood criteria (reference ``hpfrec/__init__.py:462-475``)."""
+    thr = 0 if stop_crit in ("maxiter", "diff-norm") else 0.9
+    low = y <= thr
+    if int(low.sum()) > 0:
+        warnings.warn(
+            f"'{what}' contains observations with a count value less than 1, "
+            "these will be ignored.")
+        keep = ~low
+        u, i, y = u[keep], i[keep], y[keep]
+    return u, i, y
+
+
+def _factorize(values):
+    """First-occurrence-order factorize: ``pd.factorize`` when pandas is
+    installed, the native ``factorize_i64`` (integer ids) otherwise."""
+    values = np.asarray(values)
+    pd = _pandas()
+    if pd is not None:
+        return pd.factorize(values)
+    return _factorize_native(values)
+
+
+def _factorize_native(values):
+    from .._native import factorize_i64
+
+    if not np.issubdtype(values.dtype, np.integer):
+        raise TypeError("reindexing non-integer ids needs pandas")
+    codes, uniques = factorize_i64(values.astype(np.int64, copy=False))
+    return codes, uniques.astype(values.dtype, copy=False)
+
+
+def reindex_ids(u, i):
+    """Factorize-based reindex (reference ``hpfrec/__init__.py:477-483``).
+    Returns (codes_u, codes_i, user_mapping, item_mapping)."""
+    codes_u, user_mapping = _factorize(u)
+    codes_i, item_mapping = _factorize(i)
+    user_mapping = np.require(user_mapping, requirements=["ENSUREARRAY"]).reshape(-1)
+    item_mapping = np.require(item_mapping, requirements=["ENSUREARRAY"]).reshape(-1)
+    return (codes_u.astype(np.int32, copy=False),
+            codes_i.astype(np.int32, copy=False), user_mapping, item_mapping)
+
+
+def map_to_training_ids(values, mapping):
+    """Map raw IDs to training row indices; unknown -> -1 (reference uses
+    ``pd.Categorical(...).codes``, ``hpfrec/__init__.py:561-562``)."""
+    pd = _pandas()
+    if pd is None:
+        return _map_numpy(values, mapping)
+    codes = pd.Index(mapping).get_indexer(np.asarray(values))
+    return np.require(codes, requirements=["ENSUREARRAY"]).astype(np.int64, copy=False)
+
+
+def _map_numpy(values, mapping):
+    """``map_to_training_ids`` without pandas: binary search in the sorted
+    (unique, non-empty) mapping."""
+    values = np.asarray(values).reshape(-1)
+    order = np.argsort(mapping, kind="stable")
+    srt = np.asarray(mapping)[order]
+    pos = np.clip(np.searchsorted(srt, values), 0, len(srt) - 1)
+    return np.where(srt[pos] == values, order[pos], -1).astype(np.int64)
+
+
+def process_data(input_df, stop_crit: str, reindex: bool, dtype=np.float32,
+                 sort_by_user: bool = True) -> ProcessedData:
+    """Full training-data pipeline (reference ``_process_data``,
+    ``hpfrec/__init__.py:434-523``)."""
+    u, i, y, nusers, nitems, forced_no_reindex = coerce_triplets(input_df)
+    if forced_no_reindex:
+        reindex = False
+    u, i, y = filter_low_counts(u, i, y, stop_crit)
+    if y.shape[0] == 0:
+        raise ValueError("Input data has no valid observations.")
+
+    user_mapping = item_mapping = None
+    if reindex:
+        ix_u, ix_i, user_mapping, item_mapping = reindex_ids(u, i)
+        nusers = int(user_mapping.shape[0])
+        nitems = int(item_mapping.shape[0])
+    else:
+        ix_u = np.asarray(u).astype(np.int64, copy=False)
+        ix_i = np.asarray(i).astype(np.int64, copy=False)
+        if ix_u.shape[0] and (ix_u.min() < 0 or ix_i.min() < 0):
+            raise ValueError("With reindex=False, all IDs must be non-negative integers.")
+        if nusers is None:
+            nusers = int(ix_u.max()) + 1
+        if nitems is None:
+            nitems = int(ix_i.max()) + 1
+
+    ix_u = ix_u.astype(np.int32, copy=False)
+    ix_i = ix_i.astype(np.int32, copy=False)
+    y = np.require(y, dtype=dtype, requirements=["C_CONTIGUOUS"])
+
+    if sort_by_user:
+        from .. import _native
+
+        if _native.available():
+            # O(nnz) counting sort through the native CSR builder
+            indptr, ix_i, y = _native.coo_to_csr(ix_u, ix_i, y, nusers)
+            ix_u = np.repeat(np.arange(nusers, dtype=np.int32),
+                             np.diff(indptr).astype(np.int64))
+        else:
+            order = np.argsort(ix_u, kind="stable")
+            ix_u = np.ascontiguousarray(ix_u[order])
+            ix_i = np.ascontiguousarray(ix_i[order])
+            y = np.ascontiguousarray(y[order])
+
+    return ProcessedData(y=y, ix_u=ix_u, ix_i=ix_i, nusers=nusers,
+                         nitems=nitems, user_mapping=user_mapping,
+                         item_mapping=item_mapping,
+                         sorted_by_user=bool(sort_by_user))
+
+
+def build_csr(ix_u: np.ndarray, ix_i: np.ndarray, y: np.ndarray, nusers: int,
+              nitems: int):
+    """CSR over the training triplets: (indptr (nU+1,) int64, indices int32,
+    data); the native counting sort when available, scipy otherwise."""
+    from .. import _native
+
+    if _native.available():
+        return _native.coo_to_csr(ix_u, ix_i, y, nusers)
+    from scipy.sparse import coo_array
+
+    X = coo_array((y, (ix_u, ix_i)), shape=(nusers, nitems)).tocsr()
+    return (X.indptr.astype(np.int64, copy=False),
+            X.indices.astype(np.int32, copy=False), X.data)

@@ -1,0 +1,88 @@
+"""Per-fit accounting: ``FitStats``, surfaced on the model as ``fit_stats_``.
+
+Port of ``hpfrec_tpu/utils/profiling.py:FitStats``.  Device work is
+asynchronous, so on a CUDA device every phase ends with
+``torch.cuda.synchronize()``: a phase then owns the device time of the
+work it enqueued.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+@dataclass
+class FitStats:
+    """End-to-end fit statistics.
+
+    ``wall_seconds`` spans the whole ``fit`` call, host data layer and
+    kernel build included, so ``nnz_per_second`` is an end-to-end figure.
+    ``phases`` attributes the wall time (seconds):
+
+    - ``reindex``        host triplet ingest, filtering and reindexing
+    - ``host_pack``      CSR builds + ELL packing of both sides (run
+      concurrently; this is the span)
+    - ``kernel_build``   building or loading the CUDA kernels (0 on CPU)
+    - ``transfer``       host->device upload of the layouts and the state
+    - ``iterations``     the CAVI iteration blocks
+    - ``metric_checks``  convergence checks + the final metric
+
+    ``wall_seconds - sum(phases.values())`` is unattributed glue.
+    """
+
+    nnz: int = 0
+    iterations: int = 0
+    wall_seconds: float = 0.0
+    phases: dict = field(default_factory=dict)
+    device: Optional[object] = None  # a torch.device; CUDA phases synchronize
+    _t0: float = field(default=0.0, repr=False)
+
+    def start(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def stop(self, iterations: int):
+        self.wall_seconds = time.perf_counter() - self._t0
+        self.iterations = iterations
+        return self
+
+    def _sync(self):
+        if self.device is not None and self.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """Accumulate the wrapped region's wall time under ``name``."""
+        t0 = time.perf_counter()
+        try:
+            yield
+            self._sync()
+        finally:
+            self.add_phase(name, time.perf_counter() - t0)
+
+    def add_phase(self, name: str, seconds: float):
+        self.phases[name] = self.phases.get(name, 0.0) + seconds
+
+    @property
+    def nnz_per_second(self) -> float:
+        if self.wall_seconds <= 0:
+            return 0.0
+        return self.nnz * self.iterations / self.wall_seconds
+
+    def phase_report(self) -> str:
+        """One line per phase, largest first, with share of wall time."""
+        if not self.phases or self.wall_seconds <= 0:
+            return ""
+        lines = []
+        for name, s in sorted(self.phases.items(), key=lambda kv: -kv[1]):
+            lines.append("  %-20s %8.2fs  (%4.1f%%)"
+                         % (name, s, 100.0 * s / self.wall_seconds))
+        other = self.wall_seconds - sum(self.phases.values())
+        lines.append("  %-20s %8.2fs  (%4.1f%%)"
+                     % ("(unattributed)", other, 100.0 * other / self.wall_seconds))
+        return "\n".join(lines)
