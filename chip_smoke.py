@@ -8,15 +8,28 @@ non-zero, with no result line):
 1. device and build: the card (nvidia-smi name and power limit), the
    kernel build from csrc/ and whether the native host helpers loaded;
 2. kernel checks: each CUDA kernel against its plain PyTorch version on
-   the card, float32 and float64, k=50, on a ~1M-nonzero power-law layout;
-3. the main path at the MillionSong TasteProfile shape (1,019,318 users x
-   376,768 items, 38.7M nonzeros, k=50, float32; data made here from a
-   seed): ``HPF(...).fit`` with train-llk checks, launch counters, then
-   ``topN`` and ``predict``; then every kernel checked and timed against
-   its plain version at the shapes of that fit;
-4. agreement and determinism at a small size: two card fits are
-   bit-identical, and the card agrees with the CPU path;
-5. a JSON line of the kernels, and the result line.
+   the card, float32 and float64, k=50, on a ~1M-nonzero power-law data
+   set: the full-batch kernels over its ELL layouts, the SVI kernels over
+   one user batch and one item batch (the SVI blend with both
+   ``blend_all_scalers`` values) and the COO llk over a held-out set;
+3. the full-batch path at the MillionSong TasteProfile shape (1,019,318
+   users x 376,768 items, 38.7M nonzeros, k=50, float32; data made here
+   from a seed): ``HPF(...).fit`` with train-llk checks, launch counters,
+   then ``topN`` and ``predict``; then every full-batch kernel checked and
+   timed against its plain version at the shapes of that fit;
+3b. the SVI path at the same shape, 1% of the triplets held out as a
+   validation set: ``HPF(users_per_batch=100_000, items_per_batch=40_000,
+   stop_crit='val-llk', ...).fit(train, val_set=val)``, ``eval_llk``,
+   ``topN``, ``predict``, and a short SVI fit with train-llk checks; launch
+   counters of each fit and of ``eval_llk``, each from its own run; then
+   every SVI kernel checked and timed at the fit's shapes (a user batch,
+   the item batch that holds the rank-1 item, the validation set), on the
+   fitted state;
+4. agreement and determinism at a small size, full batch and alternating
+   SVI with val-llk: two card fits are bit-identical, and the card agrees
+   with the CPU path;
+5. a JSON line of the kernels (time, plain version's time, bound, launches
+   on the main paths, in all and by path), and the result line.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
@@ -30,32 +43,48 @@ import numpy as np
 
 MILLIONSONG = dict(nU=1_019_318, nI=376_768, nnz=38_700_000)
 K = 50
+# SVI batch sizes of the full-size fit, and of the ~1M-nonzero checks
+SVI_BATCHES = dict(users_per_batch=100_000, items_per_batch=40_000)
+SMALL_BATCHES = dict(users_per_batch=2_600, items_per_batch=1_000)
 # kernel vs plain version on the card: |kernel - plain| <= atol + rtol |plain|,
-# atol = ATOL_FRAC * max|plain|.  float32: sums over up to 8192 slots and
-# the hand-written digamma differ from PyTorch's in order and rounding.
+# atol = ATOL_FRAC * max|plain|.  float32: sums over up to 8192 slots (K1) or
+# millions (K7's rank-1 item row) and the hand-written digamma differ from
+# PyTorch's in order and rounding.
 TOL = {"float32": dict(rtol=1e-4, atol_frac=1e-6),
        "float64": dict(rtol=1e-10, atol_frac=1e-12)}
-# card vs CPU path at a small size (phase 4), 60 iterations: max relative
-# difference of the llk trajectory, and of every element of Theta and Beta.
-# Measured on an H100: float64 llk 4.4e-15, Theta 3.7e-12, Beta 1.3e-11;
-# float32 llk 3.9e-7, Theta 4.97e-3, Beta 1.08e-3.  In float32 the factors
-# drift further apart than the llk: 60 iterations grow a ~1e-6 one-step
-# difference, most in the smallest entries (relative to the largest entry
-# the gap is 1.7e-4).
+# card vs CPU path at a small size (phase 4), max relative difference of the
+# llk trajectory and of every element of Theta and Beta.  Full batch, 60
+# iterations, measured on an H100: float64 llk 4.4e-15, Theta 3.7e-12, Beta
+# 1.3e-11; float32 llk 3.9e-7, Theta 4.97e-3, Beta 1.08e-3.  In float32 the
+# factors drift further apart than the llk: 60 iterations grow a ~1e-6
+# one-step difference, most in the smallest entries (relative to the
+# largest entry the gap is 1.7e-4).
 AGREE = {"float32": dict(llk=2e-5, factors=6e-3),
          "float64": dict(llk=1e-9, factors=1e-9)}
+# the same for 10 alternating SVI epochs with val-llk checks every 2,
+# measured on an H100: float64 llk 1.1e-16, Theta 9.5e-15, Beta 8.9e-15;
+# float32 llk 4.3e-8, Theta 7.6e-6, Beta 8.8e-6
+AGREE_SVI = {"float32": dict(llk=1e-6, factors=5e-5),
+             "float64": dict(llk=1e-12, factors=1e-11)}
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 REPLACES = {
     "ell_phi_sums": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu", "hpfrec_tpu/ops/ell.py:447"),
     "segment_table_sums": ("hpfrec_tpu_torch/csrc/segment_sums.cu", "hpfrec_tpu/ops/ell.py:574"),
     "table_update": ("hpfrec_tpu_torch/csrc/table_update.cu", "hpfrec_tpu/ops/cavi.py:50"),
     "table_derive": ("hpfrec_tpu_torch/csrc/table_update.cu", "hpfrec_tpu/ops/ell.py:743"),
     "ell_llk": ("hpfrec_tpu_torch/csrc/ell_llk.cu", "hpfrec_tpu/ops/metrics.py:79"),
+    "coo_llk": ("hpfrec_tpu_torch/csrc/coo_llk.cu", "hpfrec_tpu/ops/metrics.py:22"),
+    "batch_phi_sums": ("hpfrec_tpu_torch/csrc/svi_phi_sums.cu", "hpfrec_tpu/ops/svi.py:31"),
+    "svi_update": ("hpfrec_tpu_torch/csrc/svi_update.cu", "hpfrec_tpu/ops/svi.py:49"),
+    "epoch_gather": ("hpfrec_tpu_torch/csrc/svi_epoch.cu", "hpfrec_tpu/ops/svi.py:153"),
 }
 
 
 def powerlaw_coo(nU, nI, nnz, seed):
     """User-sorted COO with Zipf item popularity (bench.py:45-54), as a scipy
-    coo_array so that no pandas is needed."""
+    coo_array so that no pandas is needed.  Item 0 is the rank-1 item."""
     from scipy.sparse import coo_array
 
     rng = np.random.default_rng(seed)
@@ -77,6 +106,16 @@ def counts_coo(nU, nI, nnz, seed):
     return coo_array((y, (key // nI, key % nI)), shape=(nU, nI))
 
 
+def holdout(coo, frac, seed):
+    """Split a coo_array into (train, val) by a seeded mask over triplets."""
+    from scipy.sparse import coo_array
+
+    keep = np.random.default_rng(seed).random(coo.nnz) >= frac
+    part = lambda m: coo_array((coo.data[m], (coo.row[m], coo.col[m])),  # noqa: E731
+                               shape=coo.shape)
+    return part(keep), part(~keep)
+
+
 def cuda_ms(fn, reps):
     import torch
 
@@ -89,6 +128,18 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops, dtype_name="float32"):
+    """Least time (ms) on an H100 for moving ``nbytes`` and doing ``ops``,
+    and which of the two bounds it."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def compare(name, got, ref, dtype_name):
@@ -108,8 +159,9 @@ def compare(name, got, ref, dtype_name):
         err = (g64 - r64).abs()
         atol = tol["atol_frac"] * float(r64.abs().max())
         bad = err > atol + tol["rtol"] * r64.abs()
-        max_abs = max(max_abs, float(err.max()))
-        max_rel = max(max_rel, float((err / r64.abs().clamp_min(1e-300)).max()))
+        max_abs = max(max_abs, float(err.max()) if err.numel() else 0.0)
+        max_rel = max(max_rel, float((err / r64.abs().clamp_min(1e-300)).max())
+                      if err.numel() else 0.0)
         if bool(bad.any()):
             raise AssertionError(f"{name} {dtype_name}: kernel differs from plain "
                                  f"(max abs {max_abs:.3e}, max rel {max_rel:.3e}, "
@@ -117,11 +169,33 @@ def compare(name, got, ref, dtype_name):
     return max_abs, max_rel
 
 
+def run_cases(cases, dtype_name, reps, label=""):
+    """Check and time each case: name -> (kernel fn, plain fn, (bytes, ops),
+    library fn or None).  Returns {name: dict}."""
+    import torch
+
+    out = {}
+    for name, (kern, plain, work, library) in cases.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err_abs, err_rel = compare(name, got, ref, dtype_name)
+        ms, plain_ms = cuda_ms(kern, reps), cuda_ms(plain, reps)
+        lib_ms = cuda_ms(library, reps) if library is not None else None
+        b_ms, b_by = bound(*work, dtype_name)
+        out[name] = dict(max_abs_err=err_abs, max_rel_err=err_rel, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bytes=int(work[0]),
+                         ops=int(work[1]))
+        print(f"  {name:20s} {dtype_name}{label}: max abs {err_abs:.3e}  max rel {err_rel:.3e}"
+              f"  (rtol {TOL[dtype_name]['rtol']})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+              f"  bound {b_ms:.4f} ms ({b_by}; {work[0]:.4g} bytes, {work[1]:.4g} ops)"
+              + (f"  library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+    return out
+
+
 def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
-    """Check and time each kernel against its plain version on the card,
-    over what one iteration runs (both sides; K4: one check).  ``state``: a
-    VariationalState on the card.  Returns {name: (abs, rel, ms,
-    plain_ms)}."""
+    """The full-batch kernels against their plain versions on the card, over
+    what one iteration runs (both sides; K4: one check).  ``state``: a
+    VariationalState on the card."""
     import torch
 
     from hpfrec_tpu_torch.models.state import Hyperparams
@@ -130,6 +204,7 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
     from hpfrec_tpu_torch.ops import metrics as M
 
     hp = Hyperparams(k=state.k)
+    k = state.k
     t_tab, theta_colsum = C._side_derive_plain(state.G_shp, state.G_rte)
     b_tab, beta_colsum = C._side_derive_plain(state.L_shp, state.L_rte)
     Theta, Beta = state.G_shp / state.G_rte, state.L_shp / state.L_rte
@@ -144,35 +219,178 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
     upd = ((su, state.k_rte, beta_colsum, hp.a, hp.k_shp, hp.add_k_rte),
            (si, state.t_rte, theta_colsum, hp.c, hp.t_shp, hp.add_t_rte))
     pairs = ((state.G_shp, state.G_rte), (state.L_shp, state.L_rte))
+    seg_rows = [torch.cat([b.rows.long() for b in side[2].buckets]) for side in sides]
 
     def flat(*results):
         return [t for r in results for t in (r if isinstance(r, tuple) else (r,))]
 
+    # work of one call, for the bound: each input read once, each output
+    # written once; operations per real nonzero or table element
+    nnz = sum(int((b.vals != 0).sum()) for b in lay_u.buckets)
+    lay_bytes = [sum(nbytes(b.rows, b.cols, b.vals) for b in lay.buckets) for lay in (lay_u, lay_i)]
+    tabs = nbytes(state.G_shp) + nbytes(state.L_shp)
+    elems = state.G_shp.numel() + state.L_shp.numel()
+    seg_bytes = sum(nbytes(s) for s in segs)
+    work = {
+        # two exp tables per side, the layouts, the segment sums; 4k flops per slot
+        "ell_phi_sums": (2 * tabs + sum(lay_bytes) + seg_bytes, 2 * nnz * 4 * k),
+        # segment sums and index arrays in, tables out; the split-row adds
+        "segment_table_sums": (seg_bytes + sum(nbytes(lay.inv_perm, lay.split_indptr,
+                                                      lay.split_seg_pos)
+                                               for lay in (lay_u, lay_i)) + tabs,
+                               sum(s.numel() for s in segs) - elems),
+        # sums in; shp, rte, tab out; ~35 operations an element (digamma,
+        # log, exp, the rate and mean)
+        "table_update": (4 * tabs, 35 * elems),
+        # shp, rte in; tab out; ~33 operations an element
+        "table_derive": (3 * tabs, 33 * elems),
+        # both tables, the user layout; a dot (2k) and ~6 operations a slot
+        "ell_llk": (tabs + lay_bytes[0], nnz * (2 * k + 6)),
+    }
+
+    def index_add():
+        return [torch.zeros(side[2].n_rows, k, dtype=seg.dtype, device=seg.device)
+                .index_add_(0, rows, seg) for seg, side, rows in zip(segs, sides, seg_rows)]
+
     cases = {
         "ell_phi_sums": (lambda: flat(*(E.all_bucket_sums(*side) for side in sides)),
-                         lambda: flat(*(phi_plain(*side) for side in sides))),
+                         lambda: flat(*(phi_plain(*side) for side in sides)), None),
         "segment_table_sums": (
             lambda: flat(*(E.segment_table_sums(seg, side[2]) for seg, side in zip(segs, sides))),
             lambda: flat(*(E._segment_table_sums_plain(seg, side[2])
-                           for seg, side in zip(segs, sides)))),
+                           for seg, side in zip(segs, sides))), index_add),
         "table_update": (lambda: flat(*(C.side_update(*u) for u in upd)),
-                         lambda: flat(*(C._side_update_plain(*u) for u in upd))),
+                         lambda: flat(*(C._side_update_plain(*u) for u in upd)), None),
         "table_derive": (lambda: flat(*(C.side_derive(*p) for p in pairs)),
-                         lambda: flat(*(C._side_derive_plain(*p) for p in pairs))),
+                         lambda: flat(*(C._side_derive_plain(*p) for p in pairs)), None),
         "ell_llk": (lambda: M.ell_llk_rmse_sums(Theta, Beta, lay_u).sum(0),
                     lambda: torch.cat([M._bucket_llk_plain(Theta, Beta, b.rows, b.cols,
                                                            b.vals, b.col_off, False)
-                                       for b in lay_u.buckets]).sum(0)),
+                                       for b in lay_u.buckets]).sum(0), None),
     }
-    out = {}
-    for name, (kern, plain) in cases.items():
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        err_abs, err_rel = compare(name, got, ref, dtype_name)
-        ms, plain_ms = cuda_ms(kern, reps), cuda_ms(plain, reps)
-        out[name] = (err_abs, err_rel, ms, plain_ms)
-        print(f"  {name:20s} {dtype_name}: max abs {err_abs:.3e}  max rel {err_rel:.3e}"
-              f"  (rtol {TOL[dtype_name]['rtol']})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+    cases = {n: (kern, plain, work[n], lib) for n, (kern, plain, lib) in cases.items()}
+    return run_cases(cases, dtype_name, reps)
+
+
+def svi_suite(pdata, val, state, batches, dtype_name, reps, blend_all=(False,), label=""):
+    """The SVI kernels and the COO llk against their plain versions on the
+    card, at the shapes of an epoch of ``pdata`` (host ProcessedData) with
+    the given batch sizes: K9 over a user epoch and an item epoch, K7 and K8
+    over one user batch and the item batch that holds item 0, K5 over
+    ``val`` (a BlockedCOO on the card).  ``state``: a VariationalState on
+    the card."""
+    import torch
+
+    from hpfrec_tpu_torch.models.state import Hyperparams
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops import metrics as M
+    from hpfrec_tpu_torch.ops import svi as S
+    from hpfrec_tpu_torch.utils.data import build_csr
+
+    dev = state.G_shp.device
+    dt = state.G_shp.dtype
+    k = state.k
+    hp = Hyperparams(k=k)
+    rng = np.random.default_rng(7)
+    sides = []
+    for user_side, (rows, cols, n_rows, n_cols), per_batch in (
+            (True, (pdata.ix_u, pdata.ix_i, pdata.nusers, pdata.nitems), batches["users_per_batch"]),
+            (False, (pdata.ix_i, pdata.ix_u, pdata.nitems, pdata.nusers), batches["items_per_batch"])):
+        indptr, ind, dat = build_csr(rows, cols, pdata.y, n_rows, n_cols)
+        side = S.epoch_side(indptr, ind, dat, pdata.y.dtype, dev)
+        perm = rng.permutation(n_rows)
+        off_h = S.epoch_offsets(side.deg, perm)
+        perm_d = torch.from_numpy(perm.astype(np.int32)).to(dev)
+        off_d = torch.from_numpy(off_h.astype(np.int32)).to(dev)
+        # the user batch: the first; the item batch: the one with item 0
+        b = 0 if user_side else int(np.flatnonzero(perm == 0)[0]) // per_batch
+        r0, r1 = b * per_batch, min(n_rows, (b + 1) * per_batch)
+        sides.append(dict(user_side=user_side, side=side, perm=perm_d, off=off_d, off_h=off_h,
+                          r0=r0, r1=r1, mult=float(S.batch_multipliers(
+                              n_rows, per_batch, pdata.y.dtype)[b])))
+
+    t_tab, theta_colsum = C.side_derive(state.G_shp, state.G_rte)
+    b_tab, beta_colsum = C.side_derive(state.L_shp, state.L_rte)
+    for s in sides:
+        s["epoch"] = S.build_epoch_buffers(s["side"].y, s["side"].cols, s["side"].indptr,
+                                           s["perm"], s["off"])
+        e0, e1 = int(s["off_h"][s["r0"]]), int(s["off_h"][s["r1"]])
+        t_loc, t_oth = (t_tab, b_tab) if s["user_side"] else (b_tab, t_tab)
+        s["phi_args"] = (t_loc, t_oth, *(a[e0:e1] for a in s["epoch"]),
+                         s["off"][s["r0"]:s["r1"] + 1], e0, s["perm"][s["r0"]:s["r1"]])
+        s_loc, s_oth, omask = S.batch_phi_sums(*s["phi_args"])
+        lmask = S.build_row_mask(t_loc.shape[0], s["perm"][s["r0"]:s["r1"]])
+        su, si, umask, imask = ((s_loc, s_oth, lmask, omask) if s["user_side"]
+                                else (s_oth, s_loc, omask, lmask))
+        s["upd_args"] = (state, su, si, umask, imask, 0.37, s["mult"], hp, s["user_side"])
+        s["colsum"] = beta_colsum if s["user_side"] else theta_colsum
+        s["nnz_b"] = e1 - e0
+        s["oth_rows"] = int(torch.unique(s["phi_args"][4]).numel())
+        print("  %s batch: %d rows, %d nonzeros, %d distinct other-side rows"
+              % ("user" if s["user_side"] else "item (with item 0)", s["r1"] - s["r0"],
+                 s["nnz_b"], s["oth_rows"]))
+
+    def flat(results):
+        return [t for r in results for t in r]
+
+    it = state.G_shp.element_size()
+    row_b = k * it
+    # work of one call, for the bound: each input read once, each output
+    # written once, operations per nonzero or table element
+    epoch_bytes = sum(nbytes(s["side"].y, s["side"].cols, s["side"].indptr, s["perm"],
+                             s["off"], *s["epoch"]) for s in sides)
+    # a binary search (2 log2 n integer operations) and ~4 more per position
+    epoch_ops = sum(s["side"].y.numel() * (2 * int(np.log2(max(s["perm"].numel(), 2))) + 4)
+                    for s in sides)
+    # the batch's triplets, bounds and rows; the t_loc rows of the batch and
+    # the t_oth rows it touches; both sums and the mask out; a dot and two
+    # k-wide multiply-adds per triplet
+    phi_bytes = sum(s["nnz_b"] * (8 + it) + (s["r1"] - s["r0"]) * (row_b + 8)
+                    + s["oth_rows"] * row_b + nbytes(s["phi_args"][0], s["phi_args"][1])
+                    + s["phi_args"][1].shape[0] for s in sides)
+    phi_ops = sum(s["nnz_b"] * (6 * k + 2) for s in sides)
+    # local side: shp, sums, scaler, mask in; global side: shp, rte, sums,
+    # scaler, mask in; both: shp, rte, scaler out; ~10 operations an element
+    upd_bytes = upd_ops = 0
+    for s in sides:
+        n_l, n_g = ((state.G_shp.shape[0], state.L_shp.shape[0]) if s["user_side"]
+                    else (state.L_shp.shape[0], state.G_shp.shape[0]))
+        upd_bytes += ((2 * n_l + 3 * n_g) * row_b + (n_l + n_g) * (it + 1)
+                      + 2 * (n_l + n_g) * row_b + (n_l + n_g) * it)
+        upd_ops += 10 * (n_l + n_g) * k
+    vy, viu, vii = (a.reshape(-1) for a in val)
+    n_val = int((vy > 0).sum())
+    llk_bytes = (nbytes(vy, viu, vii) + (int(torch.unique(viu).numel())
+                                         + int(torch.unique(vii).numel())) * row_b)
+    Theta, Beta = state.G_shp / state.G_rte, state.L_shp / state.L_rte
+
+    cases = {
+        "epoch_gather": (
+            lambda: flat(S.build_epoch_buffers(s["side"].y, s["side"].cols, s["side"].indptr,
+                                               s["perm"], s["off"]) for s in sides),
+            lambda: flat(S._build_epoch_buffers_plain(s["side"].y, s["side"].cols,
+                                                      s["side"].indptr, s["perm"], s["off"])
+                         for s in sides),
+            (epoch_bytes, epoch_ops), None),
+        "batch_phi_sums": (
+            lambda: flat(S.batch_phi_sums(*s["phi_args"]) for s in sides),
+            lambda: flat(S._batch_phi_sums_plain(*s["phi_args"][:5]) for s in sides),
+            (phi_bytes, phi_ops), None),
+        "coo_llk": (
+            lambda: M.llk_rmse_sums(Theta, Beta, val).sum(0),
+            lambda: torch.cat([M._coo_llk_plain(Theta, Beta, val.y[b], val.ix_u[b],
+                                                val.ix_i[b], False)
+                               for b in range(val.y.shape[0])]).sum(0),
+            (llk_bytes, n_val * (4 * k + 8)), None),
+    }
+    out = run_cases(cases, dtype_name, reps, label)
+    for ba in blend_all:
+        case = {"svi_update": (
+            lambda: flat(S.svi_update(*s["upd_args"], ba, s["colsum"]) for s in sides),
+            lambda: flat(S._svi_update_math(*s["upd_args"], ba) for s in sides),
+            (upd_bytes, upd_ops), None)}
+        out.update(run_cases(case, dtype_name, reps,
+                             label + ", blend_all_scalers=%s" % ba))
     return out
 
 
@@ -184,6 +402,14 @@ def layouts_for(coo, dtype, device):
     host_u, host_i = build_layouts(pdata, dtype)
     slots = layout_slots(host_u) + layout_slots(host_i)
     return to_device(host_u, device), to_device(host_i, device), pdata, slots
+
+
+def val_blocked(coo, dtype, device):
+    """A validation coo_array as the BlockedCOO that a fit builds of it."""
+    from hpfrec_tpu_torch.ops.cavi import device_blocked_coo
+
+    return device_blocked_coo(coo.data.astype(dtype), coo.row.astype(np.int32),
+                              coo.col.astype(np.int32), device)[0]
 
 
 def random_state(nU, nI, dtype, device, seed):
@@ -208,16 +434,29 @@ def main():
               file=sys.stderr)
         return 1
     from hpfrec_tpu_torch import HPF, _cuda, _native
+    from hpfrec_tpu_torch.models.state import state_from_numpy
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as E
     from hpfrec_tpu_torch.ops import metrics as M
+    from hpfrec_tpu_torch.ops import svi as S
+    from hpfrec_tpu_torch.utils.data import process_data
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     wrappers = {"ell_phi_sums": E.bucket_phi_sums, "segment_table_sums": E.segment_table_sums,
                 "table_update": C.side_update, "table_derive": C.side_derive,
-                "ell_llk": M.bucket_llk_parts}
+                "ell_llk": M.bucket_llk_parts, "coo_llk": M.llk_rmse_sums,
+                "batch_phi_sums": S.batch_phi_sums, "svi_update": S.svi_update,
+                "epoch_gather": S.build_epoch_buffers, "row_mask": S.build_row_mask}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: w.launches for name, w in wrappers.items()}
 
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -235,15 +474,23 @@ def main():
 
     # -- 2. kernel checks at ~1M nonzeros, k=50, f32 and f64 ---------------
     coo_small = powerlaw_coo(26_000, 9_700, 1_000_000, seed=3)
+    train_small, val_small = holdout(coo_small, 0.01, seed=4)
     for dtype in (np.float32, np.float64):
+        name = np.dtype(dtype).name
         lay_u, lay_i, pdata, slots = layouts_for(coo_small, dtype, dev)
         print("[2] kernel checks, %s, %d nonzeros, %d slots, k=%d (times per iteration)"
-              % (np.dtype(dtype).name, pdata.y.shape[0], slots, K))
-        kernel_suite(lay_u, lay_i, random_state(pdata.nusers, pdata.nitems, dtype, dev, 1),
-                     np.dtype(dtype).name, reps=5)
+              % (name, pdata.y.shape[0], slots, K))
+        state = random_state(pdata.nusers, pdata.nitems, dtype, dev, 1)
+        kernel_suite(lay_u, lay_i, state, name, reps=5)
         del lay_u, lay_i
+        print("[2] SVI kernel checks, %s, batches %s, %d held-out triplets for the COO llk"
+              % (name, SMALL_BATCHES, val_small.nnz))
+        svi_suite(process_data(train_small, "val-llk", False, dtype),
+                  val_blocked(val_small, dtype, dev), state, SMALL_BATCHES, name, reps=5,
+                  blend_all=(False, True))
+        del state
 
-    # -- 3. the main path at the MillionSong shape --------------------------
+    # -- 3. the full-batch path at the MillionSong shape ----------------------
     t0 = time.perf_counter()
     coo = powerlaw_coo(**MILLIONSONG, seed=0)
     print("[3] data: %d x %d, %d nonzeros, generated in %.1f s"
@@ -258,11 +505,9 @@ def main():
     model = RecordingHPF(k=K, stop_crit="train-llk", check_every=5, maxiter=10,
                          random_seed=1, device="cuda")
     model.llk_trace = []
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     model.fit(coo)
-    torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches_fb = read_counts()
     st = model.fit_stats_
     iters = model.niter + 1
     print("[3] fit phases (s):", json.dumps({k: round(v, 3) for k, v in st.phases.items()}))
@@ -271,12 +516,13 @@ def main():
           % (st.wall_seconds, iters, st.phases["iterations"] / iters,
              st.nnz * iters / st.phases["iterations"], st.nnz_per_second))
     print("[3] train llk at checks:", model.llk_trace)
-    print("[3] launch counters:", json.dumps(launches))
+    print("[3] launch counters:", json.dumps(launches_fb))
     llk = np.array(model.llk_trace)
     if not (len(llk) == 2 and np.all(np.isfinite(llk)) and llk[1] > llk[0]):
         raise AssertionError(f"train llk not finite and ascending: {llk}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    fb_kernels = ("ell_phi_sums", "segment_table_sums", "table_update", "table_derive", "ell_llk")
+    if min(launches_fb[n] for n in fb_kernels) <= 0:
+        raise AssertionError(f"a kernel of the full-batch path never launched: {launches_fb}")
     users = [0, 1, 12345]
     for u in users:
         rec = model.topN(u, n=5)
@@ -289,8 +535,6 @@ def main():
     print("[3] predict(users %s, items [0, 7, 100]):" % users, pred.tolist())
 
     lay_u, lay_i, _, slots = layouts_for(coo, np.float32, dev)
-    from hpfrec_tpu_torch.models.state import state_from_numpy
-
     fitted = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
                                model.Lambda_rte, model.k_rte, model.t_rte], dev)
     print("[3] kernel checks at the fit's shapes (float32, fitted state, %d slots; "
@@ -299,42 +543,127 @@ def main():
     del lay_u, lay_i, fitted, model
     torch.cuda.empty_cache()
 
+    # -- 3b. the SVI path at the MillionSong shape ----------------------------
+    train, val = holdout(coo, 0.01, seed=5)
+    del coo
+    print("[3b] SVI: %d training and %d held-out triplets, batches %s"
+          % (train.nnz, val.nnz, SVI_BATCHES))
+    model = RecordingHPF(k=K, stop_crit="val-llk", check_every=2, maxiter=6, random_seed=1,
+                         device="cuda", **SVI_BATCHES)
+    model.llk_trace = []
+    reset_counts()
+    model.fit(train, val_set=val)
+    launches_val = read_counts()
+    reset_counts()
+    ev = model.eval_llk(val)
+    launches_eval = read_counts()
+    check = RecordingHPF(k=K, stop_crit="train-llk", check_every=1, maxiter=2,
+                         random_seed=1, device="cuda", verbose=False, **SVI_BATCHES)
+    check.llk_trace = []
+    reset_counts()
+    check.fit(train)
+    launches_train = read_counts()
+    st = model.fit_stats_
+    epochs = model.niter + 1
+    n_user = sum((i + 1) % 2 == 0 for i in range(epochs))
+    n_item = epochs - n_user
+    print("[3b] fit phases (s):", json.dumps({k: round(v, 3) for k, v in st.phases.items()}))
+    print("[3b] wall %.3f s, %d epochs (%d user, %d item), %.4f s per user epoch, %.4f s per "
+          "item epoch, %.4g nonzero-updates/s (epoch phases), %.4g end to end"
+          % (st.wall_seconds, epochs, n_user, n_item, st.phases["user_epochs"] / n_user,
+             st.phases["item_epochs"] / n_item,
+             st.nnz * epochs / (st.phases["user_epochs"] + st.phases["item_epochs"]),
+             st.nnz_per_second))
+    print("[3b] val llk at checks:", model.llk_trace)
+    print("[3b] eval_llk(val):", ev)
+    print("[3b] train-llk SVI fit (2 epochs): train llk at checks", check.llk_trace,
+          "phases (s):", json.dumps({k: round(v, 3) for k, v in check.fit_stats_.phases.items()}))
+    print("[3b] launch counters, val-llk fit:", json.dumps(launches_val))
+    print("[3b] launch counters, eval_llk:", json.dumps(launches_eval))
+    print("[3b] launch counters, train-llk SVI fit:", json.dumps(launches_train))
+    trace = np.array(model.llk_trace + check.llk_trace)
+    if not (len(model.llk_trace) >= 1 and np.all(np.isfinite(trace))):
+        raise AssertionError(f"llk trace not finite: {trace}")
+    if not (np.isfinite(ev["llk"]) and ev["nobs"] == val.nnz):
+        raise AssertionError(f"eval_llk gave {ev}")
+    svi_kernels = ("table_derive", "batch_phi_sums", "svi_update", "epoch_gather", "row_mask")
+    for path, counts, kernels in (("val-llk SVI fit", launches_val, (*svi_kernels, "coo_llk")),
+                                  ("eval_llk", launches_eval, ("coo_llk",)),
+                                  ("train-llk SVI fit", launches_train, (*svi_kernels, "ell_llk"))):
+        if min(counts[n] for n in kernels) <= 0:
+            raise AssertionError(f"a kernel of the {path} never launched: {counts}")
+    for u in users:
+        rec = model.topN(u, n=5)
+        if rec.shape != (5,):
+            raise AssertionError(f"topN({u}) gave {rec}")
+    print("[3b] topN(user=%d, n=5):" % users[-1], rec.tolist())
+    pred = model.predict(np.array(users), np.array([0, 7, 100]))
+    if pred.shape != (3,) or not np.all(np.isfinite(pred)) or np.any(pred < 0):
+        raise AssertionError(f"predict gave {pred}")
+    print("[3b] predict(users %s, items [0, 7, 100]):" % users, pred.tolist())
+
+    fitted = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
+                               model.Lambda_rte, model.k_rte, model.t_rte], dev)
+    del model, check
+    print("[3b] SVI kernel checks at the fit's shapes (float32, fitted state; times for a "
+          "user epoch + an item epoch (K9), a user batch + the rank-1 item's batch (K7, K8), "
+          "the validation set (K5))")
+    real.update(svi_suite(process_data(train, "val-llk", False, np.float32),
+                          val_blocked(val, np.float32, dev), fitted, SVI_BATCHES, "float32",
+                          reps=3))
+    del fitted, train, val
+    torch.cuda.empty_cache()
+
     # -- 4. agreement and determinism at a small size -----------------------
     small = counts_coo(120, 80, 2000, seed=42)
-    for use_float in (True, False):
-        dtype_name = "float32" if use_float else "float64"
-        lim = AGREE[dtype_name]
-        kw = dict(k=8, maxiter=60, check_every=10, stop_crit="train-llk", stop_thr=1e-10,
-                  random_seed=123, use_float=use_float, verbose=False)
-        runs = []
-        for device in ("cuda", "cuda", "cpu"):
-            m = RecordingHPF(device=device, **kw)
-            m.llk_trace = []
-            runs.append(m.fit(small))
-        a, b, cpu = runs
-        if not (np.array_equal(a.Theta, b.Theta) and np.array_equal(a.Beta, b.Beta)):
-            raise AssertionError("two card runs differ")
-        dev_llk = np.abs(np.array(a.llk_trace) / np.array(cpu.llk_trace) - 1).max()
-        dev_theta = np.abs(a.Theta / cpu.Theta - 1).max()
-        dev_beta = np.abs(a.Beta / cpu.Beta - 1).max()
-        print("[4] %s: card runs bit-identical; card vs CPU max rel: llk trajectory %.3e "
-              "(limit %g), Theta %.3e, Beta %.3e (limit %g); Theta, Beta max abs / max "
-              "value %.3e, %.3e"
-              % (dtype_name, dev_llk, lim["llk"], dev_theta, dev_beta, lim["factors"],
-                 np.abs(a.Theta - cpu.Theta).max() / np.abs(cpu.Theta).max(),
-                 np.abs(a.Beta - cpu.Beta).max() / np.abs(cpu.Beta).max()))
-        if dev_llk > lim["llk"]:
-            raise AssertionError("card and CPU trajectories disagree")
-        if max(dev_theta, dev_beta) > lim["factors"]:
-            raise AssertionError("card and CPU factors disagree")
+    small_train, small_val = holdout(small, 0.1, seed=43)
+    paths = (("full batch", AGREE, dict(maxiter=60, check_every=10, stop_crit="train-llk"),
+              (small,), {}),
+             ("SVI", AGREE_SVI, dict(maxiter=10, check_every=2, stop_crit="val-llk",
+                                     users_per_batch=25, items_per_batch=17),
+              (small_train,), dict(val_set=small_val)))
+    for label, limits, opts, args, fit_kw in paths:
+        for use_float in (True, False):
+            dtype_name = "float32" if use_float else "float64"
+            lim = limits[dtype_name]
+            kw = dict(k=8, stop_thr=1e-10, random_seed=123, use_float=use_float,
+                      verbose=False, **opts)
+            runs = []
+            for device in ("cuda", "cuda", "cpu"):
+                m = RecordingHPF(device=device, **kw)
+                m.llk_trace = []
+                runs.append(m.fit(*args, **fit_kw))
+            a, b, cpu = runs
+            if not (np.array_equal(a.Theta, b.Theta) and np.array_equal(a.Beta, b.Beta)
+                    and a.llk_trace == b.llk_trace):
+                raise AssertionError(f"{label}: two card runs differ")
+            dev_llk = np.abs(np.array(a.llk_trace) / np.array(cpu.llk_trace) - 1).max()
+            dev_theta = np.abs(a.Theta / cpu.Theta - 1).max()
+            dev_beta = np.abs(a.Beta / cpu.Beta - 1).max()
+            print("[4] %s, %s: card runs bit-identical; card vs CPU max rel: llk trajectory "
+                  "%.3e (limit %g), Theta %.3e, Beta %.3e (limit %g); Theta, Beta max abs / "
+                  "max value %.3e, %.3e"
+                  % (label, dtype_name, dev_llk, lim["llk"], dev_theta, dev_beta,
+                     lim["factors"],
+                     np.abs(a.Theta - cpu.Theta).max() / np.abs(cpu.Theta).max(),
+                     np.abs(a.Beta - cpu.Beta).max() / np.abs(cpu.Beta).max()))
+            if dev_llk > lim["llk"]:
+                raise AssertionError(f"{label}: card and CPU trajectories disagree")
+            if max(dev_theta, dev_beta) > lim["factors"]:
+                raise AssertionError(f"{label}: card and CPU factors disagree")
 
     # -- 5. results -----------------------------------------------------------
     kernels = []
-    for name, (err_abs, _, ms, plain_ms) in real.items():
+    for name, r in real.items():
         src, rep = REPLACES[name]
+        by_path = {"full_batch": launches_fb[name], "svi_val": launches_val[name],
+                   "eval_llk": launches_eval[name], "svi_train": launches_train[name]}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": launches[name], "max_abs_err": err_abs,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "bytes": r["bytes"], "ops": r["ops"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """hpfrec_tpu_torch — Hierarchical Poisson Factorization on PyTorch and CUDA.
 
 The port of ``hpfrec_tpu`` to an NVIDIA H100: the same ``HPF`` class,
-with the device loop of full-batch CAVI on hand-written CUDA kernels
-(``csrc/``) and their plain PyTorch versions on the CPU.
+with the device loops of full-batch CAVI and mini-batch SVI on
+hand-written CUDA kernels (``csrc/``) and their plain PyTorch versions on
+the CPU.
 """
 
 from .models.hpf import HPF

@@ -1,6 +1,7 @@
 """ctypes binding of the hand-written CUDA kernels (``csrc/*.cu``).
 
-Every C entry point is ``int hpf_<name>_<f32|f64>(..., void* stream)``: it
+Every C entry point is ``int hpf_<name>_<f32|f64>(..., void* stream)``
+(``int hpf_<name>(..., void* stream)`` for the few that take no floats): it
 launches on the given stream, does not synchronize, allocates nothing, and
 returns ``cudaGetLastError()``.  :func:`launch` passes tensor pointers and
 PyTorch's current stream, and raises when the return code is not 0.
@@ -38,6 +39,24 @@ _SIGNATURES = {
     "colsum_finish": [_P, _P, _I32, _I32],
     # theta, beta, rows, cols, vals, partials, m, w, k, col_off, full_llk
     "ell_llk": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32],
+    # theta, beta, y, iu, ii, partials, n, k, full_llk, nblocks
+    "coo_llk": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64],
+    # y, cols, indptr, perm, offsets, e_y, e_row, e_col, nnz, n_rows
+    "epoch_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64],
+    # t_loc, t_oth, y, rows, cols, bounds, base, seg_rows, nq, skeys, order,
+    # scale, head_l, tail_l, head_o, tail_o, s_loc, s_oth, omask, n, n_oth, k
+    "batch_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _I64, _I64, _I32],
+    # shp_in, rte_in, sums, mask, scaler_in, colsum, prior, scaler_shape,
+    # add_scaler, step, mult, blend_all, global, shp_out, rte_out,
+    # scaler_out, partials, n, k, nblocks
+    "svi_pass": [_P, _P, _P, _P, _P, _P, _D, _D, _D, _D, _D, _I32, _I32, _P, _P, _P,
+                 _P, _I64, _I32, _I32],
+}
+# entry points without a float type: name -> argument types before the stream
+_UNTYPED = {
+    # rows, m, mask
+    "row_mask": [_P, _I64, _P],
 }
 
 _lib = None
@@ -55,6 +74,10 @@ def load():
                 fn = getattr(lib, f"hpf_{name}_{suffix}")
                 fn.argtypes = [*args, _P]
                 fn.restype = ctypes.c_int
+        for name, args in _UNTYPED.items():
+            fn = getattr(lib, f"hpf_{name}")
+            fn.argtypes = [*args, _P]
+            fn.restype = ctypes.c_int
         lib.hpf_error_string.argtypes = [ctypes.c_int]
         lib.hpf_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -74,15 +97,17 @@ def check(*tensors, dtype):
             raise ValueError("expected contiguous tensors")
 
 
-def launch(name: str, dtype, k: int, *args):
-    """Launch ``hpf_<name>`` for ``dtype`` on the current stream of the
-    first tensor argument's device."""
-    if dtype not in (torch.float32, torch.float64):
+def launch(name: str, dtype, k, *args):
+    """Launch ``hpf_<name>`` for ``dtype`` (None: the untyped entry point)
+    on the current stream of the first tensor argument's device; ``k`` is
+    checked against the kernels' range unless it is None."""
+    if dtype is not None and dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: kernels take float32 or float64, not {dtype}")
-    if not 1 <= k <= MAX_K:
+    if k is not None and not 1 <= k <= MAX_K:
         raise ValueError(f"{name}: k={k} outside the kernels' range 1..{MAX_K}")
     lib = load()
-    fn = getattr(lib, f"hpf_{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+    suffix = "" if dtype is None else "_f64" if dtype == torch.float64 else "_f32"
+    fn = getattr(lib, f"hpf_{name}{suffix}")
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -1,11 +1,13 @@
 """Build the CUDA kernels of ``csrc/`` into one shared library.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-over every ``csrc/*.cu``, at first use, cached under a hash of the sources,
-the headers and the command in the port's build directory (listed in
-.gitignore).  The sources have a plain C interface and include no PyTorch
-header, so a build takes seconds.  A missing ``nvcc`` or a failed build
-raises: there is no fallback for CUDA tensors.
+Each ``csrc/*.cu`` is compiled to an object by its own ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -c -Xcompiler -fPIC``, all started
+together, and the objects are linked with ``nvcc -shared``.  Objects and
+library go through ``_native.build.cached_build``: cached under hashes of
+the sources, the headers and the commands in the port's build directory
+(listed in .gitignore).  The sources have a plain C interface and include
+no PyTorch header, so a build takes seconds.  A missing ``nvcc`` or a
+failed build raises: there is no fallback for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import glob
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 
 from .._native.build import cached_build
 
@@ -20,7 +23,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def nvcc_path() -> str:
@@ -31,11 +34,22 @@ def nvcc_path() -> str:
     return path
 
 
-def build_kernels() -> str:
-    """Compile (or find in the cache) the kernel library; returns its path."""
+def sources_and_headers():
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    return cached_build([nvcc_path(), *NVCC_FLAGS], sources, "hpf_kernels",
-                        deps=headers)
+    return sources, sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def build_kernels() -> str:
+    """Compile (or find in the cache) the kernel library; returns its path."""
+    sources, headers = sources_and_headers()
+    compile_cmd = [nvcc_path(), *NVCC_FLAGS, "-c"]
+
+    def compile_one(src):
+        stem = os.path.splitext(os.path.basename(src))[0]
+        return cached_build(compile_cmd, [src], stem, deps=headers, suffix=".o")
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        objs = list(pool.map(compile_one, sources))
+    return cached_build([compile_cmd[0], "-shared"], objs, "hpf_kernels")

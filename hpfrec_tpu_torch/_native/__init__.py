@@ -1,8 +1,8 @@
 """ctypes bindings of the host C++ helpers (CSR build, ELL fill, in-row
 column sort, integer factorize).
 
-The library is built on first use from the JAX package's C++ source (see
-``build.py``).  If no toolchain is present, ``available()`` is False and
+The library is built on first use from ``csr_ops.cpp`` beside this file
+(see ``build.py``).  If no toolchain is present, ``available()`` is False and
 each function raises; the data layer then takes its numpy path, which
 gives the same arrays, only slower.
 """

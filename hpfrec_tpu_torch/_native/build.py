@@ -1,12 +1,11 @@
-"""On-demand build of the host C++ helpers, by file path.
+"""On-demand build of the host C++ helpers.
 
-The C++ source is the JAX package's framework-free
-``hpfrec_tpu/_native/csr_ops.cpp``: one source of truth for those
-kernels.  It is compiled by path, never imported, because importing
-anything under ``hpfrec_tpu`` runs that package's ``__init__`` and pulls in
-jax.  Flags are probed as in the JAX package's builder (``-march=native``,
-OpenMP spellings), and the library is cached under a hash of the source
-and the flags in the port's build directory.
+The C++ source is the port's own ``csr_ops.cpp`` beside this file: a
+framework-free copy of the JAX package's host kernels (CSR build, ELL
+fill, in-row column sort, integer factorize), so that the port builds from
+nothing outside its own package.  Flags are probed as in the JAX package's
+builder (``-march=native``, OpenMP spellings), and the library is cached
+under a hash of the source and the flags in the port's build directory.
 """
 
 from __future__ import annotations
@@ -22,8 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # .gitignore.
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-SRC = os.path.join(os.path.dirname(_PKG), "hpfrec_tpu", "_native",
-                   "csr_ops.cpp")
+SRC = os.path.join(_PKG, "_native", "csr_ops.cpp")
 
 
 def _probe_flag(cxx: str, flag: str) -> bool:
@@ -42,12 +40,14 @@ def build_dir() -> str:
     return BUILD_DIR
 
 
-def cached_build(cmd_prefix, sources, out_stem: str, deps=(), key: str = "") -> str:
-    """Run ``cmd_prefix + ['-o', out] + sources`` unless a library built
-    from the same bytes of ``sources`` and ``deps`` (headers) and the same
-    command (and ``key``) already exists.  The output is written under a per-process
-    temporary name and renamed, so concurrent builders never see a partial
-    file; the compiler's output is kept beside it as ``<stem>.log``.
+def cached_build(cmd_prefix, sources, out_stem: str, deps=(), key: str = "",
+                 suffix: str = ".so") -> str:
+    """Run ``cmd_prefix + ['-o', out] + sources`` unless an output (a
+    library, or an object for ``suffix='.o'``) built from the same bytes of
+    ``sources`` and ``deps`` (headers) and the same command (and ``key``)
+    already exists.  The output is written under a per-process temporary
+    name and renamed, so concurrent builders never see a partial file; the
+    compiler's output is kept beside it as ``<stem>.log``.
     Raises on failure."""
     h = hashlib.sha256()
     for s in (*sources, *deps):
@@ -55,7 +55,7 @@ def cached_build(cmd_prefix, sources, out_stem: str, deps=(), key: str = "") -> 
             h.update(f.read())
     h.update("\0".join([*cmd_prefix, key]).encode())
     stem = os.path.join(build_dir(), f"{out_stem}_{h.hexdigest()[:16]}")
-    out = stem + ".so"
+    out = stem + suffix
     if os.path.exists(out):
         return out
     tmp = f"{out}.{os.getpid()}.tmp"

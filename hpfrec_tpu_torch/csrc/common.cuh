@@ -83,6 +83,42 @@ __device__ __forceinline__ double digamma(double x) {
   return r + log(x) - 0.5 / x + t;
 }
 
+// One slot's llk pieces (hpfrec_tpu/ops/metrics.py:36-47): the terms in T,
+// as the JAX version computes them, accumulated in double.  Callers pass
+// only slots with y > 0.
+template <typename T>
+__device__ __forceinline__ void llk_add(T y, T yhat, int full_llk, double& ll, double& se,
+                                        double& sp) {
+  T l = y * dlog(yhat > T(0) ? yhat : T(1));
+  if (full_llk) l -= dlgamma(y + T(1));
+  const T e = y - yhat;
+  ll += (double)l;
+  se += (double)(e * e);
+  sp += (double)yhat;
+}
+
+// The block's (ll, se, sp) partial: lane 0 of each warp holds its warp's
+// sums; the warps are added in warp order into partials[blockIdx.x].
+// Every thread of the block must call it.
+__device__ __forceinline__ void llk_block_store(double ll, double se, double sp,
+                                                double* __restrict__ partials) {
+  __shared__ double red[kWarpsPerBlock][3];
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  if (lane == 0) {
+    red[warp][0] = ll;
+    red[warp][1] = se;
+    red[warp][2] = sp;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    double s = 0.0;
+#pragma unroll
+    for (int w = 0; w < kWarpsPerBlock; ++w) s += red[w][threadIdx.x];
+    partials[(int64_t)blockIdx.x * 3 + threadIdx.x] = s;
+  }
+}
+
 }  // namespace hpf
 
 // One switch over the supported elements-per-lane counts; FN is a function

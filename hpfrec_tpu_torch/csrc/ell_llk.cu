@@ -16,7 +16,8 @@
 // gathers in flight per warp, shuffle-reduced dots).  Each slot's terms
 // are computed in T, as the JAX version does, and accumulated in float64
 // by lane 0; the 8 warps' sums are added in warp order through shared
-// memory.  No atomics: partials are bit-identical run to run.
+// memory (common.cuh llk_add / llk_block_store, shared with K5).  No
+// atomics: partials are bit-identical run to run.
 #include "common.cuh"
 
 namespace hpf {
@@ -29,7 +30,6 @@ __global__ void __launch_bounds__(kThreads)
                    const int32_t* __restrict__ rows, const int32_t* __restrict__ cols,
                    const T* __restrict__ vals, double* __restrict__ partials, int64_t m, int w,
                    int k, int64_t col_off, int full_llk) {
-  __shared__ double red[kWarpsPerBlock][3];
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
   const int64_t seg = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
@@ -61,31 +61,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < kLlkUnroll; ++u) d[u] = warp_sum(d[u]);
 #pragma unroll
-      for (int u = 0; u < kLlkUnroll; ++u) {
-        if (y[u] > T(0)) {
-          const T yhat = d[u];
-          T l = y[u] * dlog(yhat > T(0) ? yhat : T(1));
-          if (full_llk) l -= dlgamma(y[u] + T(1));
-          const T e = y[u] - yhat;
-          ll += (double)l;
-          se += (double)(e * e);
-          sp += (double)yhat;
-        }
-      }
+      for (int u = 0; u < kLlkUnroll; ++u)
+        if (y[u] > T(0)) llk_add(y[u], d[u], full_llk, ll, se, sp);
     }
   }
-  if (lane == 0) {
-    red[warp][0] = ll;
-    red[warp][1] = se;
-    red[warp][2] = sp;
-  }
-  __syncthreads();
-  if (threadIdx.x < 3) {
-    double s = 0.0;
-#pragma unroll
-    for (int w8 = 0; w8 < kWarpsPerBlock; ++w8) s += red[w8][threadIdx.x];
-    partials[(int64_t)blockIdx.x * 3 + threadIdx.x] = s;
-  }
+  llk_block_store(ll, se, sp, partials);
 }
 
 template <int KPL, typename T>

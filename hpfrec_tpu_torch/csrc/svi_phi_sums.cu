@@ -1,0 +1,312 @@
+// K7 — phi sums of one SVI mini-batch, both sides, and the other side's
+// touched-row mask.
+//
+// Replaces hpfrec_tpu/ops/svi.py:phi_sums_tables (svi.py:31-38, over
+// hpfrec_tpu/ops/cavi.py:_phi_block) as the chunk body of svi_run_batches
+// runs it (svi.py:254-276).  A batch is a slice of the epoch stream (K9):
+// triplets (y, row, col), grouped by local row (one contiguous run per
+// batch row, batch rows in shuffled order).  With t_loc / t_oth the exp
+// tables of the local / other side and
+//   scale_s = y_s / <t_loc[row_s], t_oth[col_s]>,
+//   s_loc[r] = t_loc[r] (.) sum_{s: row_s = r} scale_s t_oth[col_s],
+//   s_oth[c] = t_oth[c] (.) sum_{s: col_s = c} scale_s t_loc[row_s],
+//   omask[c] = some col_s == c,
+// which is phi = scale (t_loc (.) t_oth) summed per row on each side, the
+// common factor of a row taken out of its sum.  s_loc must arrive zeroed
+// (rows outside the batch stay 0); s_oth and omask are written in full.
+//
+// What bounds it on the card: gathers.  Each triplet reads one random row
+// of t_oth (k * sizeof(T) bytes) on the local pass and one row of t_loc
+// on the other pass; the batch's t_loc rows (~100K users or 40K items)
+// mostly stay in the 50 MB L2.  A dot and 2k flops per triplet are far
+// under the bandwidth line.
+//
+// Design.  Sums are segmented reductions over a key-grouped stream, with
+// no atomics, in a fixed order, so a batch gives the same bits every run:
+// - The stream is cut into chunks of kChunk slots; one warp walks a chunk,
+//   k over the lanes, 4 row gathers in flight, and keeps a running sum for
+//   the current key.  A run that lies wholly inside its chunk is
+//   multiplied by its row factor and stored (the only writer of that row).
+//   A run cut by a chunk edge leaves its partial in head[chunk] (the
+//   chunk's first run) or tail[chunk] (its last run).
+// - A finish pass (one warp per key) adds a cut run's partials in chunk
+//   order: tail or head of its first chunk, heads of the middle chunks,
+//   head of its last chunk.  So a row of any length -- the rank-1 item of a
+//   Zipf side holds ~2.9M of an item epoch's slots -- is spread over many
+//   warps, and no warp walks more than kChunk slots.
+// - Local side: the batch stream is already grouped; the local pass also
+//   writes scale_s.  Its finish pass takes each batch row's bounds from the
+//   epoch offsets.
+// - Other side: the wrapper sorts the batch's col ids (a stable sort of
+//   int keys: it moves indices, adds no floats).  The other pass walks the
+//   sorted order and reuses scale_s; its finish pass runs one warp per
+//   other-side row, finds the row's run by binary search in the sorted
+//   keys, writes zeros and omask = 0 where there is none.
+#include "common.cuh"
+
+namespace hpf {
+
+constexpr int kChunk = 256;
+constexpr int kPhiUnroll = 4;
+
+// One chunk of a key-grouped stream.  LOCAL: position j is triplet j,
+// key = rows[j], vector t_oth[cols[j]], scale computed here and stored;
+// the key's factor row is t_loc[key].  OTHER: position j is triplet
+// order[j], key = skeys[j], vector t_loc[rows[order[j]]], scale read back;
+// factor row t_oth[key].
+template <int KPL, bool LOCAL, typename T>
+__global__ void __launch_bounds__(kThreads)
+    phi_chunk_kernel(const T* __restrict__ t_loc, const T* __restrict__ t_oth,
+                     const T* __restrict__ y, const int32_t* __restrict__ rows,
+                     const int32_t* __restrict__ cols, const int32_t* __restrict__ skeys,
+                     const int64_t* __restrict__ order, T* __restrict__ scale,
+                     T* __restrict__ out, T* __restrict__ head, T* __restrict__ tail, int64_t n,
+                     int k) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t chunk = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int64_t c0 = chunk * kChunk;
+  if (c0 >= n) return;  // no block-level synchronization in this kernel
+  const int64_t c1 = c0 + kChunk < n ? c0 + kChunk : n;
+  const int32_t* keys = LOCAL ? rows : skeys;
+  const T* fac_tab = LOCAL ? t_loc : t_oth;
+
+  T acc[KPL];
+#pragma unroll
+  for (int q = 0; q < KPL; ++q) acc[q] = T(0);
+  int32_t cur = keys[c0];
+  int64_t run_start = c0;
+
+  auto emit = [&](int64_t rs, int64_t re) {
+    const bool before = rs == c0 && c0 > 0 && keys[c0 - 1] == cur;
+    const bool after = re == c1 && c1 < n && keys[c1] == cur;
+    T* dst;
+    if (!before && !after) {
+      dst = out + (int64_t)cur * k;
+      const T* f = fac_tab + (int64_t)cur * k;
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) {
+        const int c = lane + kWarp * q;
+        if (c < k) dst[c] = f[c] * acc[q];
+      }
+      return;
+    }
+    dst = (rs == c0 ? head : tail) + chunk * k;
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int c = lane + kWarp * q;
+      if (c < k) dst[c] = acc[q];
+    }
+  };
+
+  for (int64_t j0 = c0; j0 < c1; j0 += kPhiUnroll) {
+    int32_t key[kPhiUnroll];
+    T v[kPhiUnroll][KPL], sc[kPhiUnroll];
+#pragma unroll
+    for (int u = 0; u < kPhiUnroll; ++u) {
+      const int64_t j = j0 + u;
+      const bool live = j < c1;
+      key[u] = live ? keys[j] : cur;
+      if constexpr (LOCAL) {
+        const T* vrow = t_oth + (int64_t)(live ? cols[j] : 0) * k;
+        const T* lrow = t_loc + (int64_t)(live ? rows[j] : 0) * k;
+        T d = T(0);
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) {
+          const int c = lane + kWarp * q;
+          v[u][q] = (live && c < k) ? vrow[c] : T(0);
+          d += (live && c < k) ? lrow[c] * v[u][q] : T(0);
+        }
+        sc[u] = d;  // reduced below
+      } else {
+        const int64_t s = live ? order[j] : 0;
+        const T* vrow = t_loc + (int64_t)(live ? rows[s] : 0) * k;
+        sc[u] = live ? scale[s] : T(0);
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) {
+          const int c = lane + kWarp * q;
+          v[u][q] = (live && c < k) ? vrow[c] : T(0);
+        }
+      }
+    }
+    if constexpr (LOCAL) {
+#pragma unroll
+      for (int u = 0; u < kPhiUnroll; ++u) sc[u] = warp_sum(sc[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kPhiUnroll; ++u) {
+      const int64_t j = j0 + u;
+      if (j >= c1) break;
+      if (key[u] != cur) {
+        emit(run_start, j);
+        cur = key[u];
+        run_start = j;
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) acc[q] = T(0);
+      }
+      T s = sc[u];
+      if constexpr (LOCAL) {
+        s = y[j] / s;
+        if (lane == 0) scale[j] = s;
+      }
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) acc[q] += s * v[u][q];
+    }
+  }
+  emit(run_start, c1);
+}
+
+// Sum of a run [lo, hi) cut by chunk edges, from the chunk partials, in
+// chunk order.
+template <int KPL, typename T>
+__device__ __forceinline__ void add_cut_run(const T* __restrict__ head, const T* __restrict__ tail,
+                                            int64_t lo, int64_t hi, int lane, int k, T* sum) {
+  const int64_t j0 = lo / kChunk, j1 = (hi - 1) / kChunk;
+  const T* first = (lo == j0 * kChunk ? head : tail) + j0 * k;
+#pragma unroll
+  for (int q = 0; q < KPL; ++q) {
+    const int c = lane + kWarp * q;
+    sum[q] = c < k ? first[c] : T(0);
+  }
+  for (int64_t j = j0 + 1; j <= j1; ++j) {
+    const T* h = head + j * k;
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int c = lane + kWarp * q;
+      if (c < k) sum[q] += h[c];
+    }
+  }
+}
+
+// Local finish: one warp per batch row q; its run is [bounds[q] - base,
+// bounds[q + 1] - base).  Runs inside one chunk were stored by the chunk
+// pass.
+template <int KPL, typename T>
+__global__ void __launch_bounds__(kThreads)
+    phi_local_finish_kernel(const T* __restrict__ t_loc, const int32_t* __restrict__ bounds,
+                            int64_t base, const int32_t* __restrict__ seg_rows,
+                            const T* __restrict__ head, const T* __restrict__ tail,
+                            T* __restrict__ s_loc, int64_t nq, int k) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t q = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (q >= nq) return;
+  const int64_t lo = bounds[q] - base, hi = bounds[q + 1] - base;
+  if (hi <= lo || lo / kChunk == (hi - 1) / kChunk) return;
+  T sum[KPL];
+  add_cut_run<KPL, T>(head, tail, lo, hi, lane, k, sum);
+  const int64_t r = seg_rows[q];
+  const T* f = t_loc + r * k;
+  T* dst = s_loc + r * k;
+#pragma unroll
+  for (int q2 = 0; q2 < KPL; ++q2) {
+    const int c = lane + kWarp * q2;
+    if (c < k) dst[c] = f[c] * sum[q2];
+  }
+}
+
+// Other finish: one warp per other-side row c; its run in the sorted keys
+// is [lower_bound(c), upper_bound(c)).
+template <int KPL, typename T>
+__global__ void __launch_bounds__(kThreads)
+    phi_other_finish_kernel(const T* __restrict__ t_oth, const int32_t* __restrict__ skeys,
+                            int64_t n, const T* __restrict__ head, const T* __restrict__ tail,
+                            T* __restrict__ s_oth, uint8_t* __restrict__ omask, int64_t n_oth,
+                            int k) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (r >= n_oth) return;
+  int64_t a = 0, b = n;  // lower bound: first position with skeys >= r
+  while (a < b) {
+    const int64_t m = (a + b) >> 1;
+    if (skeys[m] < r) a = m + 1; else b = m;
+  }
+  const int64_t lo = a;
+  b = n;  // upper bound: first position with skeys > r
+  while (a < b) {
+    const int64_t m = (a + b) >> 1;
+    if (skeys[m] <= r) a = m + 1; else b = m;
+  }
+  const int64_t hi = a;
+  if (lane == 0) omask[r] = hi > lo ? 1 : 0;
+  T* dst = s_oth + r * k;
+  if (hi <= lo) {
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+      const int c = lane + kWarp * q;
+      if (c < k) dst[c] = T(0);
+    }
+    return;
+  }
+  if (lo / kChunk == (hi - 1) / kChunk) return;
+  T sum[KPL];
+  add_cut_run<KPL, T>(head, tail, lo, hi, lane, k, sum);
+  const T* f = t_oth + r * k;
+#pragma unroll
+  for (int q = 0; q < KPL; ++q) {
+    const int c = lane + kWarp * q;
+    if (c < k) dst[c] = f[c] * sum[q];
+  }
+}
+
+inline unsigned warp_blocks(int64_t warps) {
+  return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+template <int KPL, typename T>
+cudaError_t launch_batch_phi(const T* t_loc, const T* t_oth, const T* y, const int32_t* rows,
+                             const int32_t* cols, const int32_t* bounds, int64_t base,
+                             const int32_t* seg_rows, int64_t nq, const int32_t* skeys,
+                             const int64_t* order, T* scale, T* head_l, T* tail_l, T* head_o,
+                             T* tail_o, T* s_loc, T* s_oth, uint8_t* omask, int64_t n,
+                             int64_t n_oth, int k, cudaStream_t stream) {
+  if (n < 0 || nq < 0 || n_oth <= 0) return cudaErrorInvalidValue;
+  const int64_t nchunks = (n + kChunk - 1) / kChunk;
+  if (n > 0) {
+    phi_chunk_kernel<KPL, true, T><<<warp_blocks(nchunks), kThreads, 0, stream>>>(
+        t_loc, t_oth, y, rows, cols, nullptr, nullptr, scale, s_loc, head_l, tail_l, n, k);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    if (nq > 0) {
+      phi_local_finish_kernel<KPL, T><<<warp_blocks(nq), kThreads, 0, stream>>>(
+          t_loc, bounds, base, seg_rows, head_l, tail_l, s_loc, nq, k);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    phi_chunk_kernel<KPL, false, T><<<warp_blocks(nchunks), kThreads, 0, stream>>>(
+        t_loc, t_oth, y, rows, nullptr, skeys, order, scale, s_oth, head_o, tail_o, n, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  phi_other_finish_kernel<KPL, T><<<warp_blocks(n_oth), kThreads, 0, stream>>>(
+      t_oth, skeys, n, head_o, tail_o, s_oth, omask, n_oth, k);
+  return cudaGetLastError();
+}
+
+}  // namespace hpf
+
+extern "C" {
+
+int hpf_batch_phi_sums_f32(const float* t_loc, const float* t_oth, const float* y,
+                           const int32_t* rows, const int32_t* cols, const int32_t* bounds,
+                           int64_t base, const int32_t* seg_rows, int64_t nq,
+                           const int32_t* skeys, const int64_t* order, float* scale,
+                           float* head_l, float* tail_l, float* head_o, float* tail_o,
+                           float* s_loc, float* s_oth, uint8_t* omask, int64_t n, int64_t n_oth,
+                           int32_t k, void* stream) {
+  HPF_DISPATCH_KPL(k, hpf::launch_batch_phi, t_loc, t_oth, y, rows, cols, bounds, base, seg_rows,
+                   nq, skeys, order, scale, head_l, tail_l, head_o, tail_o, s_loc, s_oth, omask,
+                   n, n_oth, k, (cudaStream_t)stream);
+}
+
+int hpf_batch_phi_sums_f64(const double* t_loc, const double* t_oth, const double* y,
+                           const int32_t* rows, const int32_t* cols, const int32_t* bounds,
+                           int64_t base, const int32_t* seg_rows, int64_t nq,
+                           const int32_t* skeys, const int64_t* order, double* scale,
+                           double* head_l, double* tail_l, double* head_o, double* tail_o,
+                           double* s_loc, double* s_oth, uint8_t* omask, int64_t n,
+                           int64_t n_oth, int32_t k, void* stream) {
+  HPF_DISPATCH_KPL(k, hpf::launch_batch_phi, t_loc, t_oth, y, rows, cols, bounds, base, seg_rows,
+                   nq, skeys, order, scale, head_l, tail_l, head_o, tail_o, s_loc, s_oth, omask,
+                   n, n_oth, k, (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -1,11 +1,13 @@
-"""The ``HPF`` model class on PyTorch: full-batch CAVI on one device.
+"""The ``HPF`` model class on PyTorch: full-batch CAVI and mini-batch SVI
+on one device.
 
 Port of ``hpfrec_tpu/models/hpf.py`` (itself API-compatible with the
-reference ``hpfrec/__init__.py:11-1459``) for the main path: the
-constructor with all of the reference's arguments and their validation,
-``fit`` in full-batch CAVI on the bucketed-ELL engine with the maxiter /
-train-llk / diff-norm criteria, and ``predict`` / ``topN`` on the fitted
-host factors.  The device loop runs the hand-written CUDA kernels of
+reference ``hpfrec/__init__.py:11-1459``): the constructor with all of the
+reference's arguments and their validation; ``fit`` in full-batch CAVI on
+the bucketed-ELL engine or in mini-batch SVI (``users_per_batch`` /
+``items_per_batch``), with all four stopping criteria and a validation
+set; ``eval_llk``; and ``predict`` / ``topN`` on the fitted host factors.
+The device loops run the hand-written CUDA kernels of
 ``hpfrec_tpu_torch/csrc`` on a CUDA device, and their plain PyTorch
 versions on the CPU.
 
@@ -47,8 +49,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class HPF:
-    """Hierarchical Poisson Factorization, fit by full-batch CAVI on one
-    PyTorch device.
+    """Hierarchical Poisson Factorization, fit by full-batch CAVI or
+    mini-batch SVI on one PyTorch device.
 
     The constructor signature and defaults match ``hpfrec_tpu.HPF`` and the
     reference ``HPF`` (``hpfrec/__init__.py:205-358``); see
@@ -59,14 +61,13 @@ class HPF:
         kernels and raises in ``fit`` when CUDA is absent; ``"cpu"`` runs
         the kernels' plain PyTorch versions.
 
-    Not ported yet (raise ``NotImplementedError``): ``users_per_batch`` /
-    ``items_per_batch`` (SVI), ``stop_crit='val-llk'`` and ``val_set``,
-    ``engine='coo'``, ``shard_tables``, ``mesh``, ``checkpoint_folder`` /
+    Not ported yet (raise ``NotImplementedError``): ``engine='coo'``,
+    ``shard_tables``, ``mesh``, ``checkpoint_folder`` /
     ``checkpoint_every`` / ``resume``, ``save_folder``, ``profile_dir``,
     ``gather_dtype='bfloat16'``, and the methods ``partial_fit``,
-    ``predict_factors``, ``add_user``, ``topN_batch``, ``eval_llk``,
-    ``save`` / ``load``.  ``gather_dtype`` ``'auto'`` and ``'float32'``
-    both mean the state dtype.
+    ``predict_factors``, ``add_user``, ``topN_batch``, ``save`` /
+    ``load``.  ``gather_dtype`` ``'auto'`` and ``'float32'`` both mean the
+    state dtype.
     """
 
     def __init__(self, k=30, a=0.3, a_prime=0.3, b_prime=1.0,
@@ -184,10 +185,6 @@ class HPF:
         assert gather_dtype in ("auto", "float32", "bfloat16")
 
         # options of hpfrec_tpu.HPF that this package does not run yet
-        if users_per_batch or items_per_batch:
-            raise _not_ported("Mini-batch SVI (users_per_batch/items_per_batch)", "7")
-        if stop_crit == 'val-llk':
-            raise _not_ported("stop_crit='val-llk' (validation llk, kernel K5)", "4")
         if engine == "coo":
             raise _not_ported("engine='coo' (the blocked-COO engine, K7)", "9")
         if shard_tables or mesh is not None:
@@ -303,10 +300,12 @@ class HPF:
     # ------------------------------------------------------------------
     def fit(self, counts_df, val_set=None, resume=False):
         """Fit the model to sparse count triplets (DataFrame / ndarray /
-        scipy ``coo_array``), as ``hpfrec_tpu.HPF.fit`` does in full-batch
-        mode."""
-        if val_set is not None:
-            raise _not_ported("A validation set (val_set)", "4")
+        scipy ``coo_array``), as ``hpfrec_tpu.HPF.fit`` does: full-batch
+        CAVI, or mini-batch SVI when ``users_per_batch`` /
+        ``items_per_batch`` are set; ``val_set`` (same formats) feeds the
+        val-llk criterion."""
+        if self.stop_crit == 'val-llk' and val_set is None:
+            raise ValueError("If 'stop_crit' is set to 'val-llk', must provide a validation set.")
         if resume:
             raise _not_ported("Resuming from a checkpoint (resume=True)", "5")
         dev = self._torch_device()
@@ -335,11 +334,26 @@ class HPF:
         self.item_mapping_ = pdata.item_mapping
         if self.verbose:
             self._print_data_info()
-        if self.block_size is not None:
+
+        val_arrays = None
+        if (val_set is not None) and (self.stop_crit not in ("diff-norm", "train-llk")):
+            with stats.phase("valset"):
+                val_arrays = data_utils.process_valset(
+                    val_set, self.stop_crit, self.reindex, self.user_mapping_,
+                    self.item_mapping_, self.nusers, self.nitems, self._dtype,
+                    is_valset=True)
+            if val_arrays is None and self.stop_crit == 'val-llk':
+                self.stop_crit = 'train-llk'
+
+        svi_mode = (self.users_per_batch != 0) or (self.items_per_batch != 0)
+        if self.block_size is not None and val_arrays is None:
             warnings.warn(
                 "block_size has no effect on this fit: it sizes blocked-COO "
                 "device buffers, which the ELL engine only allocates for a "
                 "validation set (none in use here).")
+        if svi_mode and self.users_per_batch != 0 and self.nusers < self.users_per_batch:
+            warnings.warn("Batch size passed is larger than number of users. Will set it to nusers/10.")
+            self.users_per_batch = int(np.ceil(self.nusers / 10))
 
         hp = self._hp()
         if self.verbose:
@@ -348,20 +362,30 @@ class HPF:
                                  self._dtype)
         nnz = int(pdata.y.shape[0])
         stats.nnz = nnz
+        self._nnz = nnz
+        self._metric_ell = None
+        self._val = None
+        if val_arrays is not None:
+            with stats.phase("valset"):
+                self._val = self._device_valset(val_arrays, dev)
 
         if self.verbose:
             print("Initializing optimization procedure...")
         st_time = time.time()
-        carry, layout_u = self._run_full_batch(state, pdata, nnz, hp, dev, stats)
+        if svi_mode:
+            state, colsums = self._run_svi(state, pdata, hp, dev, stats)
+        else:
+            state, colsums = self._run_full_batch(state, pdata, hp, dev, stats)
         end_tm = (time.time() - st_time) / 60.0
         with stats.phase("metric_checks"):
-            self._final_eval(carry, layout_u, nnz)
+            self._final_eval(state, colsums)
+        self._metric_ell = self._val = None  # per-fit device buffers
         stats.stop(self.niter + 1)
         if self.verbose:
             self._print_final_msg(self.niter + 1, self._last_llk, self._last_rmse, end_tm)
 
-        self._state_to_host(carry.state)
-        if self.keep_data:
+        self._state_to_host(state)
+        if self.keep_data and (not svi_mode or not hasattr(self, "seen")):
             self._store_metadata(pdata)
         if self.produce_dicts and self.reindex:
             self.user_dict_ = {self.user_mapping_[i]: i for i in range(self.user_mapping_.shape[0])}
@@ -369,21 +393,36 @@ class HPF:
         self.is_fitted = True
         return self
 
-    def _run_full_batch(self, state, pdata, nnz, hp, dev, stats):
-        from ..ops.ell import (_carry_init, build_layouts, run_cavi_block_ell,
-                               to_device)
+    def _device_valset(self, val_arrays, dev):
+        """The validation triplets as a blocked COO stream on the device,
+        with the unblocked ids kept on the host for the final eval."""
+        from ..ops.cavi import device_blocked_coo
 
-        with stats.phase("host_pack"):
-            ell_u, ell_i = build_layouts(pdata, self._dtype)
+        vy, vu, vi = val_arrays
+        data, nnz = device_blocked_coo(vy, vu, vi, dev, self.block_size)
+        return types.SimpleNamespace(data=data, nnz=nnz, iu=vu, ii=vi)
+
+    def _load_kernels(self, dev, stats):
         with stats.phase("kernel_build"):
             if dev.type == "cuda":
                 from .. import _cuda
 
                 _cuda.load()
+
+    def _run_full_batch(self, state, pdata, hp, dev, stats):
+        """Full-batch CAVI on the ELL engine.  Returns the final state and a
+        function giving its mean colsums (for the train metric)."""
+        from ..ops.ell import (_carry_init, build_layouts, run_cavi_block_ell,
+                               to_device)
+
+        with stats.phase("host_pack"):
+            ell_u, ell_i = build_layouts(pdata, self._dtype)
+        self._load_kernels(dev, stats)
         with stats.phase("transfer"):
             lay_u = to_device(ell_u, dev)
             lay_i = to_device(ell_i, dev)
             state = VariationalState(*[a.to(dev) for a in state])
+        self._metric_ell = lay_u
 
         self._last_llk = 0.0
         self._last_rmse = 0.0
@@ -404,26 +443,124 @@ class HPF:
             if self.check_every > 0 and n == self.check_every:
                 with stats.phase("metric_checks"):
                     stop, last_crit, Theta_prev = self._evaluate_criterion(
-                        carry, lay_u, nnz, iters_done, last_crit, Theta_prev)
+                        carry.state, iters_done, last_crit, Theta_prev,
+                        lambda c=carry: (c.theta_colsum, c.beta_colsum))
             if stop:
                 break
         self.niter = iters_done - 1
-        return carry, lay_u
+        return carry.state, lambda: (carry.theta_colsum, carry.beta_colsum)
 
-    def _train_metric(self, carry, layout, nnz):
-        from ..ops.metrics import ell_train_llk_rmse
+    def _run_svi(self, state, pdata, hp, dev, stats):
+        """Mini-batch SVI epochs (reference ``cython_loops.pxi:261-377``):
+        user epochs over CSR rows, item epochs over CSC rows, alternating
+        when both batch sizes are set (item epoch first, the reference's
+        parity rule at ``pxi:265-273``).  The numeration arrays are
+        shuffled on the host by ``np.random.default_rng(random_seed)``, as
+        in ``hpfrec_tpu``, so the epoch schedule is the same.  Returns the
+        final state and a function giving its mean colsums."""
+        from ..ops.cavi import side_derive
+        from ..ops.ell import build_ell, to_device
+        from ..ops.svi import epoch_side, svi_run_epoch
 
-        st = carry.state
-        return ell_train_llk_rmse(st.G_shp / st.G_rte, st.L_shp / st.L_rte,
-                                  layout, nnz, carry.theta_colsum,
-                                  carry.beta_colsum, self.full_llk)
+        dt = self._dtype
+        use_users = self.users_per_batch > 0
+        use_items = self.items_per_batch > 0
+        with stats.phase("host_pack"):
+            indptr_u, indices_u, data_u = data_utils.build_csr(
+                pdata.ix_u, pdata.ix_i, pdata.y, self.nusers, self.nitems)
+        self._st_ix_user = indptr_u
+        self._n_seen_by_user = (indptr_u[1:] - indptr_u[:-1]).astype(np.int64)
+        self.seen = indices_u
+        if use_items:
+            if self.verbose:
+                print("Creating item indices for stochastic optimization...")
+            with stats.phase("host_pack"):
+                indptr_i, indices_i, data_i = data_utils.build_csr(
+                    pdata.ix_i, pdata.ix_u, pdata.y, self.nitems, self.nusers)
 
-    def _evaluate_criterion(self, carry, layout, nnz, it, last_crit, Theta_prev):
+        rng = np.random.default_rng(
+            seed=self.random_seed if (self.random_seed is not None and self.random_seed > 0) else None)
+        users_numeration = np.arange(self.nusers, dtype=np.int64) if use_users else None
+        items_numeration = np.arange(self.nitems, dtype=np.int64) if use_items else None
+
+        # train-metric checks ride a user-side ELL layout (untiled), built
+        # only when a check or the final eval reads train metrics
+        need_metric = (self._val is None) and (
+            (self.check_every > 0 and self.stop_crit != 'diff-norm')
+            or self.stop_crit == 'train-llk'
+            or (self.verbose and self.stop_crit in ('diff-norm', 'maxiter')))
+        ell_m = None
+        if need_metric:
+            with stats.phase("host_pack"):
+                ell_m = build_ell(indptr_u, indices_u, data_u, self.nusers, dtype=dt)
+        self._load_kernels(dev, stats)
+        with stats.phase("transfer"):
+            if ell_m is not None:
+                self._metric_ell = to_device(ell_m, dev)
+            side_u = epoch_side(indptr_u, indices_u, data_u, dt, dev) if use_users else None
+            side_i = epoch_side(indptr_i, indices_i, data_i, dt, dev) if use_items else None
+            state = VariationalState(*[a.to(dev) for a in state])
+
+        def colsums(st):
+            return lambda: (side_derive(st.G_shp, st.G_rte)[1],
+                            side_derive(st.L_shp, st.L_rte)[1])
+
+        self._last_llk = 0.0
+        self._last_rmse = 0.0
+        self._last_check_it = None
+        last_crit = None
+        Theta_prev = state.G_shp / state.G_rte if self.stop_crit == 'diff-norm' else None
+        i = 0
+        for i in range(self.maxiter):
+            step = float(self.step_size(i))
+            if use_users and use_items:
+                user_epoch = ((i + 1) % 2) == 0
+            else:
+                user_epoch = use_users
+            if user_epoch:
+                with stats.phase("user_epochs"):
+                    rng.shuffle(users_numeration)
+                    state = svi_run_epoch(state, side_u, users_numeration,
+                                          self.users_per_batch, step, hp, True)
+            else:
+                with stats.phase("item_epochs"):
+                    rng.shuffle(items_numeration)
+                    state = svi_run_epoch(state, side_i, items_numeration,
+                                          self.items_per_batch, step, hp, False)
+            if self.check_every > 0 and ((i + 1) % self.check_every) == 0:
+                with stats.phase("metric_checks"):
+                    stop, last_crit, Theta_prev = self._evaluate_criterion(
+                        state, i + 1, last_crit, Theta_prev, colsums(state))
+                if stop:
+                    break
+        self.niter = i
+        # serve-time metadata keeps the truncated indptr like the reference
+        # (hpfrec/__init__.py:424)
+        self._st_ix_user = self._st_ix_user[:-1]
+        return state, colsums(state)
+
+    def _criterion_metric(self, state, colsums, use_val=True):
+        """(llk, rmse, name) of one check: over the validation set when
+        there is one (and ``use_val``), else the train metric on the
+        user-side ELL layout with the colsums that ``colsums()`` gives."""
+        from ..ops.metrics import ell_train_llk_rmse, val_llk_rmse
+
+        Theta = state.G_shp / state.G_rte
+        Beta = state.L_shp / state.L_rte
+        if use_val and self._val is not None:
+            llk, rmse = val_llk_rmse(Theta, Beta, self._val.data, self._val.nnz,
+                                     self.full_llk)
+            return llk, rmse, "val"
+        theta_colsum, beta_colsum = colsums()
+        llk, rmse = ell_train_llk_rmse(Theta, Beta, self._metric_ell, self._nnz,
+                                       theta_colsum, beta_colsum, self.full_llk)
+        return llk, rmse, "train"
+
+    def _evaluate_criterion(self, state, it, last_crit, Theta_prev, colsums):
         """One convergence check (reference ``assess_convergence``,
         ``cython_loops.pxi:51-92``).  Returns (stop, last_crit, Theta_prev)."""
         from ..ops.metrics import theta_diff_norm
 
-        state = carry.state
         if self.stop_crit == 'diff-norm':
             Theta = state.G_shp / state.G_rte
             norm = theta_diff_norm(Theta, Theta_prev)
@@ -434,13 +571,13 @@ class HPF:
             if norm < self.stop_thr:
                 return True, norm, Theta_prev
             return False, norm, Theta
-        llk, rmse = self._train_metric(carry, layout, nnz)
+        llk, rmse, dname = self._criterion_metric(state, colsums)
         self._nan_sentinel(llk, it)
         self._last_llk, self._last_rmse = llk, rmse
         self._last_check_it = it
         if self.verbose:
-            print("Iteration %d | train llk: %d | train rmse: %.4f"
-                  % (it, int(llk), rmse))
+            print("Iteration %d | %s llk: %d | %s rmse: %.4f"
+                  % (it, dname, int(llk), dname, rmse))
         if self.stop_crit != 'maxiter':
             if it == self.check_every:
                 return False, llk, Theta_prev
@@ -457,20 +594,38 @@ class HPF:
                 "metric). Try a different random seed or use_float=False."
                 % it)
 
-    def _final_eval(self, carry, layout, nnz):
+    def _final_eval(self, state, colsums):
         """Reference ``eval_after_term`` (``cython_loops.pxi:94-113``): the
-        train-llk criterion reports its last check (recomputed when that
-        check was not on the final iteration); diff-norm and maxiter compute
-        a final llk+rmse only when verbose."""
+        train-llk and val-llk criteria report their last check (recomputed
+        when that check was not on the final iteration); diff-norm and
+        maxiter compute a final llk+rmse only when verbose -- on a
+        validation set with the ``rowsum_dot_rows`` correction, as the
+        reference does (``pxi:105``)."""
+        from ..ops.metrics import llk_rmse_sums, rowsum_dot_rows
+
         self.train_llk = None
-        if self.stop_crit == 'train-llk':
+        if self.stop_crit in ('train-llk', 'val-llk'):
             if self._last_check_it != self.niter + 1:
-                self._last_llk, self._last_rmse = self._train_metric(carry, layout, nnz)
+                llk, rmse, _ = self._criterion_metric(
+                    state, colsums, use_val=self.stop_crit == 'val-llk')
+                self._last_llk, self._last_rmse = llk, rmse
             self.train_llk = self._last_llk
             return
-        if self.verbose:
-            self._last_llk, self._last_rmse = self._train_metric(carry, layout, nnz)
-            self.train_llk = self._last_llk
+        if not self.verbose:
+            return
+        if self._val is not None:
+            Theta = state.G_shp / state.G_rte
+            Beta = state.L_shp / state.L_rte
+            parts = llk_rmse_sums(Theta, Beta, self._val.data, self.full_llk).cpu().numpy()
+            dev = Theta.device
+            corr = rowsum_dot_rows(Theta, Beta, torch.from_numpy(self._val.iu).to(dev),
+                                   torch.from_numpy(self._val.ii).to(dev))
+            llk = float(parts[:, 0].sum()) - corr
+            rmse = float(np.sqrt(parts[:, 1].sum() / self._val.nnz))
+        else:
+            llk, rmse, _ = self._criterion_metric(state, colsums)
+        self._last_llk, self._last_rmse = llk, rmse
+        self.train_llk = llk
 
     def _store_metadata(self, pdata):
         """Seen-items CSR for ``topN(exclude_seen=True)`` (reference
@@ -592,6 +747,26 @@ class HPF:
         rec = np.argpartition(allpreds, n - 1)[:n]
         return items_pool[rec[np.argsort(allpreds[rec])]]
 
+    def eval_llk(self, input_df, full_llk=False):
+        """Poisson log-likelihood (plus constant) of the given triplets
+        (reference ``HPF.eval_llk``, ``hpfrec/__init__.py:1399-1446``), on
+        the model's device through K5."""
+        from ..ops.cavi import device_blocked_coo
+        from ..ops.metrics import llk_rmse_sums
+
+        assert self.is_fitted
+        y, iu, ii = data_utils.process_valset(
+            input_df, self.stop_crit, self.reindex, self.user_mapping_,
+            self.item_mapping_, self.nusers, self.nitems, self._dtype,
+            is_valset=False)
+        dev = self._torch_device()
+        data, _ = device_blocked_coo(y, iu, ii, dev)
+        parts = llk_rmse_sums(torch.from_numpy(self.Theta).to(dev),
+                              torch.from_numpy(self.Beta).to(dev), data,
+                              bool(full_llk)).cpu().numpy()
+        llk = float(parts[:, 0].sum()) - float(parts[:, 2].sum())
+        return {'llk': llk, 'nobs': int(y.shape[0])}
+
     # ------------------------------------------------------------------
     # not ported yet
     # ------------------------------------------------------------------
@@ -606,9 +781,6 @@ class HPF:
 
     def topN_batch(self, *args, **kwargs):
         raise _not_ported("topN_batch (kernel K6)", "6")
-
-    def eval_llk(self, *args, **kwargs):
-        raise _not_ported("eval_llk (kernel K5)", "6")
 
     def save(self, path):
         raise _not_ported("save", "5")

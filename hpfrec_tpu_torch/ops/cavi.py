@@ -15,14 +15,46 @@ items: prior ``c``, scaler ``t_rte``)::
 ``side_update`` runs all of it; ``side_derive`` only derives ``tab`` and
 ``colsum`` from a given (shp, rte).  Both launch the hand-written kernel of
 ``csrc/table_update.cu`` for CUDA tensors and run the plain PyTorch
-version below for CPU tensors.  The blocked-COO engine of the JAX module
-(``_phi_block``, ``phi_segment_sums``, ``cavi_step``, ``run_cavi_block``)
-is not ported.
+version below for CPU tensors.  The SVI batches (``ops/svi.py``) derive
+both sides' tables with ``side_derive`` before every batch.
+
+``BlockedCOO`` (the validation set's layout) and ``_phi_block`` (the COO
+phi, the plain form of the SVI batch phi sums) are ported; the blocked-COO
+engine itself (``phi_segment_sums``, ``cavi_step``, ``run_cavi_block``) is
+not.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+
+class BlockedCOO(NamedTuple):
+    """Padded, blocked COO stream.  All (nblocks, B); padding has y == 0."""
+
+    y: torch.Tensor
+    ix_u: torch.Tensor  # int32
+    ix_i: torch.Tensor  # int32
+
+
+def device_blocked_coo(y, ix_u, ix_i, device, block_size=None):
+    """Host triplets as a ``BlockedCOO`` on ``device`` (``block_coo``'s
+    padding), and the number of real triplets."""
+    from ..utils.data import block_coo
+
+    blk = block_coo(y, ix_u, ix_i, block_size=block_size)
+    return BlockedCOO(*(torch.from_numpy(a).to(device)
+                        for a in (blk.y, blk.ix_u, blk.ix_i))), blk.nnz
+
+
+def _phi_block(t_tab, b_tab, y, iu, ii):
+    """phi for a run of nonzeros: ``y * (t[u] * b[i]) / <t[u], b[i]>``, rows
+    (n, k); ``t_tab``/``b_tab`` are the stabilized exp tables."""
+    p = t_tab[iu.long()] * b_tab[ii.long()]
+    denom = p.sum(-1)
+    return (y / denom)[:, None] * p
 
 # Rows per block of the colsum partials: the kernel runs a fixed grid of at
 # most this many blocks (one warp per row, grid-stride), each writing one

@@ -1,13 +1,18 @@
-"""Train log-likelihood / RMSE over the user-side ELL layout (K4).
+"""Log-likelihood / RMSE: train over the user-side ELL layout (K4),
+validation and ``eval_llk`` over blocked COO triplets (K5).
 
-Port of ``hpfrec_tpu/ops/metrics.py:ell_llk_parts`` /
-``ell_llk_rmse_sums`` / ``ell_train_llk_rmse`` and ``theta_diff_norm``.
-Over the slots with ``y > 0``: ``yhat = <Theta[row], Beta[off+col]>``,
-``ll = y log(yhat) [- lgamma(y+1)]``, ``se = (y - yhat)^2``, ``sp = yhat``.
-The kernel (``csrc/ell_llk.cu``) writes per-block (ll, se, sp) partials in
-float64; a check reads them back once and adds them on the host in
-float64.  The all-pairs correction ``colsum(Theta) . colsum(Beta)`` uses
-the colsums that the table update (K3) produced for the same state.
+Port of ``hpfrec_tpu/ops/metrics.py``: ``ell_llk_parts`` /
+``ell_llk_rmse_sums`` / ``ell_train_llk_rmse`` (K4), ``llk_rmse_sums`` /
+``val_llk_rmse`` (K5), and ``theta_diff_norm`` / ``rowsum_dot_rows`` (K11,
+torch ops: each runs once per check or per fit).  Over the slots with
+``y > 0``: ``yhat = <Theta[u], Beta[i]>``, ``ll = y log(yhat) [-
+lgamma(y+1)]``, ``se = (y - yhat)^2``, ``sp = yhat``.  The kernels
+(``csrc/ell_llk.cu``, ``csrc/coo_llk.cu``) write per-block (ll, se, sp)
+partials in float64; a check reads them back once and adds them on the
+host in float64.  The train criterion's all-pairs correction
+``colsum(Theta) . colsum(Beta)`` uses colsums that the table kernel (K3)
+produced for the same state; the validation criterion subtracts
+``sum(sp)`` instead.
 """
 
 from __future__ import annotations
@@ -15,14 +20,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .cavi import BlockedCOO
 from .ell import DeviceEll
 
 
-def _bucket_llk_plain(Theta, Beta, rows, cols, vals, col_off, full_llk):
-    """Plain version of K4 for one bucket: a (1, 3) float64 row."""
-    y = vals
-    yhat = torch.einsum("ck,cwk->cw", Theta[rows.long()],
-                        Beta[cols.long() + col_off])
+def _llk_terms(y, yhat, full_llk):
+    """The llk pieces of K4 and K5's plain versions: a (1, 3) float64 row
+    of (ll, se, sp) sums over the entries with ``y > 0``."""
     mask = y > 0
     zero = torch.zeros_like(yhat)
     ll = y * torch.log(torch.where(yhat > 0, yhat, torch.ones_like(yhat)))
@@ -31,6 +35,13 @@ def _bucket_llk_plain(Theta, Beta, rows, cols, vals, col_off, full_llk):
     parts = [torch.where(mask, ll, zero), torch.where(mask, (y - yhat) ** 2, zero),
              torch.where(mask, yhat, zero)]
     return torch.stack([p.sum(dtype=torch.float64) for p in parts])[None]
+
+
+def _bucket_llk_plain(Theta, Beta, rows, cols, vals, col_off, full_llk):
+    """Plain version of K4 for one bucket: a (1, 3) float64 row."""
+    yhat = torch.einsum("ck,cwk->cw", Theta[rows.long()],
+                        Beta[cols.long() + col_off])
+    return _llk_terms(vals, yhat, full_llk)
 
 
 def bucket_llk_parts(Theta, Beta, rows, cols, vals, col_off, full_llk: bool):
@@ -89,3 +100,61 @@ def theta_diff_norm(Theta, Theta_prev) -> float:
     reference ``pxi:59``)."""
     d = Theta - Theta_prev
     return float(torch.sqrt(torch.sum(d * d)))
+
+
+# ---- K5: llk pieces over blocked COO ---------------------------------
+
+# Triplets per block of K5's partials (csrc/coo_llk.cu: 8 warps of 256).
+_COO_SLOTS_PER_BLOCK = 8 * 256
+
+
+def _coo_llk_plain(Theta, Beta, y, iu, ii, full_llk):
+    """Plain version of K5 for one run of triplets: a (1, 3) float64 row."""
+    return _llk_terms(y, (Theta[iu.long()] * Beta[ii.long()]).sum(-1), full_llk)
+
+
+def llk_rmse_sums(Theta, Beta, data: BlockedCOO, full_llk: bool = False):
+    """K5: (n_parts, 3) float64 partial sums of (ll, se, sp) over the
+    triplets of ``data``; padding (y == 0) counts nothing.  The plain
+    version gives one row per block, the kernel one per 2048 triplets."""
+    if not Theta.is_cuda:
+        return torch.cat([_coo_llk_plain(Theta, Beta, data.y[b], data.ix_u[b],
+                                         data.ix_i[b], full_llk)
+                          for b in range(data.y.shape[0])])
+    from .. import _cuda
+
+    y, iu, ii = (a.reshape(-1) for a in data)
+    n = y.shape[0]
+    k = Theta.shape[1]
+    _cuda.check(Theta, Beta, y, dtype=Theta.dtype)
+    _cuda.check(iu, ii, dtype=torch.int32)
+    if Beta.shape[1] != k or iu.shape != (n,) or ii.shape != (n,):
+        raise ValueError("llk_rmse_sums: shape mismatch")
+    nblocks = max(1, -(-n // _COO_SLOTS_PER_BLOCK))
+    out = torch.zeros((nblocks, 3), dtype=torch.float64, device=Theta.device)
+    if n:
+        _cuda.launch("coo_llk", Theta.dtype, k, Theta, Beta, y, iu, ii, out, n, k,
+                     int(bool(full_llk)), nblocks)
+        llk_rmse_sums.launches += 1
+    return out
+
+
+llk_rmse_sums.launches = 0
+
+
+def val_llk_rmse(Theta, Beta, data: BlockedCOO, nnz: int, full_llk: bool = False):
+    """Validation criterion (reference ``pxi:72``): ``sum(ll) - sum(sp)``
+    over the observed pairs and ``sqrt(sum(se) / nnz)``, as host floats.
+    One device readback."""
+    parts = llk_rmse_sums(Theta, Beta, data, full_llk).cpu().numpy()
+    llk = float(parts[:, 0].sum()) - float(parts[:, 2].sum())
+    rmse = float(np.sqrt(parts[:, 1].sum() / nnz))
+    return llk, rmse
+
+
+def rowsum_dot_rows(Theta, Beta, iu, ii) -> float:
+    """``colsum(Theta[iu]) . colsum(Beta[ii])`` (rows counted with
+    multiplicity), rounded to float32 as the JAX function returns it: the
+    final eval's correction on a validation set (reference ``pxi:105``).
+    Torch ops; it runs once per fit."""
+    return float(np.float32(torch.dot(Theta[iu.long()].sum(0), Beta[ii.long()].sum(0))))

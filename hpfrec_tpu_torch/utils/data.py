@@ -1,11 +1,13 @@
-"""Host-side data layer: ingestion, filtering, reindexing, CSR.
+"""Host-side data layer: ingestion, filtering, reindexing, CSR, the
+validation set and the blocked COO stream.
 
 A jax-free copy of ``hpfrec_tpu/utils/data.py`` (reference
-``hpfrec/__init__.py:434-633``) for the full-batch path.  pandas is
-optional here: DataFrame input needs it, ndarray and scipy ``coo_array``
-input do not, and reindexing and id mapping have numpy and native
-fallbacks.  The O(nnz) passes use the native helpers in ``_native`` when
-they built, numpy/scipy otherwise.
+``hpfrec/__init__.py:434-633``).  pandas is optional here: DataFrame input
+needs it, ndarray and scipy ``coo_array`` input do not, and reindexing and
+id mapping have numpy and native fallbacks.  The O(nnz) passes use the
+native helpers in ``_native`` when they built, numpy/scipy otherwise.
+``gather_batch_nonzeros`` is not copied: it serves only the JAX package's
+host-batch SVI path, which the port does not have.
 """
 
 from __future__ import annotations
@@ -177,6 +179,104 @@ def process_data(input_df, stop_crit: str, reindex: bool, dtype=np.float32,
                          nitems=nitems, user_mapping=user_mapping,
                          item_mapping=item_mapping,
                          sorted_by_user=bool(sort_by_user))
+
+
+def process_valset(val_set, stop_crit: str, reindex: bool, user_mapping,
+                   item_mapping, nusers: int, nitems: int, dtype=np.float32,
+                   is_valset: bool = True):
+    """Validation / eval-set pipeline (reference ``_process_valset``,
+    ``hpfrec/__init__.py:525-585``).  Returns (y, ix_u, ix_i) or None when a
+    validation set ends up empty (with the criterion-switch warning)."""
+    from scipy.sparse import issparse
+
+    if isinstance(val_set, np.ndarray):
+        assert len(val_set.shape) > 1
+        assert val_set.shape[1] >= 3
+        u, i, y = val_set[:, 0], val_set[:, 1], val_set[:, 2]
+    elif issparse(val_set) and val_set.format == "coo":
+        assert val_set.shape[0] <= nusers
+        assert val_set.shape[1] <= nitems
+        u, i, y = val_set.row, val_set.col, val_set.data
+    elif _pandas() is not None and isinstance(val_set, _pandas().DataFrame):
+        assert val_set.shape[0] > 0
+        for col in ("UserId", "ItemId", "Count"):
+            assert col in val_set.columns
+        u = val_set["UserId"].to_numpy()
+        i = val_set["ItemId"].to_numpy()
+        y = val_set["Count"].to_numpy()
+    else:
+        raise ValueError(
+            "'val_set' must be a pandas data frame, numpy array, or sparse coo_array.")
+
+    thr = 0 if stop_crit == "val-llk" else 0.9
+    low = np.asarray(y) <= thr
+    if low.sum() > 0:
+        warnings.warn(
+            "'val_set' contains observations with a count value less than 1, "
+            "these will be ignored.")
+        keep = ~low
+        u, i, y = np.asarray(u)[keep], np.asarray(i)[keep], np.asarray(y)[keep]
+
+    if reindex:
+        cu = map_to_training_ids(u, user_mapping)
+        ci = map_to_training_ids(i, item_mapping)
+        keep = (cu != -1) & (ci != -1)
+        cu, ci, y = cu[keep], ci[keep], np.asarray(y)[keep]
+        if cu.shape[0] == 0:
+            if is_valset:
+                warnings.warn(
+                    "Validation set has no combinations of users and items in common "
+                    "with training set. If 'stop_crit' was set to 'val-llk', will now "
+                    "be switched to 'train-llk'.")
+                return None
+            raise ValueError(
+                "'input_df' has no combinations of users and items in common with "
+                "the training set.")
+    else:
+        cu = np.asarray(u).astype(np.int64, copy=False)
+        ci = np.asarray(i).astype(np.int64, copy=False)
+
+    return (np.require(y, dtype=dtype, requirements=["C_CONTIGUOUS"]),
+            cu.astype(np.int32, copy=False), ci.astype(np.int32, copy=False))
+
+
+class BlockedHost(NamedTuple):
+    """Blocked (nblocks, B) numpy layout ready for device placement."""
+
+    y: np.ndarray
+    ix_u: np.ndarray
+    ix_i: np.ndarray
+    nnz: int  # number of real (non-padding) entries
+
+
+def _next_multiple(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, int(x - 1).bit_length())
+
+
+def block_coo(y: np.ndarray, ix_u: np.ndarray, ix_i: np.ndarray,
+              block_size: Optional[int] = None, n_shards: int = 1,
+              min_align: int = 8) -> BlockedHost:
+    """Pad the COO stream and reshape to (nblocks, B), as
+    ``hpfrec_tpu.utils.data.block_coo``.  Padding rows have y=0 (inert in
+    every metric) and index 0 (in-bounds); ``nblocks`` is a multiple of
+    ``n_shards``."""
+    nnz = int(y.shape[0])
+    if block_size is None:
+        block_size = min(_next_multiple(nnz, min_align), 1 << 18)
+    B = int(block_size)
+    nblocks = _next_multiple(max(1, -(-nnz // B)), n_shards)
+    total = nblocks * B
+
+    def _pad(a):
+        out = np.zeros(total, dtype=a.dtype)
+        out[:nnz] = a
+        return out.reshape(nblocks, B)
+
+    return BlockedHost(y=_pad(y), ix_u=_pad(ix_u), ix_i=_pad(ix_i), nnz=nnz)
 
 
 def build_csr(ix_u: np.ndarray, ix_i: np.ndarray, y: np.ndarray, nusers: int,

@@ -23,11 +23,14 @@ class FitStats:
     ``phases`` attributes the wall time (seconds):
 
     - ``reindex``        host triplet ingest, filtering and reindexing
-    - ``host_pack``      CSR builds + ELL packing of both sides (run
-      concurrently; this is the span)
+    - ``host_pack``      CSR builds + ELL packing (full batch: both sides
+      concurrently, this is the span; SVI: the CSR/CSC and the metric
+      layout)
     - ``kernel_build``   building or loading the CUDA kernels (0 on CPU)
+    - ``valset``         validation-set ingest and upload
     - ``transfer``       host->device upload of the layouts and the state
-    - ``iterations``     the CAVI iteration blocks
+    - ``iterations``     the CAVI iteration blocks (full batch)
+    - ``user_epochs`` / ``item_epochs``  the SVI epochs of each side
     - ``metric_checks``  convergence checks + the final metric
 
     ``wall_seconds - sum(phases.values())`` is unattributed glue.

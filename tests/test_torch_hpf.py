@@ -206,8 +206,7 @@ def test_constructor_defaults_match():
     assert pt["device"].default == "cuda"
 
 
-OFF_SLICE = [dict(users_per_batch=10), dict(items_per_batch=10),
-             dict(stop_crit="val-llk"), dict(engine="coo"), dict(shard_tables=True),
+OFF_SLICE = [dict(engine="coo"), dict(shard_tables=True),
              dict(mesh=object()), dict(checkpoint_folder="ck"),
              dict(checkpoint_every=5), dict(profile_dir="prof"),
              dict(gather_dtype="bfloat16"), "save_folder"]
@@ -225,15 +224,13 @@ def test_off_slice_options_raise(kwargs, tmp_path):
 
 
 @pytest.mark.parametrize("call", ["partial_fit", "predict_factors", "add_user",
-                                  "topN_batch", "eval_llk", "save", "load",
-                                  "val_set", "resume"])
+                                  "topN_batch", "save", "load", "resume"])
 def test_off_slice_methods_raise(call):
     from hpfrec_tpu_torch import HPF
 
     m = HPF(k=3, device="cpu", verbose=False)
     df = _df(nU=20, nI=15, nnz=100)
-    calls = {"val_set": lambda: m.fit(df, val_set=df),
-             "resume": lambda: m.fit(df, resume=True),
+    calls = {"resume": lambda: m.fit(df, resume=True),
              "load": lambda: HPF.load("x"),
              "save": lambda: m.save("x")}
     fn = calls.get(call, lambda: getattr(m, call)(df))

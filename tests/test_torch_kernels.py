@@ -1,6 +1,7 @@
 """Each CUDA kernel of hpfrec_tpu_torch against its plain PyTorch version
 on the card, in float32 and float64, on small layouts that cover split
-rows, tiled (column-offset) buckets and zero-degree rows.
+rows, tiled (column-offset) buckets and zero-degree rows, and SVI batches
+whose rows span many of K7's 256-slot chunks on both sides.
 
 The ``gpu`` tests skip without a CUDA device; the card runs them with
 ``python -m pytest tests/test_torch_kernels.py -q --noconftest``
@@ -179,14 +180,178 @@ def test_kernel_errors_raise(cuda):
         C.side_derive(x.half(), x.half())
 
 
+def _blocked(y, iu, ii, dtype, device, block_size=None):
+    from hpfrec_tpu_torch.ops.cavi import device_blocked_coo
+
+    return device_blocked_coo(y.astype(dtype), iu, ii, device, block_size)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("full_llk", [False, True])
+@pytest.mark.parametrize("k", [7, 50, 200])
+def test_coo_llk_kernel_vs_plain(cuda, dtype, full_llk, k):
+    """K5 over blocked COO with padding (block 1000 over 5003 triplets)."""
+    from hpfrec_tpu_torch.ops import metrics as M
+
+    y, iu, ii = _counts(300, 120, 6000, seed=17)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    data = _blocked(y[:5003], iu[:5003], ii[:5003], npdt, cuda, block_size=1000)
+    th = _tables(300, k, dtype, cuda, 8) / k
+    be = _tables(120, k, dtype, cuda, 9)
+    got = M.llk_rmse_sums(th, be, data, full_llk)
+    ref = torch.cat([M._coo_llk_plain(th, be, data.y[b], data.ix_u[b], data.ix_i[b], full_llk)
+                     for b in range(data.y.shape[0])])
+    torch.testing.assert_close(got.sum(0), ref.sum(0), rtol=TOL[dtype]["rtol"], atol=1e-9)
+    assert torch.equal(M.llk_rmse_sums(th, be, data, full_llk), got)
+
+
+def _csr_side(n_rows, n_cols, degrees, hot, seed):
+    """CSR arrays with the given row degrees; a share of each row's slots
+    goes to the other-side id ``hot`` (duplicates within a row)."""
+    rng = np.random.default_rng(seed)
+    indptr = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(degrees, out=indptr[1:])
+    nnz = int(indptr[-1])
+    cols = rng.integers(0, n_cols, nnz).astype(np.int32)
+    cols[rng.random(nnz) < 0.4] = hot
+    y = (rng.poisson(2.0, nnz) + 1).astype(np.float64)
+    return indptr, cols, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_epoch_gather_kernel_vs_plain(cuda, dtype):
+    """K9 is a gather: the kernel's stream equals the plain one bit for bit,
+    zero-degree rows included."""
+    from hpfrec_tpu_torch.ops import svi as S
+
+    degrees = np.random.default_rng(2).integers(0, 40, 500)
+    degrees[[3, 17]] = 0
+    degrees[9] = 3000
+    indptr, cols, y = _csr_side(500, 70, degrees, 5, seed=3)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    side = S.epoch_side(indptr, cols, y, npdt, cuda)
+    perm = np.random.default_rng(4).permutation(500)
+    offsets = torch.from_numpy(S.epoch_offsets(side.deg, perm).astype(np.int32)).to(cuda)
+    perm_d = torch.from_numpy(perm.astype(np.int32)).to(cuda)
+    got = S.build_epoch_buffers(side.y, side.cols, side.indptr, perm_d, offsets)
+    ref = S._build_epoch_buffers_plain(side.y, side.cols, side.indptr, perm_d, offsets)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def _batch(n_loc, n_oth, dtype, device, seed, long_row=1500):
+    """One batch of an epoch: 35 of n_loc local rows, one of them with
+    ``long_row`` slots, 40% of all slots on other-side id 3."""
+    from hpfrec_tpu_torch.ops import svi as S
+
+    rng = np.random.default_rng(seed)
+    degrees = rng.integers(0, 25, n_loc)
+    degrees[4] = long_row
+    degrees[6] = 0
+    indptr, cols, y = _csr_side(n_loc, n_oth, degrees, 3, seed + 1)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    side = S.epoch_side(indptr, cols, y, npdt, device)
+    rest = rng.permutation(n_loc)
+    rest = rest[(rest != 4) & (rest != 6)]
+    perm = np.concatenate([rest[:17], [4, 6], rest[17:]])
+    off_h = S.epoch_offsets(side.deg, perm)
+    perm_d = torch.from_numpy(perm.astype(np.int32)).to(device)
+    off_d = torch.from_numpy(off_h.astype(np.int32)).to(device)
+    e_y, e_row, e_col = S.build_epoch_buffers(side.y, side.cols, side.indptr, perm_d, off_d)
+    r0, r1 = 5, 40
+    s, e = int(off_h[r0]), int(off_h[r1])
+    return (e_y[s:e], e_row[s:e], e_col[s:e], off_d[r0:r1 + 1], s, perm_d[r0:r1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("long_row", [1500, 256, 0])
+@pytest.mark.parametrize("k", [8, 50, 200])
+def test_batch_phi_sums_kernel_vs_plain(cuda, dtype, long_row, k):
+    """K7 on a batch with a local row over many chunks (or exactly one, or
+    none), an other-side id that takes 40% of the slots, duplicates, and a
+    zero-degree batch row; deterministic."""
+    from hpfrec_tpu_torch.ops import svi as S
+
+    n_loc, n_oth = 60, 45
+    y, rows, cols, bounds, base, seg_rows = _batch(n_loc, n_oth, dtype, cuda, 5, long_row)
+    t_loc = _tables(n_loc, k, dtype, cuda, 6)
+    t_oth = _tables(n_oth, k, dtype, cuda, 7)
+    got = S.batch_phi_sums(t_loc, t_oth, y, rows, cols, bounds, base, seg_rows)
+    ref = S._batch_phi_sums_plain(t_loc, t_oth, y, rows, cols)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], **TOL[dtype])
+    torch.testing.assert_close(got[1], ref[1], **TOL[dtype])
+    assert torch.equal(got[2], ref[2])
+    again = S.batch_phi_sums(t_loc, t_oth, y, rows, cols, bounds, base, seg_rows)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+def test_batch_phi_sums_empty_batch(cuda):
+    from hpfrec_tpu_torch.ops import svi as S
+
+    t_loc = _tables(10, 8, torch.float32, cuda, 1)
+    t_oth = _tables(12, 8, torch.float32, cuda, 2)
+    e_i = torch.zeros(0, dtype=torch.int32, device=cuda)
+    bounds = torch.full((3,), 7, dtype=torch.int32, device=cuda)
+    seg = torch.tensor([1, 2], dtype=torch.int32, device=cuda)
+    s_loc, s_oth, omask = S.batch_phi_sums(t_loc, t_oth, torch.zeros(0, device=cuda), e_i,
+                                           e_i, bounds, 7, seg)
+    assert not bool(omask.any()) and not bool(s_loc.any()) and not bool(s_oth.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("user_side", [True, False])
+@pytest.mark.parametrize("blend_all", [False, True])
+@pytest.mark.parametrize("k", [8, 50, 256])
+def test_svi_update_kernel_vs_plain(cuda, dtype, user_side, blend_all, k):
+    from hpfrec_tpu_torch.models.state import Hyperparams, VariationalState
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops import svi as S
+
+    nU, nI = 700, 300
+    hp = Hyperparams(k=k)
+    st = VariationalState(_tables(nU, k, dtype, cuda, 1) + 0.3, _tables(nU, k, dtype, cuda, 2) * 40,
+                          _tables(nI, k, dtype, cuda, 3) + 0.3, _tables(nI, k, dtype, cuda, 4) * 40,
+                          _tables(nU, 1, dtype, cuda, 5) + 1, _tables(nI, 1, dtype, cuda, 6) + 1)
+    rng = np.random.default_rng(8)
+    umask = torch.from_numpy(rng.random((nU, 1)) < 0.3).to(cuda)
+    imask = torch.from_numpy(rng.random((nI, 1)) < 0.5).to(cuda)
+    su = _tables(nU, k, dtype, cuda, 9) * umask * 5
+    si = _tables(nI, k, dtype, cuda, 10) * imask * 5
+    args = (su, si, umask, imask, 0.41, 7.5, hp, user_side, blend_all)
+    colsum_global = C.side_derive(*((st.L_shp, st.L_rte) if user_side
+                                    else (st.G_shp, st.G_rte)))[1]
+    got = S.svi_update(st, *args, colsum_global)
+    ref = S._svi_update_math(st, *args)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, **TOL[dtype])
+    assert all(torch.equal(a, b) for a, b in zip(S.svi_update(st, *args, colsum_global), got))
+
+
+@pytest.mark.gpu
+def test_row_mask_kernel(cuda):
+    from hpfrec_tpu_torch.ops import svi as S
+
+    rows = torch.tensor([5, 0, 9, 5, 2], dtype=torch.int32)
+    assert torch.equal(S.build_row_mask(11, rows.to(cuda)).cpu(), S.build_row_mask(11, rows))
+
+
 def test_launch_counters_stay_zero_on_cpu():
     """On CPU tensors every wrapper takes its plain version: no launch."""
+    from hpfrec_tpu_torch.models.state import Hyperparams, VariationalState
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as E
     from hpfrec_tpu_torch.ops import metrics as M
+    from hpfrec_tpu_torch.ops import svi as S
 
     wrappers = [E.bucket_phi_sums, E.segment_table_sums, C.side_update,
-                C.side_derive, M.bucket_llk_parts]
+                C.side_derive, M.bucket_llk_parts, M.llk_rmse_sums,
+                S.build_epoch_buffers, S.batch_phi_sums, S.build_row_mask, S.svi_update]
     before = [w.launches for w in wrappers]
     y, iu, ii = _counts(40, 30, 300, seed=3)
     lay = _layout(y, iu, ii, 40, 30, np.float32, "cpu")
@@ -196,4 +361,11 @@ def test_launch_counters_stay_zero_on_cpu():
     C.side_update(su, t[:, :1], b[:1], 0.3, 1.8, 0.3)
     C.side_derive(t, t + 1)
     M.ell_llk_rmse_sums(t, b, lay)
+    M.llk_rmse_sums(t, b, _blocked(y, iu, ii, np.float32, "cpu"))
+    batch = _batch(40, 30, torch.float32, "cpu", 5, long_row=300)
+    s_loc, s_oth, omask = S.batch_phi_sums(t, b, *batch)
+    lmask = S.build_row_mask(40, batch[-1])
+    st = VariationalState(t, t + 1, b, b + 1, t[:, :1], b[:, :1])
+    S.svi_update(st, s_loc, s_oth, lmask, omask, 0.5, 2.0, Hyperparams(k=5), True, False,
+                 C.side_derive(b, b + 1)[1])
     assert [w.launches for w in wrappers] == before
