@@ -25,9 +25,33 @@ non-zero, with no result line):
    every SVI kernel checked and timed at the fit's shapes (a user batch,
    the item batch that holds the rank-1 item, the validation set), on the
    fitted state;
+3c. the other two stopping paths at the same shape, one user epoch each:
+   a diff-norm fit (``theta_diff_norm``, K11) and a maxiter fit with the
+   validation set and verbose output (its final eval's
+   ``rowsum_dot_rows``, K11);
+3d. serving on the SVI fit: ``topN_batch(n=10)`` for 16,384 users (K6),
+   ``utils.evaluation.ranking_metrics`` (k=10) over 16,384 held-out
+   users, ``predicted_rate_stats`` and ``roc_auc`` over the held-out set
+   and ``predict`` of 100,000 pairs (K11); ms per 1,024 users and the
+   device/host split (the wall of each call on its own, the device split
+   from a second run under torch.profiler);
+3e. K6, K10 and K11 checked and timed against their plain versions at
+   those shapes: one 1,024-user chunk at the full catalog with the fit's
+   seen lists at n = 10 and n = 2,000 (one user with fewer than 2,000
+   unseen items), the fold-in of the heaviest user and of the user nearest
+   10 items, 4M pairs, the diff norm and the held-out rowsum correction;
+3f. online updates on the SVI fit (``reindex=False``): ``partial_fit`` of
+   a 100,000-user and a 40,000-item batch of its own triplets, growth by
+   1,000 users, ``predict_factors`` for 256 histories (the heaviest
+   included), ``add_user`` for 64 new users by fold-in and 2 existing ones
+   with ``update_all_params``; each call's wall time and its split
+   (``predict_factors`` and ``add_user``, many small calls: the wall and
+   each call's time from a run on its own, the split from a second run
+   under torch.profiler; the others from one run under the profiler);
 4. agreement and determinism at a small size, full batch and alternating
    SVI with val-llk: two card fits are bit-identical, and the card agrees
-   with the CPU path;
+   with the CPU path; then a sequence of ``partial_fit``, ``add_user`` and
+   ``topN_batch`` on the card against the CPU path from the same arrays;
 5. a JSON line of the kernels (time, plain version's time, bound, launches
    on the main paths, in all and by path), and the result line.
 
@@ -38,6 +62,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -66,6 +91,13 @@ AGREE = {"float32": dict(llk=2e-5, factors=6e-3),
 # float32 llk 4.3e-8, Theta 7.6e-6, Beta 8.8e-6
 AGREE_SVI = {"float32": dict(llk=1e-6, factors=5e-5),
              "float64": dict(llk=1e-12, factors=1e-11)}
+# card vs CPU from the same fitted arrays, after two partial_fit calls, a
+# growth and two add_user calls (phase 4b): max relative difference of the
+# six state arrays, Theta and Beta and of a fold-in's Theta and G, max
+# absolute difference of its phi; top-n indices must be equal.  Measured on
+# an H100: float32 8.3e-7 (states), 7.2e-7 (fold-in), 2.4e-7 (phi); float64
+# 2.4e-15, 2.4e-15, 6.7e-16.
+AGREE_ONLINE = {"float32": 5e-6, "float64": 1e-13}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
@@ -79,7 +111,15 @@ REPLACES = {
     "batch_phi_sums": ("hpfrec_tpu_torch/csrc/svi_phi_sums.cu", "hpfrec_tpu/ops/svi.py:31"),
     "svi_update": ("hpfrec_tpu_torch/csrc/svi_update.cu", "hpfrec_tpu/ops/svi.py:49"),
     "epoch_gather": ("hpfrec_tpu_torch/csrc/svi_epoch.cu", "hpfrec_tpu/ops/svi.py:153"),
+    "topn": ("hpfrec_tpu_torch/csrc/topn.cu", "hpfrec_tpu/ops/topk.py:39"),
+    "fold_in": ("hpfrec_tpu_torch/csrc/fold_in.cu", "hpfrec_tpu/ops/svi.py:313"),
+    "predict_pairs": ("hpfrec_tpu_torch/csrc/pair_ops.cu", "hpfrec_tpu/ops/metrics.py:182"),
+    "theta_diff_norm": ("hpfrec_tpu_torch/csrc/pair_ops.cu", "hpfrec_tpu/ops/metrics.py:195"),
+    "rowsum_dot_rows": ("hpfrec_tpu_torch/csrc/pair_ops.cu", "hpfrec_tpu/ops/metrics.py:170"),
 }
+SERVE_USERS = 16_384
+ONLINE = dict(user_batch=100_000, item_batch=40_000, grow=1_000, histories=256, new_users=64,
+              all_params=2)
 
 
 def powerlaw_coo(nU, nI, nnz, seed):
@@ -175,10 +215,10 @@ def run_cases(cases, dtype_name, reps, label=""):
     import torch
 
     out = {}
-    for name, (kern, plain, work, library) in cases.items():
+    for name, (kern, plain, work, library, *check) in cases.items():
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        err_abs, err_rel = compare(name, got, ref, dtype_name)
+        err_abs, err_rel = (check[0] if check else compare)(name, got, ref, dtype_name)
         ms, plain_ms = cuda_ms(kern, reps), cuda_ms(plain, reps)
         lib_ms = cuda_ms(library, reps) if library is not None else None
         b_ms, b_by = bound(*work, dtype_name)
@@ -394,6 +434,232 @@ def svi_suite(pdata, val, state, batches, dtype_name, reps, blend_all=(False,), 
     return out
 
 
+def topn_check(name, got, ref, dtype_name):
+    """K6 against its plain version: the same n best scores in the same
+    order (float32 scores from products summed in another order may swap
+    items whose scores differ by a few ulps, so indices are checked
+    through the plain scores: each index the kernel returns must carry the
+    score the kernel reports).  Returns (max abs, max rel) of the values."""
+    import torch
+
+    (vals, idx), (rvals, _), scores = got, ref[:2], ref[2]
+    if vals.shape != rvals.shape or idx.dtype != torch.int32:
+        raise AssertionError(f"{name}: shapes {vals.shape} vs {rvals.shape}")
+    tol = TOL[dtype_name]
+    fin = torch.isfinite(rvals)
+    if not torch.equal(fin, torch.isfinite(vals)):
+        raise AssertionError(f"{name}: -inf slots differ")
+    at = scores.gather(1, idx.long())
+    for a, b in ((vals, rvals), (at, vals)):
+        err = (a[fin].double() - b[fin].double()).abs()
+        if bool((err > tol["rtol"] * b[fin].double().abs()).any()):
+            raise AssertionError(f"{name} {dtype_name}: kernel differs from plain "
+                                 f"(max abs {float(err.max()):.3e})")
+    if bool((idx[~fin] != ref[1][~fin]).any()):
+        raise AssertionError(f"{name}: -inf slots hold other indices")
+    if not all(len(set(r)) == len(r) for r in idx.cpu().tolist()):
+        raise AssertionError(f"{name}: repeated items in a row")
+    err = (vals[fin].double() - rvals[fin].double()).abs()
+    return float(err.max()), float((err / rvals[fin].double().abs()).max())
+
+
+def scalar_check(name, got, ref, dtype_name):
+    import torch
+
+    return compare(name, torch.tensor([got], dtype=torch.float64),
+                   torch.tensor([ref], dtype=torch.float64), dtype_name)
+
+
+def serving_suite(model, users, seen_lists, n_list, histories, pairs, val_pairs, dtype_name,
+                  reps, label=""):
+    """K6, K10 and K11 against their plain versions on the card, on a
+    fitted ``model``'s tables: K6 on one chunk of ``users`` (row indices)
+    with their seen lists (``seen_lists``: indptr starts, indices, counts;
+    the chunk's last row gets a synthetic list that leaves 1,000 items
+    unseen) at each n of ``n_list``; K10 on each (items, counts) of
+    ``histories``; K11 predict_pairs on ``pairs``, rowsum_dot_rows on
+    ``val_pairs``, theta_diff_norm on Theta and a perturbed copy.  Returns
+    ({name: dict} of the first n and the other kernels, {name: dict} of the
+    other n)."""
+    import torch
+
+    from hpfrec_tpu_torch.ops import metrics as M
+    from hpfrec_tpu_torch.ops import svi as S
+    from hpfrec_tpu_torch.ops import topk as T
+
+    dev = torch.device("cuda")
+    dt = torch.float32 if dtype_name == "float32" else torch.float64
+    it = 4 if dt == torch.float32 else 8
+    Theta = torch.from_numpy(np.ascontiguousarray(model.Theta)).to(dev)
+    Beta = torch.from_numpy(np.ascontiguousarray(model.Beta)).to(dev)
+    nI, k = Beta.shape
+    b = len(users)
+    starts, indices, counts = seen_lists
+    c = counts[users].astype(np.int64)
+    items = np.concatenate([indices[s:s + n] for s, n in zip(starts[users[:-1]], c[:-1])]
+                           + [np.sort(np.random.default_rng(9).choice(nI, nI - 1000,
+                                                                      replace=False))])
+    c[-1] = nI - 1000
+    rows = torch.from_numpy(np.repeat(np.arange(b), c).astype(np.int32)).to(dev)
+    items = torch.from_numpy(items.astype(np.int32)).to(dev)
+    th_rows = Theta[torch.from_numpy(users).to(dev)].contiguous()
+
+    def plain_scores():
+        sc = (th_rows @ Beta.T).to(torch.float32)
+        sc[rows.long(), items.long()] = -torch.inf
+        return sc
+
+    def library(n):
+        sc = torch.matmul(th_rows, Beta.T)
+        sc.index_put_((rows.long(), items.long()), torch.tensor(-torch.inf, dtype=sc.dtype,
+                                                                 device=dev))
+        return torch.topk(sc, n)
+
+    # each input read once, each output written once; 2 b nI k flops
+    topn_bytes = nbytes(th_rows, Beta, rows, items) + b * 8
+    results, extra = {}, {}
+    for j, n in enumerate(n_list):
+        scores = plain_scores()
+        case = {"topn": (lambda n=n: T.topn_rows(th_rows, Beta, rows, items, n),
+                         lambda n=n: (*T._topn_rows_plain(th_rows, Beta, rows, items, n), scores),
+                         (topn_bytes + b * n * 8, 2 * b * nI * k),
+                         lambda n=n: library(n), topn_check)}
+        r = run_cases(case, dtype_name, reps, label + ", %d users, n=%d" % (b, n))
+        (results if j == 0 else extra).update(
+            {("topn" if j == 0 else "topn n=%d" % n): r["topn"]})
+        del scores
+
+    hp = model._hp()
+    cases = {}
+    for items_h, counts_h in histories:
+        arrays, k_rte0 = model._fold_in_start(items_h, counts_h, 1)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+        n_it = S.user_factors_loop(*args, k_rte0, hp, 10, 1e-3)[4]
+        P = len(items_h)
+        cases["fold_in P=%d" % P] = (
+            lambda a=args, k0=k_rte0: S.user_factors_loop(*a, k0, hp, 10, 1e-3)[:4],
+            lambda a=args, k0=k_rte0: S._user_factors_loop_plain(*a, k0, hp, 10, 1e-3)[:4],
+            # the rows once, the outputs once; ~8 flops an element an iteration
+            (sum(nbytes(a) for a in args) + (P + 3) * k * it, 8 * n_it * P * k), None)
+    fold = run_cases(cases, dtype_name, reps, label)
+    heavy = max(fold, key=lambda name: int(name.split("=")[1]))
+    results["fold_in"] = fold.pop(heavy)
+    extra.update(fold)
+
+    iu, ii = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in pairs)
+    vu, vi = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in val_pairs)
+    rows_touched = lambda u, i: (int(torch.unique(u).numel()) + int(torch.unique(i).numel())) * k * it  # noqa: E731
+    noise = torch.from_numpy(np.random.default_rng(3).random(tuple(Theta.shape))).to(dev, dt)
+    Theta_prev = Theta * (1 + 1e-3 * noise)
+    n = iu.numel()
+    cases = {
+        "predict_pairs": (lambda: M.predict_pairs(Theta, Beta, iu, ii),
+                          lambda: M._pairs_plain(Theta, Beta, iu, ii),
+                          (nbytes(iu, ii) + n * it + rows_touched(iu, ii), 2 * k * n), None),
+        "theta_diff_norm": (lambda: M.theta_diff_norm(Theta, Theta_prev),
+                            lambda: M._theta_diff_norm_plain(Theta, Theta_prev),
+                            (nbytes(Theta, Theta_prev), 3 * Theta.numel()),
+                            lambda: torch.dist(Theta, Theta_prev), scalar_check),
+        "rowsum_dot_rows": (lambda: M.rowsum_dot_rows(Theta, Beta, vu, vi),
+                            lambda: M._rowsum_dot_rows_plain(Theta, Beta, vu, vi),
+                            (nbytes(vu, vi) + rows_touched(vu, vi), 2 * k * vu.numel()), None,
+                            scalar_check),
+    }
+    results.update(run_cases(cases, dtype_name, reps, label))
+    return results, extra
+
+
+def walled(fn):
+    """(``fn()``, its wall ms on the host clock, synchronized)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profiled(fn):
+    """Run ``fn`` under torch.profiler: (its result, {wall_ms (host clock,
+    synchronized; the profiler's per-op overhead included, which swamps
+    the wall of many small calls), busy_ms (device), kernel_ms, h2d_ms,
+    d2h_ms, top (the four largest device items)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out, wall = walled(fn)
+    split = dict(kernel_ms=0.0, h2d_ms=0.0, d2h_ms=0.0)
+    rows = []
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            ms = ev.self_device_time_total / 1e3
+            part = "h2d_ms" if "HtoD" in ev.key else "d2h_ms" if "DtoH" in ev.key else "kernel_ms"
+            split[part] += ms
+            rows.append((ms, ev.count, ev.key))
+    top = "; ".join("%s x%d %.3f ms" % (key[:48], count, ms)
+                    for ms, count, key in sorted(rows, reverse=True)[:4])
+    return out, dict(wall_ms=wall, busy_ms=sum(split.values()), top=top, **split)
+
+
+def user_histories(coo, rows):
+    """[(items, counts)] of each user row in ``rows``, from a coo_array."""
+    pick = np.zeros(coo.shape[0], dtype=bool)
+    pick[rows] = True
+    sel = np.flatnonzero(pick[coo.row])
+    order = sel[np.argsort(coo.row[sel], kind="stable")]
+    r = coo.row[order]
+    out = []
+    for u in rows:
+        lo, hi = np.searchsorted(r, u), np.searchsorted(r, u, side="right")
+        out.append((coo.col[order[lo:hi]], coo.data[order[lo:hi]]))
+    return out
+
+
+def agree_online():
+    """Phase 4b: the same sequence of online calls and serving on the card
+    and on the CPU, each model starting from the CPU fit's arrays."""
+    from hpfrec_tpu_torch import HPF
+
+    small = counts_coo(120, 80, 2000, seed=42)
+    row, col, y = small.row, small.col, small.data
+    trip = lambda m: np.column_stack([row[m], col[m], y[m]])  # noqa: E731
+    hist = np.column_stack([np.arange(0, 42, 3), np.arange(1.0, 15.0)])
+    steps = (lambda m: m.partial_fit(trip(row < 30)),
+             lambda m: m.partial_fit(trip(col < 20), batch_type="items"),
+             lambda m: m.partial_fit(trip(row <= 110), new_users=True, random_seed=3),
+             lambda m: m.add_user(m.nusers, hist),
+             lambda m: m.add_user(7, hist, update_existing=True))
+    names = ("Theta", "Beta", "Gamma_shp", "Gamma_rte", "Lambda_shp", "Lambda_rte", "k_rte",
+             "t_rte")
+    for use_float in (True, False):
+        dtype_name = "float32" if use_float else "float64"
+        kw = dict(k=8, maxiter=20, check_every=10, stop_crit="maxiter", random_seed=5,
+                  use_float=use_float, verbose=False)
+        cpu = HPF(device="cpu", **kw).fit(small)
+        card = HPF(device="cuda", **kw).fit(small)
+        for name in names:
+            setattr(card, name, getattr(cpu, name).copy())
+        for step in steps:
+            step(cpu)
+            step(card)
+        dev_state = max(np.abs(getattr(card, n) / getattr(cpu, n) - 1).max() for n in names)
+        got = card.predict_factors(hist, return_all=True)
+        ref = cpu.predict_factors(hist, return_all=True)
+        dev_fold = max(np.abs(a / b - 1).max() for a, b in zip(got[:3], ref[:3]))
+        dev_phi = np.abs(got[3] - ref[3]).max()
+        top_card = card.topN_batch(np.arange(120), n=10)
+        top_cpu = cpu.topN_batch(np.arange(120), n=10)
+        print("[4b] online sequence, %s: card vs CPU max rel: state arrays %.3e, fold-in "
+              "Theta/G %.3e (limit %g), phi max abs %.3e; top-10 of 120 users: %d of %d "
+              "indices differ" % (dtype_name, dev_state, dev_fold, AGREE_ONLINE[dtype_name],
+                                  dev_phi, int((top_card != top_cpu).sum()), top_card.size))
+        if max(dev_state, dev_fold, dev_phi) > AGREE_ONLINE[dtype_name]:
+            raise AssertionError(f"online sequence, {dtype_name}: card and CPU disagree")
+        if not np.array_equal(top_card, top_cpu):
+            raise AssertionError(f"topN_batch, {dtype_name}: card and CPU indices differ")
+
+
 def layouts_for(coo, dtype, device):
     from hpfrec_tpu_torch.ops.ell import build_layouts, layout_slots, to_device
     from hpfrec_tpu_torch.utils.data import process_data
@@ -439,8 +705,11 @@ def main():
     from hpfrec_tpu_torch.ops import ell as E
     from hpfrec_tpu_torch.ops import metrics as M
     from hpfrec_tpu_torch.ops import svi as S
+    from hpfrec_tpu_torch.ops import topk as T
+    from hpfrec_tpu_torch.utils import evaluation as EV
     from hpfrec_tpu_torch.utils.data import process_data
 
+    warnings.filterwarnings("ignore", message="When using 'partial_fit'")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -448,7 +717,15 @@ def main():
                 "table_update": C.side_update, "table_derive": C.side_derive,
                 "ell_llk": M.bucket_llk_parts, "coo_llk": M.llk_rmse_sums,
                 "batch_phi_sums": S.batch_phi_sums, "svi_update": S.svi_update,
-                "epoch_gather": S.build_epoch_buffers, "row_mask": S.build_row_mask}
+                "epoch_gather": S.build_epoch_buffers, "row_mask": S.build_row_mask,
+                "topn": T.topn_rows, "fold_in": S.user_factors_loop,
+                "predict_pairs": M.predict_pairs, "theta_diff_norm": M.theta_diff_norm,
+                "rowsum_dot_rows": M.rowsum_dot_rows}
+
+    t_start = time.perf_counter()
+
+    def stamp(phase):
+        print("[time] %s starts %.1f s into the run" % (phase, time.perf_counter() - t_start))
 
     def reset_counts():
         for w in wrappers.values():
@@ -473,6 +750,7 @@ def main():
           "" if _native.available() else "(%s)" % _native.load_error())
 
     # -- 2. kernel checks at ~1M nonzeros, k=50, f32 and f64 ---------------
+    stamp("phase 2")
     coo_small = powerlaw_coo(26_000, 9_700, 1_000_000, seed=3)
     train_small, val_small = holdout(coo_small, 0.01, seed=4)
     for dtype in (np.float32, np.float64):
@@ -488,9 +766,24 @@ def main():
         svi_suite(process_data(train_small, "val-llk", False, dtype),
                   val_blocked(val_small, dtype, dev), state, SMALL_BATCHES, name, reps=5,
                   blend_all=(False, True))
-        del state
+        print("[2] serving and fold-in kernel checks, %s: 256 users, n=10 and 2,000; "
+              "fold-in of the heaviest user and the user nearest 10 items; 1M pairs" % name)
+        tables = HPF(k=K, use_float=dtype == np.float32, ncores=1, device="cuda")
+        host = [a.cpu().numpy() for a in state]
+        tables.Theta, tables.Beta = host[0] / host[1], host[2] / host[3]
+        tables.Lambda_shp, tables.Lambda_rte = host[2], host[3]
+        csr = train_small.tocsr()
+        deg = np.diff(csr.indptr)
+        hist = [(csr.indices[csr.indptr[u]:csr.indptr[u + 1]], csr.data[csr.indptr[u]:csr.indptr[u + 1]])
+                for u in (int(np.argmax(deg)), int(np.argmin(np.abs(deg - 10))))]
+        rng = np.random.default_rng(8)
+        serving_suite(tables, np.arange(256), (csr.indptr[:-1], csr.indices, deg), (10, 2000),
+                      hist, (rng.integers(0, pdata.nusers, 1 << 20), rng.integers(0, pdata.nitems, 1 << 20)),
+                      (val_small.row, val_small.col), name, reps=3)
+        del state, tables
 
     # -- 3. the full-batch path at the MillionSong shape ----------------------
+    stamp("phase 3")
     t0 = time.perf_counter()
     coo = powerlaw_coo(**MILLIONSONG, seed=0)
     print("[3] data: %d x %d, %d nonzeros, generated in %.1f s"
@@ -544,6 +837,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 3b. the SVI path at the MillionSong shape ----------------------------
+    stamp("phase 3b")
     train, val = holdout(coo, 0.01, seed=5)
     del coo
     print("[3b] SVI: %d training and %d held-out triplets, batches %s"
@@ -604,17 +898,217 @@ def main():
 
     fitted = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
                                model.Lambda_rte, model.k_rte, model.t_rte], dev)
-    del model, check
+    del check
     print("[3b] SVI kernel checks at the fit's shapes (float32, fitted state; times for a "
           "user epoch + an item epoch (K9), a user batch + the rank-1 item's batch (K7, K8), "
           "the validation set (K5))")
     real.update(svi_suite(process_data(train, "val-llk", False, np.float32),
                           val_blocked(val, np.float32, dev), fitted, SVI_BATCHES, "float32",
                           reps=3))
-    del fitted, train, val
+    del fitted
+    torch.cuda.empty_cache()
+
+    # -- 3c. the diff-norm and the maxiter-with-validation paths ----------------
+    stamp("phase 3c")
+    one_epoch = dict(k=K, maxiter=1, check_every=1, random_seed=1, device="cuda",
+                     users_per_batch=SVI_BATCHES["users_per_batch"])
+    dn = HPF(stop_crit="diff-norm", verbose=False, **one_epoch)
+    reset_counts()
+    dn.fit(train)
+    launches_dn = read_counts()
+    print("[3c] diff-norm SVI fit (1 user epoch): wall %.3f s; launch counters %s"
+          % (dn.fit_stats_.wall_seconds, json.dumps(launches_dn)))
+    mv = HPF(stop_crit="maxiter", verbose=True, **one_epoch)
+    reset_counts()
+    mv.fit(train, val_set=val)
+    launches_mv = read_counts()
+    print("[3c] maxiter SVI fit with the validation set (1 user epoch): wall %.3f s, final "
+          "llk %.6g; launch counters %s"
+          % (mv.fit_stats_.wall_seconds, mv.train_llk, json.dumps(launches_mv)))
+    if not np.isfinite(mv.train_llk):
+        raise AssertionError("maxiter fit: final llk not finite")
+    for path, counts, kernel in (("diff-norm fit", launches_dn, "theta_diff_norm"),
+                                 ("maxiter fit's final eval", launches_mv, "rowsum_dot_rows")):
+        if counts[kernel] <= 0:
+            raise AssertionError(f"{kernel} never launched on the {path}: {counts}")
+    del dn, mv
+    torch.cuda.empty_cache()
+
+    # -- 3d. serving on the SVI fit ---------------------------------------------
+    stamp("phase 3d")
+    rng = np.random.default_rng(11)
+    serve_users = rng.choice(model.nusers, SERVE_USERS, replace=False)
+    val_users = rng.choice(np.unique(val.row), SERVE_USERS, replace=False)
+    pu, pi = rng.integers(0, model.nusers, 100_000), rng.integers(0, model.nitems, 100_000)
+    calls = {"topN_batch": lambda: model.topN_batch(serve_users, n=10),
+             "ranking_metrics": lambda: EV.ranking_metrics(model, val, k=10, users=val_users),
+             "predicted_rate_stats": lambda: EV.predicted_rate_stats(model, val),
+             "roc_auc": lambda: EV.roc_auc(model, val),
+             "predict": lambda: model.predict(pu, pi)}
+    reset_counts()
+    serving = {name: walled(call) for name, call in calls.items()}
+    launches_serving = read_counts()
+    print("[3d] wall: each call on its own; device split: a second run under torch.profiler")
+    for name, (out, wall) in serving.items():
+        prof = profiled(calls[name])[1]
+        per = (" (%.3f ms per 1,024 users)" % (wall * 1024 / SERVE_USERS)
+               if name in ("topN_batch", "ranking_metrics") else "")
+        print("[3d] %s: wall %.3f ms%s; device busy %.3f ms (kernels %.3f, copies to the card "
+              "%.3f, back %.3f), host %.3f ms; top device work: %s"
+              % (name, wall, per, prof["busy_ms"], prof["kernel_ms"], prof["h2d_ms"],
+                 prof["d2h_ms"], wall - prof["busy_ms"], prof["top"]))
+    rec = serving["topN_batch"][0]
+    rank = serving["ranking_metrics"][0]
+    stats = serving["predicted_rate_stats"][0]
+    auc = serving["roc_auc"][0]
+    pred = serving["predict"][0]
+    print("[3d] ranking_metrics:", json.dumps(rank), "| predicted_rate_stats:",
+          json.dumps(stats), "| roc_auc: %.6f" % auc)
+    print("[3d] launch counters, serving:", json.dumps(launches_serving))
+    seen_of = lambda u: model.seen[model._st_ix_user[u]:model._st_ix_user[u] + model._n_seen_by_user[u]]  # noqa: E731
+    if (rec.shape != (SERVE_USERS, 10) or any(len(set(r)) != 10 for r in rec[:256].tolist())
+            or any(np.isin(rec[j], seen_of(u)).any() for j, u in enumerate(serve_users[:256]))):
+        raise AssertionError("topN_batch: wrong shape, repeated or seen items")
+    if not (rank["n_users"] == SERVE_USERS and 0 <= rank["recall"] <= 1
+            and 0 <= rank["ndcg"] <= 1 and 0 < auc < 1 and stats["n_pairs"] == val.nnz
+            and np.isfinite(stats["lift"])):
+        raise AssertionError(f"evaluation gave {rank}, {stats}, {auc}")
+    if pred.shape != (100_000,) or not np.all(np.isfinite(pred)) or np.any(pred < 0):
+        raise AssertionError("predict of 100,000 pairs: not finite and non-negative")
+    np.testing.assert_allclose(pred[:50], np.einsum("ij,ij->i", model.Theta[pu[:50]],
+                                                    model.Beta[pi[:50]]), rtol=1e-5)
+    for kernel in ("topn", "predict_pairs"):
+        if launches_serving[kernel] <= 0:
+            raise AssertionError(f"{kernel} never launched on the serving path")
+
+    # -- 3e. K6, K10 and K11 at the serving and online shapes --------------------
+    stamp("phase 3e")
+    deg = model._n_seen_by_user
+    heavy = int(np.argmax(deg))
+    ten = int(np.argmin(np.abs(deg - 10)))
+    hist_rows = np.concatenate([[heavy], rng.choice(model.nusers, ONLINE["histories"] - 1,
+                                                    replace=False)])
+    histories = user_histories(train, hist_rows)
+    print("[3e] serving and fold-in kernel checks (float32, the SVI fit's tables): one "
+          "1,024-user chunk at n=10 and n=2,000, fold-in of user %d (%d items) and user %d "
+          "(%d items), 4M pairs, the held-out rowsum, the diff norm"
+          % (heavy, deg[heavy], ten, deg[ten]))
+    r3e, extra = serving_suite(model, serve_users[:1024].astype(np.int64),
+                               (model._st_ix_user, model.seen, deg), (10, 2000),
+                               [histories[0], user_histories(train, [ten])[0]],
+                               (rng.integers(0, model.nusers, 1 << 22),
+                                rng.integers(0, model.nitems, 1 << 22)),
+                               (val.row, val.col), "float32", reps=3)
+    real.update(r3e)
+    torch.cuda.empty_cache()
+
+    # -- 3f. online updates on the SVI fit ----------------------------------------
+    stamp("phase 3f")
+    nU0 = model.nusers
+    pick_u = np.zeros(model.nusers, dtype=bool)
+    pick_u[rng.choice(model.nusers, ONLINE["user_batch"], replace=False)] = True
+    pick_i = np.zeros(model.nitems, dtype=bool)
+    pick_i[rng.choice(model.nitems, ONLINE["item_batch"], replace=False)] = True
+    top = nU0 - ONLINE["grow"] - 1
+    grow_rows = (train.row > top - 10_000) & (train.row <= top)
+    triplets = lambda m: np.column_stack([train.row[m], train.col[m], train.data[m]])  # noqa: E731
+    per_call = {}  # label -> ms of each single-user call of the last run
+
+    def each(label, fn, args):
+        per_call[label] = []
+        for a in args:
+            t0 = time.perf_counter()
+            fn(a)
+            torch.cuda.synchronize()
+            per_call[label].append((time.perf_counter() - t0) * 1e3)
+
+    # (label, call, many): a call made of many small calls runs twice,
+    # first on its own for its wall time, then under the profiler for its
+    # device split (the profiler's per-op overhead would swamp its wall);
+    # the others run once, under the profiler
+    pf = "predict_factors x %d (the heaviest user first)" % ONLINE["histories"]
+    au = "add_user x %d, fold-in" % ONLINE["new_users"]
+    calls = [("partial_fit, %d-user batch" % ONLINE["user_batch"],
+              lambda b=triplets(pick_u[train.row]): model.partial_fit(b), False),
+             ("partial_fit, %d-item batch" % ONLINE["item_batch"],
+              lambda b=triplets(pick_i[train.col]): model.partial_fit(b, batch_type="items"),
+              False),
+             ("partial_fit, new_users=True (+%d users)" % ONLINE["grow"],
+              lambda b=triplets(grow_rows): model.partial_fit(b, new_users=True, random_seed=3),
+              False),
+             (pf, lambda: each(pf, lambda h: model.predict_factors(np.column_stack(h)),
+                               histories), True),
+             (au, lambda: each(au, lambda h: model.add_user(model.nusers, np.column_stack(h)),
+                               histories[1:1 + ONLINE["new_users"]]), True),
+             ("add_user x %d, update_all_params (maxiter=2)" % ONLINE["all_params"],
+              lambda: [model.add_user(int(u), np.column_stack(h), update_existing=True,
+                                      update_all_params=True, maxiter=2)
+                       for u, h in zip(hist_rows[-ONLINE["all_params"]:],
+                                       histories[-ONLINE["all_params"]:])], False)]
+    sort_s = [0.0]
+    group_by_rows = S.group_by_rows
+
+    def timed_group(rows):
+        t0 = time.perf_counter()
+        out = group_by_rows(rows)
+        sort_s[0] += time.perf_counter() - t0
+        return out
+
+    hits = []
+    state_from_host = model._state_from_host
+
+    def traced_state():
+        cached = model._dev_state_cache
+        state = state_from_host()
+        hits.append(cached is not None and state is cached[1])
+        return state
+
+    S.group_by_rows = timed_group
+    model._state_from_host = traced_state
+    reset_counts()
+    walls = {}
+    for label, call, many in calls:
+        sort_s[0] = 0.0
+        hits.clear()
+        if many:
+            wall, prof = walled(call)[1], None
+        else:
+            prof = profiled(call)[1]
+            wall = prof["wall_ms"]
+        walls[label] = (wall, prof, sort_s[0] * 1e3, list(hits), per_call.get(label))
+    S.group_by_rows = group_by_rows
+    del model._state_from_host
+    launches_online = read_counts()
+    if model.nusers != nU0 + ONLINE["grow"] + ONLINE["new_users"]:
+        raise AssertionError(f"online growth: {nU0} users became {model.nusers}")
+    print("[3f] predict_factors and add_user: the wall of a run on its own, the device split "
+          "of a second run under torch.profiler; the others: one run under the profiler")
+    for label, call, many in calls:
+        wall, prof, sort_ms, hit, ms = walls[label]
+        if prof is None:
+            prof = profiled(call)[1]
+        state = ("device state: %d of %d calls found it cached" % (sum(hit), len(hit))
+                 if hit else "no device state")
+        print("[3f] %s: wall %.3f ms; host sort %.3f ms; %s; device busy %.3f ms (kernels "
+              "%.3f, copies to the card %.3f, back to the host %.3f); other host work %.3f ms;"
+              " top device work: %s"
+              % (label, wall, sort_ms, state, prof["busy_ms"], prof["kernel_ms"],
+                 prof["h2d_ms"], prof["d2h_ms"], wall - prof["busy_ms"] - sort_ms, prof["top"]))
+        if ms:
+            print("[3f]   per call: the first %.3f ms, the median of the others %.3f ms, the "
+                  "largest %.3f ms" % (ms[0], np.median(ms[1:]), max(ms)))
+    print("[3f] launch counters, online:", json.dumps(launches_online))
+    for name in ("Theta", "Beta", "Gamma_shp", "Lambda_shp", "k_rte", "t_rte"):
+        if not np.all(np.isfinite(getattr(model, name))):
+            raise AssertionError(f"online updates: {name} not finite")
+    for kernel in ("fold_in", "table_derive", "batch_phi_sums", "svi_update", "row_mask"):
+        if launches_online[kernel] <= 0:
+            raise AssertionError(f"{kernel} never launched on the online path")
+    del model, train, val
     torch.cuda.empty_cache()
 
     # -- 4. agreement and determinism at a small size -----------------------
+    stamp("phase 4")
     small = counts_coo(120, 80, 2000, seed=42)
     small_train, small_val = holdout(small, 0.1, seed=43)
     paths = (("full batch", AGREE, dict(maxiter=60, check_every=10, stop_crit="train-llk"),
@@ -652,12 +1146,19 @@ def main():
             if max(dev_theta, dev_beta) > lim["factors"]:
                 raise AssertionError(f"{label}: card and CPU factors disagree")
 
+    stamp("phase 4b")
+    agree_online()
+
     # -- 5. results -----------------------------------------------------------
+    stamp("phase 5")
     kernels = []
+    paths = {"full_batch": launches_fb, "svi_val": launches_val, "eval_llk": launches_eval,
+             "svi_train": launches_train, "svi_diffnorm": launches_dn,
+             "svi_maxiter_val": launches_mv, "serving": launches_serving,
+             "online": launches_online}
     for name, r in real.items():
         src, rep = REPLACES[name]
-        by_path = {"full_batch": launches_fb[name], "svi_val": launches_val[name],
-                   "eval_llk": launches_eval[name], "svi_train": launches_train[name]}
+        by_path = {path: counts[name] for path, counts in paths.items()}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

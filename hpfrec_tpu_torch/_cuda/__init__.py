@@ -52,11 +52,27 @@ _SIGNATURES = {
     # scaler_out, partials, n, k, nblocks
     "svi_pass": [_P, _P, _P, _P, _P, _P, _D, _D, _D, _D, _D, _I32, _I32, _P, _P, _P,
                  _P, _I64, _I32, _I32],
+    # theta, beta, iu, ii, out, partials (or NULL), n, k, nblocks
+    "predict_pairs": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64],
+    # a, b, partials, n, nblocks
+    "theta_diff": [_P, _P, _P, _I64, _I32],
+    # theta, beta, iu, ii, partials, n, k, nblocks
+    "rowsum_dot": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
+    # theta_rows, beta, scores, b, nI, k
+    "topn_score": [_P, _P, _P, _I32, _I64, _I32],
+    # y, elogb, beta_colsum, theta0, g_shp0, g_rte0, k_rte0, a, k_shp,
+    # add_k_rte, maxiter, stop_thr, P, k, theta, g_shp, g_rte, phi, n_iter
+    "fold_in": [_P, _P, _P, _P, _P, _P, _D, _D, _D, _D, _I32, _D, _I64, _I32, _P, _P, _P,
+                _P, _P],
 }
 # entry points without a float type: name -> argument types before the stream
 _UNTYPED = {
     # rows, m, mask
     "row_mask": [_P, _I64, _P],
+    # scores, rows, items, npairs, b, nI
+    "topn_mask": [_P, _P, _P, _I64, _I32, _I64],
+    # scores, vals, idx, cand (or NULL), b, nI, n, P
+    "topn_select": [_P, _P, _P, _P, _I32, _I64, _I32, _I32],
 }
 
 _lib = None

@@ -1,13 +1,17 @@
-"""The ``HPF`` model class on PyTorch: full-batch CAVI and mini-batch SVI
-on one device.
+"""The ``HPF`` model class on PyTorch: full-batch CAVI, mini-batch SVI,
+batch serving and online updates on one device.
 
 Port of ``hpfrec_tpu/models/hpf.py`` (itself API-compatible with the
 reference ``hpfrec/__init__.py:11-1459``): the constructor with all of the
 reference's arguments and their validation; ``fit`` in full-batch CAVI on
 the bucketed-ELL engine or in mini-batch SVI (``users_per_batch`` /
 ``items_per_batch``), with all four stopping criteria and a validation
-set; ``eval_llk``; and ``predict`` / ``topN`` on the fitted host factors.
-The device loops run the hand-written CUDA kernels of
+set; ``eval_llk``; ``predict`` / ``topN`` on the fitted host factors, with
+large ``predict`` batches (65,536 pairs or more) on the device;
+``topN_batch`` on a cached device ``Beta``; and the online updates
+``partial_fit`` (with ``new_users`` / ``new_items`` growth),
+``predict_factors`` and ``add_user``, which keep the device state cached
+between calls.  The device work runs the hand-written CUDA kernels of
 ``hpfrec_tpu_torch/csrc`` on a CUDA device, and their plain PyTorch
 versions on the CPU.
 
@@ -27,12 +31,14 @@ import os
 import time
 import types
 import warnings
+import weakref
 
 import numpy as np
 import torch
 
 from ..utils import data as data_utils
-from .state import Hyperparams, VariationalState, initialize_state
+from .state import (Hyperparams, VariationalState, initialize_extra_rows,
+                    initialize_state)
 
 
 def _as_float(x, name):
@@ -40,6 +46,23 @@ def _as_float(x, name):
         x = float(x)
     assert isinstance(x, float), f"'{name}' must be a number"
     return x
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a tensor in memory that numpy owns (so that its
+    write flag can be turned off and on again)."""
+    out = np.empty(tuple(t.shape), dtype=np.float32 if t.dtype == torch.float32
+                   else np.float64)
+    torch.from_numpy(out).copy_(t)
+    return out
+
+
+def _host_to_device(a, device) -> torch.Tensor:
+    """A device copy of a host array; never shares memory with it."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device, copy=True)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -64,10 +87,16 @@ class HPF:
     Not ported yet (raise ``NotImplementedError``): ``engine='coo'``,
     ``shard_tables``, ``mesh``, ``checkpoint_folder`` /
     ``checkpoint_every`` / ``resume``, ``save_folder``, ``profile_dir``,
-    ``gather_dtype='bfloat16'``, and the methods ``partial_fit``,
-    ``predict_factors``, ``add_user``, ``topN_batch``, ``save`` /
-    ``load``.  ``gather_dtype`` ``'auto'`` and ``'float32'`` both mean the
-    state dtype.
+    ``gather_dtype='bfloat16'``, and ``save`` / ``load``.
+    ``gather_dtype`` ``'auto'`` and ``'float32'`` both mean the state
+    dtype.
+
+    ``partial_fit``, ``predict_factors``, ``add_user`` and
+    ``utils.evaluation`` take an ``(n, 3)`` / ``(n, 2)`` ndarray (and a
+    DataFrame when pandas is installed).  The fitted state arrays that the
+    model allocates itself are cached on the device and made read-only;
+    reassign an attribute to change it (a caller's array is never made
+    read-only, and is uploaded on every call instead).
     """
 
     def __init__(self, k=30, a=0.3, a_prime=0.3, b_prime=1.0,
@@ -251,6 +280,11 @@ class HPF:
         self.is_fitted = False
         self.niter = None
         self.train_llk = None
+        self._host_owned = {}  # attribute name -> the array the model allocated
+        self._grown = {}  # attribute name -> weakref to its view of a growth buffer
+        self._dev_state_cache = None
+        self._beta_dev_cache = None
+        self._beta_colsum_cache = None
 
     # ------------------------------------------------------------------
     # internals
@@ -280,20 +314,133 @@ class HPF:
             raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
         return dev
 
+    # -- host attributes and their device copies --------------------------
+    _STATE_ATTRS = ("Gamma_shp", "Gamma_rte", "Lambda_shp", "Lambda_rte",
+                    "k_rte", "t_rte")
+
+    def _own(self, name, arr):
+        """Set a host attribute to an array the model allocated itself: only
+        such arrays are cached on the device and made read-only."""
+        setattr(self, name, arr)
+        self._host_owned[name] = arr
+
+    def _is_owned(self, name) -> bool:
+        a = getattr(self, name, None)
+        return a is not None and self._host_owned.get(name) is a
+
+    def _append_rows(self, name, rows, own=True):
+        """Set attribute ``name`` to ``np.r_[old, rows]`` in amortized time.
+        The model grows the array inside a buffer with spare rows after it
+        (an eighth more at each reallocation), so adding one user to a
+        table of a million rows writes one row where ``np.r_`` copies the
+        whole table.  The attribute is a leading view of the buffer; its
+        spare rows are reused only while the attribute is still that view
+        (``own``: the view counts as an array the model allocated).  An
+        earlier view of the same buffer, which a caller may hold, shares
+        its rows with the new one: ``_unshare`` copies the attribute out
+        before an in-place edit, so such a view keeps its values as it
+        would after ``np.r_``."""
+        old = getattr(self, name)
+        rows = np.asarray(rows)
+        n, m = old.shape[0], rows.shape[0]
+        dt = np.result_type(old, rows)
+        ref = self._grown.get(name)
+        buf = old.base if ref is not None and ref() is old else None
+        if buf is None or buf.shape[0] < n + m or dt != old.dtype:
+            buf = np.empty((n + m + max(64, (n + m) // 8),) + old.shape[1:], dtype=dt)
+            buf[:n] = old
+        buf[n:n + m] = rows
+        new = buf[:n + m]
+        self._grown[name] = weakref.ref(new)
+        if own:
+            self._own(name, new)
+        else:
+            setattr(self, name, new)
+
+    def _unshare(self, name):
+        """Before an in-place row edit: replace an attribute that is a view
+        of a growth buffer by a copy of its own (owned as before)."""
+        ref = self._grown.pop(name, None)
+        arr = getattr(self, name)
+        if ref is None or ref() is not arr:
+            return
+        if self._is_owned(name):
+            self._own(name, arr.copy())
+        else:
+            setattr(self, name, arr.copy())
+
+    def _freeze_owned(self, names):
+        """Make the model's own cached host arrays read-only: an in-place
+        edit could evade the strided fingerprint and serve stale device
+        state, so the mutation contract is reassignment."""
+        for name in names:
+            if self._is_owned(name):
+                getattr(self, name).flags.writeable = False
+
+    def _thaw_attr(self, name):
+        """Re-enable writes on the model's own frozen array for the
+        library's in-place edit paths (which drop the device caches)."""
+        if self._is_owned(name):
+            getattr(self, name).flags.writeable = True
+
+    def _state_fingerprint(self):
+        """Shape/dtype + strided-sample fingerprint of the six host state
+        arrays, for the device-state cache.  None when any is missing
+        (keep_all_objs=False).  Identity is checked separately through held
+        references, never raw ``id()``."""
+        parts = []
+        for name in self._STATE_ATTRS:
+            a = getattr(self, name, None)
+            if a is None:
+                return None
+            arr = np.asarray(a)
+            sample = arr.ravel()[:: max(1, arr.size // 256)][:256]
+            parts.append((arr.shape, str(arr.dtype), sample.tobytes()))
+        return tuple(parts)
+
+    def _state_refs(self):
+        return tuple(getattr(self, name, None) for name in self._STATE_ATTRS)
+
     def _state_to_host(self, state: VariationalState):
         """Pull the fitted variational parameters back to host numpy (the
-        reference's attribute names)."""
-        G_shp, G_rte, L_shp, L_rte, k_rte, t_rte = (
-            a.cpu().numpy() for a in state)
-        self.Theta = G_shp / G_rte
-        self.Beta = L_shp / L_rte
+        reference's attribute names); these attributes are the source of
+        truth between calls.  With ``keep_all_objs`` the device state stays
+        cached for the next online update, keyed on the held host arrays
+        and their fingerprint."""
+        G_shp, G_rte, L_shp, L_rte, k_rte, t_rte = (_to_host(a) for a in state)
+        self._own("Theta", G_shp / G_rte)
+        self._own("Beta", L_shp / L_rte)
+        self._beta_dev_cache = self._beta_colsum_cache = None
         if self.keep_all_objs:
-            self.Gamma_shp = G_shp
-            self.Gamma_rte = G_rte
-            self.Lambda_shp = L_shp
-            self.Lambda_rte = L_rte
-            self.k_rte = k_rte
-            self.t_rte = t_rte
+            for name, arr in zip(self._STATE_ATTRS,
+                                 (G_shp, G_rte, L_shp, L_rte, k_rte, t_rte)):
+                self._own(name, arr)
+            self._dev_state_cache = (self._state_fingerprint(), state, self._state_refs())
+            self._freeze_owned(self._STATE_ATTRS)
+        else:
+            self._dev_state_cache = None
+
+    def _state_from_host(self) -> VariationalState:
+        """The device state from the host attributes, from the cache when
+        the six arrays are the same objects with the same fingerprint (the
+        repeated upload of ~1.1 GB at the MillionSong shape otherwise).
+        Library paths reassign the attributes or drop the cache explicitly
+        (``add_user``'s in-place row edit); only arrays the model allocated
+        itself are cached and frozen."""
+        fp = self._state_fingerprint()
+        cached = self._dev_state_cache
+        if (cached is not None and fp is not None and cached[0] == fp
+                and all(c is r for c, r in zip(cached[2], self._state_refs()))):
+            return cached[1]
+        dev = self._torch_device()
+        state = VariationalState(*[_host_to_device(getattr(self, name), dev)
+                                   for name in self._STATE_ATTRS])
+        if fp is not None and all(self._is_owned(name) for name in self._STATE_ATTRS):
+            self._dev_state_cache = (fp, state, self._state_refs())
+            self._freeze_owned(self._STATE_ATTRS)
+        else:
+            self._dev_state_cache = None
+        return state
 
     # ------------------------------------------------------------------
     # fit
@@ -637,7 +784,7 @@ class HPF:
         self.seen = indices
 
     # ------------------------------------------------------------------
-    # serving (host numpy on the fitted factors)
+    # serving
     # ------------------------------------------------------------------
     def _map_ids(self, values, mapping, id_dict):
         """Vector id->row mapping with -1 for unknown."""
@@ -679,6 +826,17 @@ class HPF:
         return out
 
     def _predict_arr(self, iu, ii):
+        """Host einsum for small batches; 65,536 pairs or more go to the
+        model's device through K11 (reference ``predict_multiple``,
+        ``pxi:803-810``)."""
+        if iu.shape[0] >= 65536:
+            from ..ops.ell import _upload
+            from ..ops.metrics import predict_pairs
+
+            dev = self._torch_device()
+            return predict_pairs(_host_to_device(self.Theta, dev), self._beta_device(),
+                                 _upload(iu, np.int32, dev),
+                                 _upload(ii, np.int32, dev)).cpu().numpy()
         return np.einsum('ij,ij->i', self.Theta[iu], self.Beta[ii])
 
     def topN(self, user, n=10, exclude_seen=True, items_pool=None):
@@ -767,20 +925,442 @@ class HPF:
         llk = float(parts[:, 0].sum()) - float(parts[:, 2].sum())
         return {'llk': llk, 'nobs': int(y.shape[0])}
 
+    def _beta_cached(self, attr, make):
+        """A value derived from ``Beta`` (``make(Beta)``), cached in
+        ``attr`` across calls.  Invalidation: identity (a held reference),
+        shape, dtype and a 1024-element strided fingerprint; every library
+        path reassigns ``Beta``.  Only a table the model allocated itself is
+        cached, and it is made read-only; for a caller's table the value is
+        made anew on every call."""
+        B = self.Beta
+        arr = np.asarray(B)
+        sample = arr.ravel()[:: max(1, arr.size // 1024)][:1024]
+        key = (arr.shape, str(arr.dtype), sample.tobytes())
+        cached = getattr(self, attr)
+        if cached is not None and cached[2] is B and cached[0] == key:
+            return cached[1]
+        value = make(arr)
+        if self._is_owned("Beta"):
+            setattr(self, attr, (key, value, B))
+            self._freeze_owned(("Beta",))
+        else:
+            setattr(self, attr, None)
+        return value
+
+    def _beta_device(self):
+        """``Beta`` on the model's device for batch serving, cached across
+        calls (re-uploading the (nI, k) table, 75 MB at the MillionSong
+        shape, would dominate a ``topN_batch`` call)."""
+        dev = self._torch_device()
+        cached = self._beta_dev_cache
+        if cached is not None and cached[1].device != dev:
+            self._beta_dev_cache = None
+        return self._beta_cached("_beta_dev_cache", lambda B: _host_to_device(B, dev))
+
+    def _beta_colsum(self):
+        """The host column sum of ``Beta`` that the fold-in's init reads,
+        cached as ``_beta_device`` is (one pass over 75 MB at the
+        MillionSong shape would otherwise dominate ``predict_factors``)."""
+        return self._beta_cached("_beta_colsum_cache", lambda B: B.sum(axis=0))
+
+    def topN_batch(self, users, n=10, exclude_seen=True):
+        """Top-N for many users in one call: K6 scores chunks of the batch
+        against the whole catalog on the device, masks the seen items and
+        selects the n best (no reference analogue; its ``topN`` is one
+        host gemv per user).  Returns an ``(len(users), n)`` array of item
+        ids (original ids when ``reindex=True``)."""
+        from ..ops.topk import topn_batch
+
+        assert self.is_fitted
+        users = np.asarray(users).reshape(-1)
+        if self.reindex:
+            rows = self._map_ids(users, self.user_mapping_, None)
+            if (rows == -1).any():
+                raise ValueError("Can only predict for users who were in the training set.")
+        else:
+            rows = users.astype(np.int64)
+        if exclude_seen and not self.keep_data:
+            raise Exception("Can only exclude seen items when passing 'keep_data=True' to .fit")
+        Beta_dev = self._beta_device()
+        if exclude_seen:
+            idx = topn_batch(self.Theta, Beta_dev, rows, n,
+                             seen_indptr=self._st_ix_user, seen_indices=self.seen,
+                             n_seen=self._n_seen_by_user)
+        else:
+            idx = topn_batch(self.Theta, Beta_dev, rows, n)
+        if self.reindex:
+            return self.item_mapping_[idx]
+        return idx
+
     # ------------------------------------------------------------------
-    # not ported yet
+    # online updates
     # ------------------------------------------------------------------
-    def partial_fit(self, *args, **kwargs):
-        raise _not_ported("partial_fit", "8")
+    @staticmethod
+    def _batch_triplets(counts_df, dt):
+        """(UserId, ItemId, Count) of a ``partial_fit`` batch: an (n, >=3)
+        ndarray, or a DataFrame when pandas is installed."""
+        if isinstance(counts_df, np.ndarray):
+            assert counts_df.ndim == 2 and counts_df.shape[1] >= 3
+            u, i, y = counts_df[:, 0], counts_df[:, 1], counts_df[:, 2]
+        else:
+            pd = data_utils._pandas()
+            assert pd is not None and isinstance(counts_df, pd.DataFrame)
+            for col in ("UserId", "ItemId", "Count"):
+                assert col in counts_df.columns
+            u, i, y = (counts_df[c].to_numpy() for c in ("UserId", "ItemId", "Count"))
+        assert y.shape[0] > 0
+        req = ["ENSUREARRAY", "C_CONTIGUOUS"]
+        return (np.require(u, dtype=np.int64, requirements=req),
+                np.require(i, dtype=np.int64, requirements=req),
+                np.require(y, dtype=dt, requirements=req))
 
-    def predict_factors(self, *args, **kwargs):
-        raise _not_ported("predict_factors", "8")
+    def partial_fit(self, counts_df, batch_type='users', step_size=None,
+                    nusers=None, nitems=None, users_in_batch=None, items_in_batch=None,
+                    new_users=False, new_items=False, random_seed=None):
+        """One SVI update from a user- or item-batch of triplets.  Mirrors
+        reference ``HPF.partial_fit`` (``hpfrec/__init__.py:714-931``) and
+        ``hpfrec_tpu``, including their quirks: the activity/popularity
+        scalers are blended on all rows, the multiplier is
+        ``nusers / len(users_in_batch)`` for item batches too, and the
+        ``new_users`` / ``new_items`` growth follows the reference formulas
+        verbatim.  On the device: K3 derive, K7 phi sums over every row the
+        batch touches, the declared rows' masks, K8 blend
+        (``ops.svi.svi_batch_update``); the state stays cached on the
+        device for the next call."""
+        from ..ops.ell import _upload
+        from ..ops.svi import build_row_mask, svi_batch_update
 
-    def add_user(self, *args, **kwargs):
-        raise _not_ported("add_user", "8")
+        if self.reindex:
+            raise ValueError("'partial_fit' can only be called when using reindex=False.")
+        if not self.keep_all_objs:
+            raise ValueError("'partial_fit' can only be called when using keep_all_objs=True.")
+        if self.keep_data:
+            if hasattr(self, "seen"):
+                warnings.warn(
+                    "When using 'partial_fit', the list of items seen by each user is not "
+                    "updated with the data passed here.")
+            else:
+                warnings.warn(
+                    "When fitting the model through 'partial_fit' without calling 'fit' "
+                    "beforehand, 'keep_data' will be forced to False.")
+                self.keep_data = False
 
-    def topN_batch(self, *args, **kwargs):
-        raise _not_ported("topN_batch (kernel K6)", "6")
+        assert batch_type in ('users', 'items')
+        user_batch = batch_type == 'users'
+
+        if nusers is None:
+            nusers = getattr(self, "nusers", None)
+            if nusers is None:
+                raise ValueError(
+                    "Must specify total number of users when calling 'partial_fit' for the first time.")
+        if nitems is None:
+            nitems = getattr(self, "nitems", None)
+            if nitems is None:
+                raise ValueError(
+                    "Must specify total number of items when calling 'partial_fit' for the first time.")
+        if getattr(self, "nusers", None) is None:
+            self.nusers = nusers
+        if getattr(self, "nitems", None) is None:
+            self.nitems = nitems
+
+        # step-size fallback chain (reference __init__.py:834-849)
+        if step_size is None:
+            try:
+                self.step_size(0)
+                try:
+                    step_size = self.step_size(self.niter)
+                except Exception:
+                    self.niter = 0
+                    step_size = 1.0
+            except Exception:
+                try:
+                    step_size = 1 / np.sqrt(self.niter + 2)
+                except Exception:
+                    self.niter = 0
+                    step_size = 1.0
+        assert 0 <= step_size <= 1
+
+        if random_seed is not None:
+            if isinstance(random_seed, float):
+                random_seed = int(random_seed)
+            assert isinstance(random_seed, int)
+
+        dt = self._dtype
+        ix_u_batch, ix_i_batch, Y_batch = self._batch_triplets(counts_df, dt)
+        if users_in_batch is None:
+            users_in_batch = np.unique(ix_u_batch)
+        else:
+            users_in_batch = np.require(users_in_batch, dtype=np.int64,
+                                        requirements=["ENSUREARRAY", "C_CONTIGUOUS"])
+        if items_in_batch is None:
+            items_in_batch = np.unique(ix_i_batch)
+        else:
+            items_in_batch = np.require(items_in_batch, dtype=np.int64,
+                                        requirements=["ENSUREARRAY", "C_CONTIGUOUS"])
+
+        hp = self._hp()
+        if (self.Theta is None) or (self.Beta is None):
+            state = initialize_state(self.nusers, self.nitems, hp,
+                                     self.random_seed if self.random_seed is not None else 0,
+                                     dt)
+            self._state_to_host(state)
+
+        if new_users:
+            nusers_now = int(ix_u_batch.max()) + 1
+            nusers_add = self.nusers - nusers_now
+            if nusers_add < 1:
+                raise ValueError("There are no new users in the data passed to 'partial_fit'.")
+            new_shp, new_rte, new_scaler = initialize_extra_rows(
+                nusers_add, self.a_prime, self.b_prime, self.k, random_seed, dt)
+            self._own("k_rte", np.r_[self.k_rte, new_scaler])
+            self._own("Theta", np.r_[self.Theta, new_shp / new_rte])
+            self._own("Gamma_rte", np.r_[self.Gamma_rte, new_rte])
+            self._own("Gamma_shp", np.r_[self.Gamma_shp, new_shp])
+            self.nusers += nusers_add
+
+        if new_items:
+            nitems_now = int(ix_i_batch.max()) + 1
+            nitems_add = self.nitems - nitems_now
+            if nitems_add < 1:
+                raise ValueError("There are no new items in the data passed to 'partial_fit'.")
+            new_shp, new_rte, new_scaler = initialize_extra_rows(
+                nitems_add, self.c_prime, self.d_prime, self.k, random_seed, dt)
+            self._own("t_rte", np.r_[self.t_rte, new_scaler])
+            self._own("Beta", np.r_[self.Beta, new_shp / new_rte])
+            self._own("Lambda_rte", np.r_[self.Lambda_rte, new_rte])
+            self._own("Lambda_shp", np.r_[self.Lambda_shp, new_shp])
+            self.nitems += nitems_add
+
+        # Reference quirk (hpfrec/__init__.py:912): the multiplier is always
+        # nusers/len(users_in_batch), even for item batches; an empty user
+        # list makes it undefined (an empty items_in_batch blends nothing)
+        if users_in_batch.shape[0] == 0:
+            raise ValueError(
+                "'users_in_batch' is empty: the SVI multiplier "
+                "nusers/|users_in_batch| is undefined for an empty user "
+                "batch. Pass the users present in the data (or omit the "
+                "argument to derive them).")
+        multiplier_batch = float(nusers) / users_in_batch.shape[0]
+        # the kernels index the tables with these ids: out-of-range ids
+        # would write outside them
+        for ids, n_rows, what in ((ix_u_batch, self.nusers, "user"),
+                                  (users_in_batch, self.nusers, "user"),
+                                  (ix_i_batch, self.nitems, "item"),
+                                  (items_in_batch, self.nitems, "item")):
+            if ids.shape[0] and (int(ids.min()) < 0 or int(ids.max()) >= n_rows):
+                raise ValueError("'partial_fit' got %s ids outside 0..%d" % (what, n_rows - 1))
+
+        state = self._state_from_host()
+        dev = state.G_shp.device
+
+        def row_mask(n_rows, rows):
+            # an empty declared list blends nothing: a zero mask, no launch
+            return build_row_mask(n_rows, _upload(rows, np.int32, dev))
+
+        state = svi_batch_update(
+            state, Y_batch, ix_u_batch, ix_i_batch,
+            row_mask(self.nusers, users_in_batch), row_mask(self.nitems, items_in_batch),
+            float(dt(step_size)), float(dt(multiplier_batch)), hp,
+            user_side=user_batch, blend_all_scalers=True)
+        self._state_to_host(state)
+
+        self.niter = (self.niter or 0) + 1
+        self.is_fitted = True
+        return self
+
+    def _check_input_predict_factors(self, ncores, random_seed, stop_thr, maxiter):
+        if ncores is None:
+            ncores = 1
+        if ncores < 1:
+            import multiprocessing
+
+            ncores = multiprocessing.cpu_count()
+        assert ncores > 0
+        assert isinstance(ncores, int)
+        assert isinstance(random_seed, int)
+        assert random_seed > 0
+        if isinstance(stop_thr, int):
+            stop_thr = float(stop_thr)
+        assert stop_thr > 0
+        assert isinstance(stop_thr, float)
+        if isinstance(maxiter, float):
+            maxiter = int(maxiter)
+        assert isinstance(maxiter, int)
+        assert maxiter > 0
+        return ncores, random_seed, stop_thr, maxiter
+
+    def _process_data_single(self, counts_df):
+        """A single user's (item rows, counts) from an (n, >=2) ndarray of
+        ItemId/Count or a DataFrame with those columns (reference
+        ``_process_data_single``, ``hpfrec/__init__.py:682-712``)."""
+        assert self.is_fitted
+        assert self.keep_all_objs
+        if isinstance(counts_df, np.ndarray):
+            assert len(counts_df.shape) > 1
+            assert counts_df.shape[1] >= 2
+            items, counts = counts_df[:, 0].copy(), counts_df[:, 1].copy()
+        elif (pd := data_utils._pandas()) is not None and isinstance(counts_df, pd.DataFrame):
+            assert counts_df.shape[0] > 0
+            assert "ItemId" in counts_df.columns
+            assert "Count" in counts_df.columns
+            items, counts = counts_df["ItemId"].to_numpy(), counts_df["Count"].to_numpy()
+        else:
+            raise ValueError("'counts_df' must be a pandas data frame or a numpy array")
+        if not self.reindex and items.shape[0] and (
+                items.min() < 0 or items.max() > self.nitems - 1):
+            # the fold-in and K6's mask index the item tables with these ids
+            raise ValueError("Item ids must be in 0..%d (the training set's items)."
+                             % (self.nitems - 1))
+
+        if self.reindex:
+            if self.produce_dicts:
+                try:
+                    items = np.array([self.item_dict_[x] for x in items], dtype=np.int64)
+                except (KeyError, TypeError):
+                    raise ValueError("Can only make calculations for items that were in the training set.")
+            else:
+                items = data_utils.map_to_training_ids(items, self.item_mapping_)
+                if (items == -1).sum() > 0:
+                    raise ValueError("Can only make calculations for items that were in the training set.")
+        return items, counts
+
+    def _fold_in_start(self, items, counts, random_seed):
+        """The fold-in's host inputs, the seeded init of ``hpfrec_tpu``
+        verbatim: ``(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0)``
+        and ``k_rte0``, all in the state dtype."""
+        from scipy.special import digamma as np_digamma
+
+        dt = self._dtype
+        k = self.k
+        y = np.asarray(counts).astype(dt)
+        ix_i = np.asarray(items).astype(np.int64)
+        beta_colsum = self._beta_colsum().astype(dt)
+
+        rng = np.random.default_rng(seed=random_seed if random_seed > 0 else None)
+        Theta0 = rng.gamma(self.a, 1.0 / self.b_prime, size=k).astype(dt)
+        G_rte0 = (rng.gamma(self.a_prime, self.b_prime / self.a_prime, size=1).astype(dt)
+                  + beta_colsum)
+        G_shp0 = G_rte0 * Theta0 * rng.uniform(low=0.85, high=1.15, size=k).astype(dt)
+        G_shp0 = np.nan_to_num(G_shp0)
+        G_rte0 = np.nan_to_num(G_rte0)
+        k_rte0 = np.asarray(self.b_prime + Theta0.sum(), dtype=dt)
+
+        elogb_rows = (np_digamma(self.Lambda_shp[ix_i]) - np.log(self.Lambda_rte[ix_i])).astype(dt)
+        return (y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0), float(k_rte0)
+
+    def _run_user_factors(self, items, counts, maxiter, random_seed, stop_thr, return_all):
+        """Fold-in (reference ``calc_user_factors``, ``cython_loops.pxi:476-520``):
+        the seeded host init, then K10 on the model's device with the item
+        parameters frozen."""
+        from ..ops.svi import user_factors_loop
+
+        arrays, k_rte0 = self._fold_in_start(items, counts, random_seed)
+        dev = self._torch_device()
+        Theta, G_shp, G_rte, phi_norm, _ = user_factors_loop(
+            *[_host_to_device(a, dev) for a in arrays], k_rte0, self._hp(), int(maxiter),
+            float(stop_thr))
+        Theta = Theta.cpu().numpy()
+        if np.isnan(Theta).sum() > 0:
+            raise ValueError("NaNs encountered in the result. Failed to produce latent factors.")
+        G_shp, G_rte = G_shp.cpu().numpy(), G_rte.cpu().numpy()
+        if return_all:
+            return Theta, G_shp, G_rte, phi_norm.cpu().numpy()
+        return Theta, G_shp, G_rte, None
+
+    def predict_factors(self, counts_df, maxiter=10, ncores=1, random_seed=1,
+                        stop_thr=1e-3, return_all=False):
+        """Latent factors for a new user given her item counts (item
+        parameters frozen), by K10.  Mirrors reference
+        ``HPF.predict_factors`` (``hpfrec/__init__.py:989-1058``)."""
+        ncores, random_seed, stop_thr, maxiter = self._check_input_predict_factors(
+            ncores, random_seed, stop_thr, maxiter)
+        items, counts = self._process_data_single(counts_df)
+        Theta, G_shp, G_rte, phi = self._run_user_factors(
+            items, counts, maxiter, random_seed, stop_thr, return_all)
+        if return_all:
+            return (Theta, G_shp, G_rte, phi)
+        return Theta
+
+    def add_user(self, user_id, counts_df, update_existing=False, maxiter=10, ncores=1,
+                 random_seed=1, stop_thr=1e-3, update_all_params=None):
+        """Add or update a single user (reference ``HPF.add_user``,
+        ``hpfrec/__init__.py:1060-1196``): by fold-in (K10), or with
+        ``update_all_params`` by repeated ``partial_fit`` on the user's
+        batch (each call brings the state back to the host, as the
+        reference and ``hpfrec_tpu`` do)."""
+        ncores, random_seed, stop_thr, maxiter = self._check_input_predict_factors(
+            ncores, random_seed, stop_thr, maxiter)
+
+        if update_existing:
+            if self.produce_dicts and self.reindex:
+                user_id = self.user_dict_[user_id]
+            elif self.reindex:
+                user_id = data_utils.map_to_training_ids(
+                    np.array([user_id]), self.user_mapping_)[0]
+                if user_id == -1:
+                    raise ValueError("User was not present in the training data.")
+
+        items, counts = self._process_data_single(counts_df)
+
+        if update_all_params:
+            batch = np.column_stack([np.full(items.shape[0], user_id), items, counts])
+            self.partial_fit(batch, new_users=(not update_existing))
+            Theta_prev = self.Theta[-1].copy()
+            for _ in range(maxiter - 1):
+                self.partial_fit(batch)
+                new_Theta = self.Theta[-1]
+                if np.linalg.norm(new_Theta - Theta_prev) <= stop_thr:
+                    break
+                Theta_prev = self.Theta[-1].copy()
+        else:
+            Theta, G_shp, G_rte, _ = self._run_user_factors(
+                items, counts, maxiter, random_seed, stop_thr, False)
+            new_k_rte = self.a_prime / self.b_prime + \
+                (G_shp.reshape((1, -1)) / G_rte.reshape((1, -1))).sum(axis=1, keepdims=True)
+            if update_existing:
+                self._unshare("Theta")
+                self.Theta[user_id] = Theta
+                if self.keep_all_objs:
+                    # the cached host arrays are read-only: thaw them for
+                    # this row edit and drop the device-state cache (the
+                    # arrays keep their identity)
+                    for nm in ("Gamma_shp", "Gamma_rte", "k_rte"):
+                        self._unshare(nm)
+                        self._thaw_attr(nm)
+                    self.Gamma_shp[user_id] = G_shp
+                    self.Gamma_rte[user_id] = G_rte
+                    self.k_rte[user_id] = new_k_rte
+                    self._dev_state_cache = None
+            else:
+                if self.reindex:
+                    new_id = self.user_mapping_.shape[0]
+                    self.user_mapping_ = np.r_[self.user_mapping_, np.array([user_id])]
+                    if self.produce_dicts:
+                        self.user_dict_[user_id] = new_id
+                # the reference's np.r_ appends, in amortized time
+                self._append_rows("Theta", Theta.reshape((1, self.k)))
+                if self.keep_all_objs:
+                    self._append_rows("Gamma_shp", G_shp.reshape((1, self.k)))
+                    self._append_rows("Gamma_rte", G_rte.reshape((1, self.k)))
+                    self._append_rows("k_rte", new_k_rte)
+                self.nusers += 1
+
+        if self.keep_data:
+            items_arr = np.asarray(items).astype(self.seen.dtype, copy=False)
+            if update_existing:
+                self._unshare("_n_seen_by_user")
+                self._unshare("_st_ix_user")
+                before = self._n_seen_by_user[user_id]
+                self._n_seen_by_user[user_id] = items_arr.shape[0]
+                st = self._st_ix_user[user_id]
+                self.seen = np.r_[self.seen[:st], items_arr, self.seen[st + before:]]
+                self._st_ix_user[user_id + 1:] += self._n_seen_by_user[user_id] - before
+            else:
+                self._append_rows("_n_seen_by_user", np.array([items_arr.shape[0]]), own=False)
+                self._append_rows("_st_ix_user", np.array([self.seen.shape[0]]), own=False)
+                self._append_rows("seen", items_arr, own=False)
+
+        return True
 
     def save(self, path):
         raise _not_ported("save", "5")

@@ -3,7 +3,8 @@
 Port of ``hpfrec_tpu/models/state.py``: the same ``Hyperparams``, a
 ``VariationalState`` of six tensors, and the seeded MT19937 init drawn on
 the host with numpy in the reference's order, so that a seed and dtype
-give bit-identical starting parameters in both packages.
+give bit-identical starting parameters in both packages; and the
+``default_rng`` draws of the rows that ``partial_fit`` grows.
 """
 
 from __future__ import annotations
@@ -109,3 +110,16 @@ def initialize_state(nusers: int, nitems: int, hp: Hyperparams,
     G_shp = hp.a_prime + 0.01 * rng.random(size=(nusers, k), dtype=dtype)
     L_shp = hp.c_prime + 0.01 * rng.random(size=(nitems, k), dtype=dtype)
     return state_from_numpy((G_shp, G_rte, L_shp, L_rte, k_rte, t_rte), device)
+
+
+def initialize_extra_rows(n: int, prime: float, scaler_prime: float, k: int,
+                          seed: int | None, dtype=np.float32):
+    """New-row initialization for model growth (``partial_fit(new_users=True)``;
+    reference ``hpfrec/__init__.py:933-963``): shp/rte ~ prime +
+    0.01*U(0,1), scaler rate = scaler_prime.  Host numpy, the draws of
+    ``hpfrec_tpu.models.state.initialize_extra_rows`` verbatim."""
+    rng = np.random.default_rng(seed=seed if (seed is not None and seed > 0) else None)
+    new_shp = (prime + 0.01 * rng.random(size=(n, k), dtype=dtype)).astype(dtype)
+    new_rte = (prime + 0.01 * rng.random(size=(n, k), dtype=dtype)).astype(dtype)
+    new_scaler = np.full((n, 1), scaler_prime, dtype=dtype)
+    return new_shp, new_rte, new_scaler

@@ -1,18 +1,20 @@
 """Log-likelihood / RMSE: train over the user-side ELL layout (K4),
-validation and ``eval_llk`` over blocked COO triplets (K5).
+validation and ``eval_llk`` over blocked COO triplets (K5); and the small
+pair and table reductions (K11).
 
 Port of ``hpfrec_tpu/ops/metrics.py``: ``ell_llk_parts`` /
 ``ell_llk_rmse_sums`` / ``ell_train_llk_rmse`` (K4), ``llk_rmse_sums`` /
-``val_llk_rmse`` (K5), and ``theta_diff_norm`` / ``rowsum_dot_rows`` (K11,
-torch ops: each runs once per check or per fit).  Over the slots with
-``y > 0``: ``yhat = <Theta[u], Beta[i]>``, ``ll = y log(yhat) [-
-lgamma(y+1)]``, ``se = (y - yhat)^2``, ``sp = yhat``.  The kernels
-(``csrc/ell_llk.cu``, ``csrc/coo_llk.cu``) write per-block (ll, se, sp)
-partials in float64; a check reads them back once and adds them on the
+``val_llk_rmse`` (K5), and ``predict_pairs`` / ``sum_pairs_prediction`` /
+``theta_diff_norm`` / ``rowsum_dot_rows`` (K11, ``csrc/pair_ops.cu``).
+Over the slots with ``y > 0``: ``yhat = <Theta[u], Beta[i]>``, ``ll = y
+log(yhat) [- lgamma(y+1)]``, ``se = (y - yhat)^2``, ``sp = yhat``.  The
+kernels (``csrc/ell_llk.cu``, ``csrc/coo_llk.cu``) write per-block (ll, se,
+sp) partials in float64; a check reads them back once and adds them on the
 host in float64.  The train criterion's all-pairs correction
 ``colsum(Theta) . colsum(Beta)`` uses colsums that the table kernel (K3)
 produced for the same state; the validation criterion subtracts
-``sum(sp)`` instead.
+``sum(sp)`` instead.  K11's reductions follow the same rule: per-block
+float64 partials, added on the host in block order.
 """
 
 from __future__ import annotations
@@ -95,13 +97,6 @@ def ell_train_llk_rmse(Theta, Beta, layout: DeviceEll, nnz: int,
     return llk, rmse
 
 
-def theta_diff_norm(Theta, Theta_prev) -> float:
-    """Frobenius norm of the Theta delta (diff-norm stopping criterion,
-    reference ``pxi:59``)."""
-    d = Theta - Theta_prev
-    return float(torch.sqrt(torch.sum(d * d)))
-
-
 # ---- K5: llk pieces over blocked COO ---------------------------------
 
 # Triplets per block of K5's partials (csrc/coo_llk.cu: 8 warps of 256).
@@ -152,9 +147,126 @@ def val_llk_rmse(Theta, Beta, data: BlockedCOO, nnz: int, full_llk: bool = False
     return llk, rmse
 
 
+# ---- K11: pair and table reductions ----------------------------------
+
+# Pairs per block of predict_pairs (csrc/pair_ops.cu: 8 warps of 256).
+_PAIRS_PER_BLOCK = 8 * 256
+
+
+def _reduce_blocks(n: int, per_block: int) -> int:
+    """Blocks of a fixed-grid reduction over ``n`` items (at most 1024):
+    a function of the size only, so the partials add in the same order
+    from run to run."""
+    return max(1, min(1024, -(-n // per_block)))
+
+
+def _pairs_plain(Theta, Beta, iu, ii):
+    return (Theta[iu.long()] * Beta[ii.long()]).sum(-1)
+
+
+def _predict_pairs_launch(Theta, Beta, iu, ii, want_sum: bool):
+    from .. import _cuda
+
+    n = iu.shape[0]
+    k = Theta.shape[1]
+    _cuda.check(Theta, Beta, dtype=Theta.dtype)
+    _cuda.check(iu, ii, dtype=torch.int32)
+    if Beta.shape[1] != k or ii.shape != (n,):
+        raise ValueError("predict_pairs: shape mismatch")
+    out = torch.empty(n, dtype=Theta.dtype, device=Theta.device)
+    nblocks = max(1, -(-n // _PAIRS_PER_BLOCK))
+    partials = (torch.zeros(nblocks, dtype=torch.float64, device=Theta.device)
+                if want_sum else None)
+    if n:
+        _cuda.launch("predict_pairs", Theta.dtype, k, Theta, Beta, iu, ii, out, partials,
+                     n, k, nblocks)
+        predict_pairs.launches += 1
+    return out, partials
+
+
+def predict_pairs(Theta, Beta, iu, ii):
+    """K11: ``yhat_j = Theta[iu_j] . Beta[ii_j]`` in the state dtype, (n,)
+    on the tables' device (reference ``predict_multiple``, ``pxi:803-810``).
+    ``iu``/``ii`` are int32."""
+    if not Theta.is_cuda:
+        return _pairs_plain(Theta, Beta, iu, ii)
+    return _predict_pairs_launch(Theta, Beta, iu, ii, False)[0]
+
+
+predict_pairs.launches = 0
+
+
+def sum_pairs_prediction(Theta, Beta, iu, ii) -> float:
+    """Sum of ``predict_pairs`` (reference ``sum_prediction``,
+    ``pxi:816-825``), returned in the state dtype's precision: on the card
+    from the kernel's float64 per-block partials."""
+    if not Theta.is_cuda:
+        return float(_pairs_plain(Theta, Beta, iu, ii).sum())
+    partials = _predict_pairs_launch(Theta, Beta, iu, ii, True)[1]
+    return float(partials.cpu().numpy().sum().astype(_np_dtype(Theta)))
+
+
+def _np_dtype(t):
+    return np.float32 if t.dtype == torch.float32 else np.float64
+
+
+def _theta_diff_norm_plain(Theta, Theta_prev) -> float:
+    d = Theta - Theta_prev
+    return float(torch.sqrt(torch.sum(d * d)))
+
+
+def theta_diff_norm(Theta, Theta_prev) -> float:
+    """K11: Frobenius norm of the Theta delta (diff-norm stopping
+    criterion, reference ``pxi:59``); the squared sum is rounded to the
+    state dtype before the square root, as the JAX function takes it in
+    that dtype."""
+    if not Theta.is_cuda:
+        return _theta_diff_norm_plain(Theta, Theta_prev)
+    from .. import _cuda
+
+    _cuda.check(Theta, Theta_prev, dtype=Theta.dtype)
+    if Theta_prev.shape != Theta.shape:
+        raise ValueError("theta_diff_norm: shape mismatch")
+    n = Theta.numel()
+    nblocks = _reduce_blocks(n, 256)
+    partials = torch.empty(nblocks, dtype=torch.float64, device=Theta.device)
+    _cuda.launch("theta_diff", Theta.dtype, None, Theta, Theta_prev, partials, n, nblocks)
+    theta_diff_norm.launches += 1
+    total = partials.cpu().numpy().sum()
+    return float(np.sqrt(_np_dtype(Theta)(total)))
+
+
+theta_diff_norm.launches = 0
+
+
+def _rowsum_dot_rows_plain(Theta, Beta, iu, ii) -> float:
+    return float(np.float32(torch.dot(Theta[iu.long()].sum(0), Beta[ii.long()].sum(0)).item()))
+
+
 def rowsum_dot_rows(Theta, Beta, iu, ii) -> float:
-    """``colsum(Theta[iu]) . colsum(Beta[ii])`` (rows counted with
+    """K11: ``colsum(Theta[iu]) . colsum(Beta[ii])`` (rows counted with
     multiplicity), rounded to float32 as the JAX function returns it: the
     final eval's correction on a validation set (reference ``pxi:105``).
-    Torch ops; it runs once per fit."""
-    return float(np.float32(torch.dot(Theta[iu.long()].sum(0), Beta[ii.long()].sum(0))))
+    On the card the column sums are per-block float64 partials, added and
+    dotted on the host in float64."""
+    if not Theta.is_cuda:
+        return _rowsum_dot_rows_plain(Theta, Beta, iu, ii)
+    from .. import _cuda
+
+    n = iu.shape[0]
+    k = Theta.shape[1]
+    _cuda.check(Theta, Beta, dtype=Theta.dtype)
+    _cuda.check(iu, ii, dtype=torch.int32)
+    if Beta.shape[1] != k or ii.shape != (n,):
+        raise ValueError("rowsum_dot_rows: shape mismatch")
+    if n == 0:
+        return 0.0
+    nblocks = _reduce_blocks(n, 8)
+    partials = torch.empty((nblocks, 2 * k), dtype=torch.float64, device=Theta.device)
+    _cuda.launch("rowsum_dot", Theta.dtype, k, Theta, Beta, iu, ii, partials, n, k, nblocks)
+    rowsum_dot_rows.launches += 1
+    cs = partials.cpu().numpy().sum(0)
+    return float(np.float32(np.dot(cs[:k], cs[k:])))
+
+
+rowsum_dot_rows.launches = 0

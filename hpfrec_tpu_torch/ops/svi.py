@@ -15,6 +15,11 @@ items) runs, with no host synchronization:
 - **K8** ``svi_update`` (``csrc/svi_update.cu``): the reference's masked
   natural-gradient blend, with the ``n / |batch|`` multiplier.
 
+``svi_batch_update`` is the single-batch entry point of ``partial_fit``,
+composed of the same kernels.  ``user_factors_loop`` (**K10**,
+``csrc/fold_in.cu``) is the single-user fold-in of ``predict_factors`` and
+``add_user``.
+
 Each wrapper takes its plain PyTorch version for CPU tensors, launches its
 kernel for CUDA tensors, and counts its launches in ``.launches``.
 
@@ -349,3 +354,112 @@ def svi_run_epoch(state: VariationalState, side: EpochSide, perm: np.ndarray,
                            False, colsum_global)
         mark("K8 blend")
     return state
+
+
+# ---- one batch of triplets (partial_fit) -----------------------------------
+
+def group_by_rows(rows: np.ndarray):
+    """Host grouping of a batch by its local ids, as K7 reads it: ``(order,
+    seg_rows, bounds)`` with ``rows[order]`` stable-sorted, ``seg_rows``
+    (nq,) int32 the distinct ids and ``bounds`` (nq + 1,) int32 their
+    offsets in the sorted stream."""
+    order = np.argsort(rows, kind="stable")
+    seg_rows, starts = np.unique(rows[order], return_index=True)
+    bounds = np.append(starts, len(rows)).astype(np.int32)
+    return order, seg_rows.astype(np.int32), bounds
+
+
+def svi_batch_update(state: VariationalState, y: np.ndarray, iu: np.ndarray,
+                     ii: np.ndarray, umask, imask, step: float, mult: float,
+                     hp: Hyperparams, user_side: bool = True,
+                     blend_all_scalers: bool = False) -> VariationalState:
+    """One SVI mini-batch update (JAX ``ops/svi.py:svi_batch_update``) from
+    host triplets in any order; ``umask``/``imask`` ((n, 1) bool on the
+    state's device) mark the rows to blend.  The host groups the triplets
+    by their local id (users for ``user_side``, else items); then K3
+    derives both exp tables, K7 sums phi on both sides over every row the
+    triplets touch, and K8 blends.  ``user_side=True`` with
+    ``blend_all_scalers=True`` is ``partial_fit(batch_type='users')``
+    (reference ``pxi:442-473``).  Returns a new state."""
+    device = state.G_shp.device
+    npdt = np.float32 if state.G_shp.dtype == torch.float32 else np.float64
+    loc, oth = (iu, ii) if user_side else (ii, iu)
+    order, seg_rows, bounds = group_by_rows(np.asarray(loc))
+    y_d = _upload(np.asarray(y)[order], npdt, device)
+    rows_d = _upload(np.asarray(loc)[order], np.int32, device)
+    cols_d = _upload(np.asarray(oth)[order], np.int32, device)
+    t_tab, theta_colsum = side_derive(state.G_shp, state.G_rte)
+    b_tab, beta_colsum = side_derive(state.L_shp, state.L_rte)
+    t_loc, t_oth, colsum_global = ((t_tab, b_tab, beta_colsum) if user_side
+                                   else (b_tab, t_tab, theta_colsum))
+    s_loc, s_oth, _ = batch_phi_sums(t_loc, t_oth, y_d, rows_d, cols_d,
+                                     _upload(bounds, np.int32, device), 0,
+                                     _upload(seg_rows, np.int32, device))
+    su, si = (s_loc, s_oth) if user_side else (s_oth, s_loc)
+    return svi_update(state, su, si, umask, imask, step, mult, hp, user_side,
+                      blend_all_scalers, colsum_global)
+
+
+# ---- K10: the single-user fold-in ------------------------------------------
+
+def _user_factors_loop_plain(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0,
+                             k_rte0, hp, maxiter, stop_thr):
+    dt = y.dtype
+    k_rte = torch.tensor(k_rte0, dtype=dt)
+    thr = torch.tensor(stop_thr, dtype=dt)
+    k_shp = torch.tensor(hp.k_shp, dtype=dt)  # a true division below, as XLA's
+
+    def softmax_rows(G_shp, G_rte):
+        logits = (torch.special.digamma(G_shp) - torch.log(G_rte))[None, :] + elogb_rows
+        e = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+        return e, e.sum(dim=-1)
+
+    Theta, G_shp, G_rte = Theta0, G_shp0, G_rte0
+    i, done = 0, False
+    while i < maxiter and not done:
+        e, s = softmax_rows(G_shp, G_rte)
+        phi = (y / s)[:, None] * e
+        G_rte = k_shp / k_rte + beta_colsum
+        G_shp = hp.a + phi.sum(dim=0)
+        Theta_new = G_shp / G_rte
+        k_rte = hp.add_k_rte + Theta_new.sum()
+        done = bool(torch.linalg.norm(Theta_new - Theta) < thr)
+        Theta = Theta_new
+        i += 1
+    e, s = softmax_rows(G_shp, G_rte)
+    return Theta, G_shp, G_rte, e / s[:, None], i
+
+
+def user_factors_loop(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0,
+                      k_rte0: float, hp: Hyperparams, maxiter: int, stop_thr: float):
+    """K10: fold-in CAVI over one user's counts with the item parameters
+    frozen (JAX ``ops/svi.py:user_factors_loop``, reference
+    ``calc_user_factors`` loop ``pxi:504-515``).  ``y`` (P,), ``elogb_rows``
+    (P, k) the E[log beta] rows of the user's items, ``beta_colsum`` and
+    the initial ``Theta0``/``G_shp0``/``G_rte0`` (k,), all of the state
+    dtype on one device; ``k_rte0`` and ``stop_thr`` are rounded to it.
+    Returns ``(Theta, G_shp, G_rte, phi_norm (P, k), n_iters)``; the loop
+    stops when ``||Theta_new - Theta|| < stop_thr`` or at ``maxiter``."""
+    if not y.is_cuda:
+        return _user_factors_loop_plain(y, elogb_rows, beta_colsum, Theta0, G_shp0,
+                                        G_rte0, k_rte0, hp, maxiter, stop_thr)
+    from .. import _cuda
+
+    P = y.shape[0]
+    k = beta_colsum.shape[0]
+    dt = y.dtype
+    _cuda.check(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0, dtype=dt)
+    if (elogb_rows.shape != (P, k) or Theta0.shape != (k,) or G_shp0.shape != (k,)
+            or G_rte0.shape != (k,)):
+        raise ValueError("user_factors_loop: shape mismatch")
+    Theta, G_shp, G_rte = (torch.empty_like(beta_colsum) for _ in range(3))
+    phi = torch.empty_like(elogb_rows)
+    n_iter = torch.zeros(1, dtype=torch.int32, device=y.device)
+    _cuda.launch("fold_in", dt, k, y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0,
+                 float(k_rte0), float(hp.a), float(hp.k_shp), float(hp.add_k_rte),
+                 int(maxiter), float(stop_thr), P, k, Theta, G_shp, G_rte, phi, n_iter)
+    user_factors_loop.launches += 1
+    return Theta, G_shp, G_rte, phi, int(n_iter.item())
+
+
+user_factors_loop.launches = 0

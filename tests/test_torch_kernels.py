@@ -1,14 +1,18 @@
 """Each CUDA kernel of hpfrec_tpu_torch against its plain PyTorch version
 on the card, in float32 and float64, on small layouts that cover split
-rows, tiled (column-offset) buckets and zero-degree rows, and SVI batches
-whose rows span many of K7's 256-slot chunks on both sides.
+rows, tiled (column-offset) buckets and zero-degree rows, SVI batches
+whose rows span many of K7's 256-slot chunks on both sides, top-n ranking
+(K6) with ties, fully masked rows and every size class of n, the fold-in
+loop (K10) and the pair reductions (K11).
 
 The ``gpu`` tests skip without a CUDA device; the card runs them with
 ``python -m pytest tests/test_torch_kernels.py -q --noconftest``
 (``--noconftest``: the suite's conftest imports jax, which the port does
 not need).  Tolerances: f32 rtol 2e-5 / atol 1e-6 (kernel and plain
 version sum the k products and the w slots in another order; float32
-digamma differs by a few ulps), f64 rtol 1e-11 / atol 1e-13.
+digamma differs by a few ulps), f64 rtol 1e-11 / atol 1e-13.  K6 is held
+to exact equality of indices and values on integer-valued tables (every
+score exact in either dtype, with many ties) and on float64 tables.
 """
 
 import numpy as np
@@ -348,10 +352,13 @@ def test_launch_counters_stay_zero_on_cpu():
     from hpfrec_tpu_torch.ops import ell as E
     from hpfrec_tpu_torch.ops import metrics as M
     from hpfrec_tpu_torch.ops import svi as S
+    from hpfrec_tpu_torch.ops import topk as T
 
     wrappers = [E.bucket_phi_sums, E.segment_table_sums, C.side_update,
                 C.side_derive, M.bucket_llk_parts, M.llk_rmse_sums,
-                S.build_epoch_buffers, S.batch_phi_sums, S.build_row_mask, S.svi_update]
+                S.build_epoch_buffers, S.batch_phi_sums, S.build_row_mask, S.svi_update,
+                T.topn_rows, S.user_factors_loop, M.predict_pairs, M.theta_diff_norm,
+                M.rowsum_dot_rows]
     before = [w.launches for w in wrappers]
     y, iu, ii = _counts(40, 30, 300, seed=3)
     lay = _layout(y, iu, ii, 40, 30, np.float32, "cpu")
@@ -368,4 +375,198 @@ def test_launch_counters_stay_zero_on_cpu():
     st = VariationalState(t, t + 1, b, b + 1, t[:, :1], b[:, :1])
     S.svi_update(st, s_loc, s_oth, lmask, omask, 0.5, 2.0, Hyperparams(k=5), True, False,
                  C.side_derive(b, b + 1)[1])
+    T.topn_batch(t.numpy(), b, np.arange(10), 3)
+    S.user_factors_loop(b[:4, 0], b[:4], b[0], t[0], t[0] + 1, t[1] + 2, 1.3,
+                        Hyperparams(k=5), 5, 1e-3)
+    pairs = torch.arange(20, dtype=torch.int32)
+    M.predict_pairs(t, b, pairs, pairs)
+    M.sum_pairs_prediction(t, b, pairs, pairs)
+    M.theta_diff_norm(t, t + 1)
+    M.rowsum_dot_rows(t, b, pairs, pairs)
     assert [w.launches for w in wrappers] == before
+
+
+# ---- K6: top-n ----------------------------------------------------------
+
+def _int_tables(b, nI, k, dtype, device, seed):
+    """Integer-valued tables: every score is exact in float32 and float64,
+    and many are equal (ties)."""
+    rng = np.random.default_rng(seed)
+    th = torch.from_numpy(rng.integers(0, 4, (b, k)).astype(np.float64)).to(device, dtype)
+    be = torch.from_numpy(rng.integers(0, 4, (nI, k)).astype(np.float64)).to(device, dtype)
+    return th, be
+
+
+def _seen_pairs(b, nI, per_row, device, seed, full_row=None):
+    rng = np.random.default_rng(seed)
+    rows, items = [], []
+    for r in range(b):
+        its = np.arange(nI) if r == full_row else rng.choice(nI, per_row, replace=False)
+        rows.append(np.full(len(its), r))
+        items.append(its)
+    return (torch.from_numpy(np.concatenate(rows).astype(np.int32)).to(device),
+            torch.from_numpy(np.concatenate(items).astype(np.int32)).to(device))
+
+
+TOPN_CASES = [  # dtype, b, nI, k, n, masked
+    (torch.float32, 70, 3000, 50, 10, True),
+    (torch.float64, 70, 3000, 50, 10, True),
+    (torch.float32, 5, 3000, 50, 1, False),
+    (torch.float32, 4, 3000, 8, 2000, True),   # n > 1024: shared-memory sort
+    (torch.float32, 3, 6000, 20, 5000, True),  # n > 4096: global-memory sort
+    (torch.float64, 3, 777, 50, 777, True),    # n = nI
+    (torch.float32, 130, 1000, 256, 16, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,nI,k,n,masked", TOPN_CASES)
+def test_topn_kernel_vs_plain(cuda, dtype, b, nI, k, n, masked):
+    """K6 against its plain version (matrix product, scatter, stable sort):
+    the same indices and values, ties in lax.top_k's order, and row 0 fully
+    masked (all -inf: indices 0..n-1); bit-identical across two runs."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    th, be = _int_tables(b, nI, k, dtype, cuda, 3)
+    rows = items = None
+    if masked:
+        rows, items = _seen_pairs(b, nI, min(40, nI // 3), cuda, 4, full_row=0)
+    got = T.topn_rows(th, be, rows, items, n)
+    ref = T._topn_rows_plain(th, be, rows, items, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+    if masked:
+        assert torch.equal(got[1][0].cpu(), torch.arange(n, dtype=torch.int32))
+    again = T.topn_rows(th, be, rows, items, n)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
+@pytest.mark.gpu
+def test_topn_mask_kernel_drops_pairs_outside_the_scores(cuda):
+    """Pairs outside the (b, nI) scores (negative, or past the chunk's rows
+    or the catalog) mask nothing on the card, as in the plain version."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    th, be = _int_tables(3, 300, 8, torch.float32, cuda, 8)
+    rows = torch.tensor([-1, 3, 0, 1, 1, 2, 0], dtype=torch.int32, device=cuda)
+    items = torch.tensor([0, 0, -1, 300, 7, 2**31 - 1, -2**31], dtype=torch.int32,
+                         device=cuda)
+    got = T.topn_rows(th, be, rows, items, 300)
+    ref = T._topn_rows_plain(th, be, rows, items, 300)
+    only = T.topn_rows(th, be, rows[4:5], items[4:5], 300)
+    assert all(torch.equal(g, r) and torch.equal(g, o) for g, r, o in zip(got, ref, only))
+
+
+@pytest.mark.gpu
+def test_topn_kernel_float64_random(cuda):
+    """Random float64 tables: the kernel's float64 sums round to the same
+    float32 scores as the plain product's, so the rankings are equal."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    rng = np.random.default_rng(5)
+    th = torch.from_numpy(rng.random((64, 50))).to(cuda)
+    be = torch.from_numpy(rng.random((5000, 50))).to(cuda)
+    rows, items = _seen_pairs(64, 5000, 100, cuda, 6)
+    got = T.topn_rows(th, be, rows, items, 300)
+    ref = T._topn_rows_plain(th, be, rows, items, 300)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_topn_batch_card_equals_cpu(cuda, dtype):
+    """topn_batch on the card (K6, chunks, host backfill) equals its CPU
+    run, a user whose unseen set is smaller than n included."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    nU, nI, k, n = 300, 500, 16, 12
+    rng = np.random.default_rng(7)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    Theta = rng.integers(0, 5, (nU, k)).astype(npdt)
+    Beta = rng.integers(0, 5, (nI, k)).astype(npdt)
+    counts = rng.integers(0, 30, nU)
+    counts[5] = nI - 4
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    seen = np.concatenate([rng.choice(nI, c, replace=False) for c in counts]).astype(np.int32)
+    users = rng.integers(0, nU, 257)
+    users[[0, 100]] = 5
+    kw = dict(seen_indptr=indptr[:-1], seen_indices=seen, n_seen=counts)
+    got = T.topn_batch(Theta, torch.from_numpy(Beta).to(cuda), users, n, **kw)
+    ref = T.topn_batch(Theta, torch.from_numpy(Beta), users, n, **kw)
+    np.testing.assert_array_equal(got, ref)
+
+
+# ---- K10: fold-in ---------------------------------------------------------
+
+def _fold_in_inputs(P, k, dtype, device, seed):
+    from scipy.special import digamma
+
+    rng = np.random.default_rng(seed)
+    L_shp = 0.3 + rng.random((P, k))
+    L_rte = 0.3 + rng.random((P, k))
+    y = (rng.poisson(2, P) + 1).astype(np.float64)
+    theta0 = rng.gamma(0.3, 1.0, k)
+    g_rte0 = rng.gamma(0.3, 1 / 0.3, 1) + 3.0 + rng.random(k)
+    g_shp0 = g_rte0 * theta0 * rng.uniform(0.85, 1.15, k)
+    arrays = (y, digamma(L_shp) - np.log(L_rte), 3.0 + rng.random(k), theta0, g_shp0, g_rte0)
+    return [torch.from_numpy(a).to(device, dtype) for a in arrays], 1.0 + theta0.sum()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P,k,maxiter,stop_thr", [
+    (1, 50, 10, 1e-3), (3000, 50, 25, 1e-3), (12, 50, 10, 1e9),
+    (40, 7, 6, 1e-30), (40, 256, 8, 1e-4)])
+def test_fold_in_kernel_vs_plain(cuda, dtype, P, k, maxiter, stop_thr):
+    """K10 against its plain loop on the same inputs: P = 1, a heavy user
+    (3000 items), the stop at iteration 1 (stop_thr 1e9) and at maxiter
+    (stop_thr 1e-30); the same iteration count, bit-identical reruns."""
+    from hpfrec_tpu_torch.models.state import Hyperparams
+    from hpfrec_tpu_torch.ops import svi as S
+
+    args, k_rte0 = _fold_in_inputs(P, k, dtype, cuda, P + k)
+    hp = Hyperparams(k=k)
+    got = S.user_factors_loop(*args, k_rte0, hp, maxiter, stop_thr)
+    ref = S._user_factors_loop_plain(*args, k_rte0, hp, maxiter, stop_thr)
+    assert got[4] == ref[4]
+    if stop_thr == 1e9:
+        assert got[4] == 1
+    if stop_thr == 1e-30:
+        assert got[4] == maxiter
+    tol = dict(rtol=2e-5, atol=1e-6) if dtype == torch.float32 else TOL[dtype]
+    for g, r in zip(got[:4], ref[:4]):
+        torch.testing.assert_close(g, r, **tol)
+    again = S.user_factors_loop(*args, k_rte0, hp, maxiter, stop_thr)
+    assert all(torch.equal(a, c) for a, c in zip(again[:4], got[:4]))
+
+
+# ---- K11: pair and table reductions ------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [7, 50, 256])
+@pytest.mark.parametrize("n", [1, 5003, 300_000])
+def test_pair_ops_kernels_vs_plain(cuda, dtype, k, n):
+    from hpfrec_tpu_torch.ops import metrics as M
+
+    rng = np.random.default_rng(n + k)
+    th = _tables(400, k, dtype, cuda, 1) / k
+    be = _tables(300, k, dtype, cuda, 2)
+    iu = torch.from_numpy(rng.integers(0, 400, n).astype(np.int32)).to(cuda)
+    ii = torch.from_numpy(rng.integers(0, 300, n).astype(np.int32)).to(cuda)
+    got = M.predict_pairs(th, be, iu, ii)
+    torch.testing.assert_close(got, M._pairs_plain(th, be, iu, ii), **TOL[dtype])
+    assert torch.equal(M.predict_pairs(th, be, iu, ii), got)
+    rt = TOL[dtype]["rtol"] * 10
+    s = M.sum_pairs_prediction(th, be, iu, ii)
+    np.testing.assert_allclose(s, float(M._pairs_plain(th, be, iu, ii).double().sum()), rtol=rt)
+    assert M.sum_pairs_prediction(th, be, iu, ii) == s
+    r = M.rowsum_dot_rows(th, be, iu, ii)
+    ref = float(np.float32(torch.dot(th[iu.long()].double().sum(0),
+                                     be[ii.long()].double().sum(0)).item()))
+    np.testing.assert_allclose(r, ref, rtol=1e-6)
+    assert M.rowsum_dot_rows(th, be, iu, ii) == r
+    th2 = th + _tables(400, k, dtype, cuda, 3) * 1e-3
+    d = M.theta_diff_norm(th2, th)
+    np.testing.assert_allclose(d, float(torch.linalg.norm((th2 - th).double())), rtol=rt)
+    assert M.theta_diff_norm(th2, th) == d
