@@ -11,7 +11,9 @@ non-zero, with no result line):
    the card, float32 and float64, k=50, on a ~1M-nonzero power-law data
    set: the full-batch kernels over its ELL layouts, the SVI kernels over
    one user batch and one item batch (the SVI blend with both
-   ``blend_all_scalers`` values) and the COO llk over a held-out set;
+   ``blend_all_scalers`` values) and the COO llk over a held-out set; the
+   blocked-COO engine's phi sums (K7c) over the whole stream, and the
+   bfloat16-table forms of K1 and K3;
 3. the full-batch path at the MillionSong TasteProfile shape (1,019,318
    users x 376,768 items, 38.7M nonzeros, k=50, float32; data made here
    from a seed): ``HPF(...).fit`` with train-llk checks, launch counters,
@@ -48,10 +50,27 @@ non-zero, with no result line):
    (``predict_factors`` and ``add_user``, many small calls: the wall and
    each call's time from a run on its own, the split from a second run
    under torch.profiler; the others from one run under the profiler);
+3g. the blocked-COO engine at the shape of phase 3 (``engine='coo'``, the
+   same seed, options and data): its llk at the checks beside phase 3's
+   ELL fit and the largest relative difference of the factors, s/iteration,
+   launch counters (K7c and K5 launch, no ELL kernel does), then K7c
+   checked and timed at the fit's shapes;
+3h. the ELL fit of phase 3 with ``gather_dtype='bfloat16'``: its llk beside
+   the float32-table fit's, s/iteration, launch counters, then the
+   bfloat16 forms of K1 and K3 checked and timed at the fit's shapes;
+3i. persistence at that shape: a 5-iteration fit with ``checkpoint_every=5``
+   resumed to 10 against phase 3's fit, the wall of each checkpoint write;
+   ``save`` and ``load`` of the SVI fit after phase 3f's updates, the wall
+   of each, and ``topN_batch`` of 1,024 users equal after the load;
 4. agreement and determinism at a small size, full batch and alternating
-   SVI with val-llk: two card fits are bit-identical, and the card agrees
-   with the CPU path; then a sequence of ``partial_fit``, ``add_user`` and
-   ``topN_batch`` on the card against the CPU path from the same arrays;
+   SVI with val-llk, the COO engine in full batch and SVI, the ELL engine
+   with bfloat16 tables: two card fits are bit-identical, and the card
+   agrees with the CPU path; then (4b) a sequence of ``partial_fit``,
+   ``add_user`` and ``topN_batch`` on the card against the CPU path from
+   the same arrays; (4c) full-batch (both engines) and SVI fits resumed
+   from a checkpoint equal the uninterrupted ones bit for bit, the
+   ``save_folder`` export, and a ``profile_dir`` trace that names a port
+   kernel;
 5. a JSON line of the kernels (time, plain version's time, bound, launches
    on the main paths, in all and by path), and the result line.
 
@@ -59,8 +78,10 @@ Without a CUDA device, or without the package beside it, it exits non-zero.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -98,6 +119,29 @@ AGREE_SVI = {"float32": dict(llk=1e-6, factors=5e-5),
 # an H100: float32 8.3e-7 (states), 7.2e-7 (fold-in), 2.4e-7 (phi); float64
 # 2.4e-15, 2.4e-15, 6.7e-16.
 AGREE_ONLINE = {"float32": 5e-6, "float64": 1e-13}
+# the same for fits with bfloat16 gather tables (10 iterations, checks every
+# 5): the card's exp differs from PyTorch's CPU exp by a few float32 ulps,
+# and where that straddles a bfloat16 rounding boundary a table entry moves
+# by a whole bfloat16 step (2^-8 to 2^-7 of it); those steps feed the next
+# iteration, so the smallest factors part by percents while the llk agrees.
+# Measured on an H100, float32 state: llk 9.3e-6, Theta 3.1e-2, Beta 2.3e-2
+AGREE_BF16 = {"float32": dict(llk=1e-4, factors=1e-1),
+              "float64": dict(llk=1e-4, factors=1e-1)}
+# the COO fit against the ELL fit at the MillionSong shape (float32, 10
+# iterations, the same seed): the same math with sums in other orders; max
+# relative difference of the llk at each check
+COO_VS_ELL_LLK = 1e-5
+# the bfloat16 fit's llk against the float32 fit's at the same shape: a
+# sanity bound (the tables carry 2^-8 relative rounding)
+BF16_VS_F32_LLK = 1e-2
+# K3's bfloat16 tab against its plain version: one bfloat16 step, 2^-8 to
+# 2^-7 of the value (8 significant bits)
+BF16_TAB_RTOL = 2.0 ** -7
+# a fit resumed from a checkpoint against the uninterrupted fit at the
+# MillionSong shape (float32): the same launches on the same values, so
+# bit-equal is expected; a difference would come from a carry derived from
+# the loaded state rather than made by the update
+RESUME_LIMIT = 1e-6
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
@@ -116,7 +160,13 @@ REPLACES = {
     "predict_pairs": ("hpfrec_tpu_torch/csrc/pair_ops.cu", "hpfrec_tpu/ops/metrics.py:182"),
     "theta_diff_norm": ("hpfrec_tpu_torch/csrc/pair_ops.cu", "hpfrec_tpu/ops/metrics.py:195"),
     "rowsum_dot_rows": ("hpfrec_tpu_torch/csrc/pair_ops.cu", "hpfrec_tpu/ops/metrics.py:170"),
+    "coo_phi_sums": ("hpfrec_tpu_torch/csrc/svi_phi_sums.cu", "hpfrec_tpu/ops/cavi.py:92"),
+    "ell_phi_sums_bf16": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu", "hpfrec_tpu/ops/ell.py:447"),
+    "table_update_bf16": ("hpfrec_tpu_torch/csrc/table_update.cu", "hpfrec_tpu/ops/ell.py:804"),
+    "table_derive_bf16": ("hpfrec_tpu_torch/csrc/table_update.cu", "hpfrec_tpu/ops/ell.py:752"),
 }
+STATE_NAMES = ("Theta", "Beta", "Gamma_shp", "Gamma_rte", "Lambda_shp", "Lambda_rte", "k_rte",
+               "t_rte")
 SERVE_USERS = 16_384
 ONLINE = dict(user_batch=100_000, item_batch=40_000, grow=1_000, histories=256, new_users=64,
               all_params=2)
@@ -434,6 +484,130 @@ def svi_suite(pdata, val, state, batches, dtype_name, reps, blend_all=(False,), 
     return out
 
 
+def coo_suite(pdata, state, dtype_name, reps, label=""):
+    """K7c against its plain version on the card, over what one iteration
+    of the blocked-COO engine runs: the phi sums of both sides over the
+    whole user-sorted training stream of ``pdata`` (host ProcessedData).
+    ``state``: a VariationalState on the card."""
+    import torch
+
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops.svi import phi_sums_tables
+
+    coo = C.coo_stream(pdata, state.G_shp.device)
+    t_tab = C._side_derive_plain(state.G_shp, state.G_rte)[0]
+    b_tab = C._side_derive_plain(state.L_shp, state.L_rte)[0]
+    y, iu, ii = coo.flat()
+    it = state.G_shp.element_size()
+    k = state.k
+
+    def library():
+        phi = C._phi_block(t_tab, b_tab, y, iu, ii)
+        return (torch.zeros_like(t_tab).index_add_(0, iu.long(), phi),
+                torch.zeros_like(b_tab).index_add_(0, ii.long(), phi))
+
+    # per triplet: y, both ids, the item order (int64) and sorted key, the
+    # scale written once; both tables read, both sums written; a dot and two
+    # k-wide multiply-adds per triplet
+    work = (coo.nnz * (2 * it + 20) + nbytes(coo.user_bounds)
+            + 2 * (nbytes(t_tab) + nbytes(b_tab)), coo.nnz * (6 * k + 2))
+    cases = {"coo_phi_sums": (lambda: C.coo_phi_sums(t_tab, b_tab, coo),
+                              lambda: phi_sums_tables(t_tab, b_tab, y, iu, ii), work, library)}
+    return run_cases(cases, dtype_name, reps, label)
+
+
+def bf16_tab_check(name, got, ref, dtype_name):
+    """K3's bfloat16 form: shp, rte, scaler and colsum as ``compare`` holds
+    them; each bfloat16 ``tab`` within one bfloat16 step of the plain one,
+    |d| <= 2^-7 |plain| + 1e-6 max|plain|: the kernel's float32
+    or float64 exp differs from PyTorch's by a few ulps, and where that
+    straddles a bfloat16 rounding boundary the stored values differ by one
+    bfloat16 ulp."""
+    import torch
+
+    max_abs = max_rel = 0.0
+    for g, r in zip(got, ref):
+        if r.dtype != torch.bfloat16:
+            a, b = compare(name, g, r, dtype_name)
+        else:
+            if g.dtype != torch.bfloat16 or g.shape != r.shape:
+                raise AssertionError(f"{name}: tab {g.shape}/{g.dtype} vs {r.shape}/{r.dtype}")
+            g64, r64 = g.double(), r.double()
+            err = (g64 - r64).abs()
+            if bool((err > BF16_TAB_RTOL * r64.abs() + 1e-6 * float(r64.abs().max())).any()):
+                raise AssertionError(f"{name} {dtype_name}: bfloat16 tab differs from plain "
+                                     f"by more than one rounding step")
+            a = float(err.max())
+            b = float((err / r64.abs().clamp_min(1e-300)).max())
+        max_abs, max_rel = max(max_abs, a), max(max_rel, b)
+    return max_abs, max_rel
+
+
+def bf16_suite(lay_u, lay_i, state, dtype_name, reps, label=""):
+    """The bfloat16-table forms of K1 and K3 against their plain versions on
+    the card, over what one iteration of a ``gather_dtype='bfloat16'`` fit
+    runs: K1 over both sides' ELL layouts with the exp tables rounded to
+    bfloat16 (float32 sums), K3's update (on the plain phi sums of those
+    tables, in the state dtype) and derive, both sides, with a bfloat16
+    tab."""
+    import torch
+
+    from hpfrec_tpu_torch.models.state import Hyperparams
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops import ell as E
+
+    k = state.k
+    hp = Hyperparams(k=k)
+    bf = torch.bfloat16
+    t_tab, theta_colsum = C._side_derive_plain(state.G_shp, state.G_rte, bf)
+    b_tab, beta_colsum = C._side_derive_plain(state.L_shp, state.L_rte, bf)
+    sides = ((t_tab, b_tab, lay_u), (b_tab, t_tab, lay_i))
+
+    def phi_plain(ts, to, lay):
+        return torch.cat([E._bucket_phi_sums_plain(ts, to, b.rows, b.cols, b.vals, b.col_off)
+                          for b in lay.buckets])
+
+    su, si = (E._segment_table_sums_plain(phi_plain(*side), side[2]).to(state.G_shp.dtype)
+              for side in sides)
+    upd = ((su, state.k_rte, beta_colsum, hp.a, hp.k_shp, hp.add_k_rte, bf),
+           (si, state.t_rte, theta_colsum, hp.c, hp.t_shp, hp.add_t_rte, bf))
+    pairs = ((state.G_shp, state.G_rte, bf), (state.L_shp, state.L_rte, bf))
+
+    def flat(*results):
+        return [t for r in results for t in (r if isinstance(r, tuple) else (r,))]
+
+    it = state.G_shp.element_size()
+    nnz = sum(int((b.vals != 0).sum()) for b in lay_u.buckets)
+    lay_bytes = sum(nbytes(b.rows, b.cols, b.vals) for lay in (lay_u, lay_i) for b in lay.buckets)
+    seg_bytes = 4 * k * sum(lay.n_segs for lay in (lay_u, lay_i))
+    elems = state.G_shp.numel() + state.L_shp.numel()
+    tabs16 = 2 * elems
+    work = {
+        # both bfloat16 tables per side, the layouts, float32 segment sums out
+        "ell_phi_sums_bf16": (2 * tabs16 + lay_bytes + seg_bytes, 2 * nnz * 4 * k),
+        # sums in; shp, rte out in the state dtype, tab out in bfloat16
+        "table_update_bf16": (elems * (3 * it + 2), 35 * elems),
+        # shp, rte in; tab out in bfloat16
+        "table_derive_bf16": (elems * (2 * it + 2), 33 * elems),
+    }
+    # K1's arithmetic is float32 in either state dtype: its tolerance and
+    # peak rate are float32's
+    k1 = {"ell_phi_sums_bf16": (lambda: flat(*(E.all_bucket_sums(*side) for side in sides)),
+                                lambda: flat(*(phi_plain(*side) for side in sides)),
+                                work["ell_phi_sums_bf16"], None)}
+    out = run_cases(k1, "float32", reps, label + ", %s state" % dtype_name)
+    cases = {
+        "table_update_bf16": (lambda: flat(*(C.side_update(*u) for u in upd)),
+                              lambda: flat(*(C._side_update_plain(*u) for u in upd)),
+                              work["table_update_bf16"], None, bf16_tab_check),
+        "table_derive_bf16": (lambda: flat(*(C.side_derive(*p) for p in pairs)),
+                              lambda: flat(*(C._side_derive_plain(*p) for p in pairs)),
+                              work["table_derive_bf16"], None, bf16_tab_check),
+    }
+    out.update(run_cases(cases, dtype_name, reps, label))
+    return out
+
+
 def topn_check(name, got, ref, dtype_name):
     """K6 against its plain version: the same n best scores in the same
     order (float32 scores from products summed in another order may swap
@@ -660,6 +834,65 @@ def agree_online():
             raise AssertionError(f"topN_batch, {dtype_name}: card and CPU indices differ")
 
 
+def persistence_small(small):
+    """Phase 4c at a small size on the card: full-batch (both engines) and
+    SVI fits resumed from a checkpoint equal the uninterrupted fits bit for
+    bit, in float32 and float64; the save_folder export; a profile_dir
+    trace that names a port kernel."""
+    from hpfrec_tpu_torch import HPF
+
+    with tempfile.TemporaryDirectory(prefix="hpf_smoke_") as tmp:
+        for use_float in (True, False):
+            for label, opts, total, every in (
+                    ("ELL full batch", dict(check_every=5), 20, 5),
+                    ("COO full batch", dict(engine="coo", check_every=5), 20, 5),
+                    ("SVI", dict(check_every=3, users_per_batch=25, items_per_batch=17), 6, 3)):
+                kw = dict(k=8, stop_crit="train-llk", stop_thr=1e-10, random_seed=123,
+                          use_float=use_float, verbose=False, device="cuda", **opts)
+                ck = os.path.join(tmp, "ck_%s_%s" % (label.replace(" ", "_"), use_float))
+                full = HPF(maxiter=total, **kw).fit(small)
+                HPF(maxiter=total // 2, checkpoint_folder=ck, checkpoint_every=every,
+                    **kw).fit(small)
+                resumed = HPF(maxiter=total, checkpoint_folder=ck, checkpoint_every=every,
+                              **kw).fit(small, resume=True)
+                if not (resumed.niter == full.niter and all(
+                        np.array_equal(getattr(resumed, n), getattr(full, n))
+                        for n in STATE_NAMES)):
+                    raise AssertionError(f"resume, {label}: not equal to the uninterrupted fit")
+            print("[4c] %s: full batch (ELL and COO, %d iterations) and SVI (%d epochs) resumed "
+                  "at half way equal the uninterrupted fits bit for bit"
+                  % ("float32" if use_float else "float64", 20, 6))
+        export = os.path.join(tmp, "export")
+        os.makedirs(export)
+        triplets = np.column_stack([small.row, small.col, small.data])
+        m = HPF(k=8, maxiter=10, check_every=5, random_seed=1, verbose=False, device="cuda",
+                save_folder=export).fit(triplets)
+        with open(os.path.join(export, "users.csv")) as f:
+            users_csv = f.read().split("\n")
+        if users_csv != ["0", *map(str, m.user_mapping_), ""]:
+            raise AssertionError("save_folder: users.csv does not list the user mapping")
+        arrays = dict(Theta=m.Theta, Beta=m.Beta, Gamma_shp=m.Gamma_shp, Gamma_rte=m.Gamma_rte,
+                      Lambda_shp=m.Lambda_shp, Lambda_rte=m.Lambda_rte, kappa_rte=m.k_rte,
+                      tau_rte=m.t_rte)
+        for name, arr in arrays.items():
+            got = np.loadtxt(os.path.join(export, name), delimiter=",", ndmin=2)
+            if np.abs(got - arr.reshape(got.shape)).max() > 5.1e-11:  # %.10f
+                raise AssertionError(f"save_folder: {name} does not hold the fitted values")
+        print("[4c] save_folder: %s" % ", ".join(sorted(os.listdir(export))))
+        prof = os.path.join(tmp, "prof")
+        HPF(k=8, maxiter=10, check_every=5, verbose=False, device="cuda",
+            profile_dir=prof).fit(small)
+        path = os.path.join(prof, "trace.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        ours = sorted({e["name"].split("(")[0] for e in events
+                       if e.get("cat") == "kernel" and "hpf::" in e.get("name", "")})
+        print("[4c] profile_dir: trace.json %d bytes, %d port kernels named, e.g. %s"
+              % (os.path.getsize(path), len(ours), "; ".join(ours[:3])))
+        if not ours:
+            raise AssertionError("profile_dir: the trace names no port kernel")
+
+
 def layouts_for(coo, dtype, device):
     from hpfrec_tpu_torch.ops.ell import build_layouts, layout_slots, to_device
     from hpfrec_tpu_torch.utils.data import process_data
@@ -720,7 +953,13 @@ def main():
                 "epoch_gather": S.build_epoch_buffers, "row_mask": S.build_row_mask,
                 "topn": T.topn_rows, "fold_in": S.user_factors_loop,
                 "predict_pairs": M.predict_pairs, "theta_diff_norm": M.theta_diff_norm,
-                "rowsum_dot_rows": M.rowsum_dot_rows}
+                "rowsum_dot_rows": M.rowsum_dot_rows, "coo_phi_sums": C.coo_phi_sums}
+    # name -> (wrapper, its counter): the bfloat16-table forms of K1 and K3
+    # count in their wrappers' .launches_bf16
+    counters = {name: (w, "launches") for name, w in wrappers.items()}
+    counters.update({"ell_phi_sums_bf16": (E.bucket_phi_sums, "launches_bf16"),
+                     "table_update_bf16": (C.side_update, "launches_bf16"),
+                     "table_derive_bf16": (C.side_derive, "launches_bf16")})
 
     t_start = time.perf_counter()
 
@@ -728,12 +967,12 @@ def main():
         print("[time] %s starts %.1f s into the run" % (phase, time.perf_counter() - t_start))
 
     def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
+        for w, attr in counters.values():
+            setattr(w, attr, 0)
 
     def read_counts():
         torch.cuda.synchronize()
-        return {name: w.launches for name, w in wrappers.items()}
+        return {name: getattr(w, attr) for name, (w, attr) in counters.items()}
 
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -760,6 +999,9 @@ def main():
               % (name, pdata.y.shape[0], slots, K))
         state = random_state(pdata.nusers, pdata.nitems, dtype, dev, 1)
         kernel_suite(lay_u, lay_i, state, name, reps=5)
+        print("[2] COO engine (K7c) and bfloat16-table (K1, K3) kernel checks, %s" % name)
+        coo_suite(pdata, state, name, reps=5)
+        bf16_suite(lay_u, lay_i, state, name, reps=5)
         del lay_u, lay_i
         print("[2] SVI kernel checks, %s, batches %s, %d held-out triplets for the COO llk"
               % (name, SMALL_BATCHES, val_small.nnz))
@@ -826,6 +1068,9 @@ def main():
     if pred.shape != (3,) or not np.all(np.isfinite(pred)) or np.any(pred < 0):
         raise AssertionError(f"predict gave {pred}")
     print("[3] predict(users %s, items [0, 7, 100]):" % users, pred.tolist())
+    ell_fit = dict(llk=list(model.llk_trace), niter=model.niter,
+                   s_per_it=st.phases["iterations"] / iters,
+                   arrays={n: getattr(model, n) for n in STATE_NAMES})
 
     lay_u, lay_i, _, slots = layouts_for(coo, np.float32, dev)
     fitted = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
@@ -839,7 +1084,6 @@ def main():
     # -- 3b. the SVI path at the MillionSong shape ----------------------------
     stamp("phase 3b")
     train, val = holdout(coo, 0.01, seed=5)
-    del coo
     print("[3b] SVI: %d training and %d held-out triplets, batches %s"
           % (train.nnz, val.nnz, SVI_BATCHES))
     model = RecordingHPF(k=K, stop_crit="val-llk", check_every=2, maxiter=6, random_seed=1,
@@ -1104,7 +1348,139 @@ def main():
     for kernel in ("fold_in", "table_derive", "batch_phi_sums", "svi_update", "row_mask"):
         if launches_online[kernel] <= 0:
             raise AssertionError(f"{kernel} never launched on the online path")
-    del model, train, val
+    torch.cuda.empty_cache()
+
+    def fit_line(tag, m, ref_s_per_it):
+        st = m.fit_stats_
+        iters = m.niter + 1
+        print("[%s] fit phases (s):" % tag, json.dumps({k: round(v, 3) for k, v in st.phases.items()}))
+        print("[%s] wall %.3f s, %d iterations, %.4f s/iteration (iterations phase; the float32 "
+              "ELL fit of phase 3: %.4f), %.4g nonzero-updates/s (iterations phase), %.4g end "
+              "to end" % (tag, st.wall_seconds, iters, st.phases["iterations"] / iters,
+                          ref_s_per_it, st.nnz * iters / st.phases["iterations"],
+                          st.nnz_per_second))
+
+    def against_ell(tag, m, what, limit):
+        llk = np.array(m.llk_trace)
+        ref = np.array(ell_fit["llk"])
+        if not (len(llk) == 2 and np.all(np.isfinite(llk)) and llk[1] > llk[0]):
+            raise AssertionError(f"{what}: train llk not finite and ascending: {llk}")
+        dev_llk = np.abs(llk / ref - 1).max()
+        dev = {n: np.abs(getattr(m, n) / ell_fit["arrays"][n] - 1).max() for n in ("Theta", "Beta")}
+        print("[%s] train llk at checks: %s %s, the float32 ELL fit (phase 3) %s; max rel %.3e "
+              "(limit %g); max rel difference of the factors: Theta %.3e, Beta %.3e"
+              % (tag, what, m.llk_trace, ell_fit["llk"], dev_llk, limit, dev["Theta"],
+                 dev["Beta"]))
+        if dev_llk > limit:
+            raise AssertionError(f"{what}: llk differs from the ELL fit's by {dev_llk:.3e}")
+
+    # -- 3g. the blocked-COO engine at the MillionSong shape ---------------------
+    stamp("phase 3g")
+    coo_fit = RecordingHPF(engine="coo", k=K, stop_crit="train-llk", check_every=5, maxiter=10,
+                           random_seed=1, device="cuda")
+    coo_fit.llk_trace = []
+    reset_counts()
+    coo_fit.fit(coo)
+    launches_coo = read_counts()
+    fit_line("3g", coo_fit, ell_fit["s_per_it"])
+    against_ell("3g", coo_fit, "COO fit", COO_VS_ELL_LLK)
+    print("[3g] launch counters:", json.dumps(launches_coo))
+    if min(launches_coo[n] for n in ("coo_phi_sums", "coo_llk", "table_update")) <= 0:
+        raise AssertionError(f"a kernel of the COO path never launched: {launches_coo}")
+    if launches_coo["ell_phi_sums"] or launches_coo["ell_phi_sums_bf16"] or launches_coo["ell_llk"]:
+        raise AssertionError(f"the COO fit ran an ELL kernel: {launches_coo}")
+    lay_u, lay_i, pdata_full, _ = layouts_for(coo, np.float32, dev)
+    fitted = state_from_numpy([coo_fit.Gamma_shp, coo_fit.Gamma_rte, coo_fit.Lambda_shp,
+                               coo_fit.Lambda_rte, coo_fit.k_rte, coo_fit.t_rte], dev)
+    hp = coo_fit._hp()
+    del coo_fit
+    # the fit's own stream: ids reindexed in order of first appearance
+    pdata_fit = process_data(coo, "train-llk", True, np.float32)
+    print("[3g] K7c check at the fit's shapes (float32, fitted state, the fit's stream of %d "
+          "triplets; times per iteration, both sides)" % pdata_fit.y.shape[0])
+    real.update(coo_suite(pdata_fit, fitted, "float32", reps=3))
+    stream = C.coo_stream(pdata_full, dev)
+    t_tab, b_tab = C.side_derive(fitted.G_shp, fitted.G_rte)[0], C.side_derive(
+        fitted.L_shp, fitted.L_rte)[0]
+    print("[3g] K7c with ids in popularity order (item 0 the rank-1 item): %.4f ms"
+          % cuda_ms(lambda: C.coo_phi_sums(t_tab, b_tab, stream), 3))
+    stream = C.coo_stream(pdata_fit, dev)
+    carry = C._carry_init(fitted)
+    _, prof = profiled(lambda: C.run_cavi_block_coo(carry, stream, 2, hp))
+    print("[3g] two COO iterations (the fit's stream) under torch.profiler: wall %.3f ms, "
+          "device busy %.3f ms (kernels %.3f); top device work: %s"
+          % (prof["wall_ms"], prof["busy_ms"], prof["kernel_ms"], prof["top"]))
+    del pdata_full, pdata_fit, fitted, stream, carry, t_tab, b_tab
+    torch.cuda.empty_cache()
+
+    # -- 3h. bfloat16 gather tables at the MillionSong shape ---------------------
+    stamp("phase 3h")
+    bf = RecordingHPF(gather_dtype="bfloat16", k=K, stop_crit="train-llk", check_every=5,
+                      maxiter=10, random_seed=1, device="cuda")
+    bf.llk_trace = []
+    reset_counts()
+    bf.fit(coo)
+    launches_bf16 = read_counts()
+    fit_line("3h", bf, ell_fit["s_per_it"])
+    against_ell("3h", bf, "bfloat16-table fit", BF16_VS_F32_LLK)
+    print("[3h] launch counters:", json.dumps(launches_bf16))
+    bf16_kernels = ("ell_phi_sums_bf16", "table_update_bf16", "table_derive_bf16",
+                    "segment_table_sums", "ell_llk")
+    if min(launches_bf16[n] for n in bf16_kernels) <= 0:
+        raise AssertionError(f"a kernel of the bfloat16 path never launched: {launches_bf16}")
+    if launches_bf16["ell_phi_sums"] or launches_bf16["table_update"]:
+        raise AssertionError(f"the bfloat16 fit ran a state-dtype table kernel: {launches_bf16}")
+    fitted = state_from_numpy([bf.Gamma_shp, bf.Gamma_rte, bf.Lambda_shp, bf.Lambda_rte,
+                               bf.k_rte, bf.t_rte], dev)
+    del bf
+    print("[3h] bfloat16-table kernel checks at the fit's shapes (float32 state, fitted; times "
+          "per iteration, both sides)")
+    r3h = bf16_suite(lay_u, lay_i, fitted, "float32", reps=3)
+    real.update(r3h)
+    print("[3h] K1 per iteration: bfloat16 tables %.4f ms, float32 tables %.4f ms (phase 3); "
+          "K3 update %.4f ms against %.4f ms"
+          % (r3h["ell_phi_sums_bf16"]["ms"], real["ell_phi_sums"]["ms"],
+             r3h["table_update_bf16"]["ms"], real["table_update"]["ms"]))
+    del lay_u, lay_i, fitted
+    torch.cuda.empty_cache()
+
+    # -- 3i. persistence at full size ---------------------------------------------
+    stamp("phase 3i")
+    with tempfile.TemporaryDirectory(prefix="hpf_smoke_") as tmp:
+        ck = os.path.join(tmp, "ck")
+        kw = dict(k=K, stop_crit="train-llk", check_every=5, random_seed=1, device="cuda",
+                  verbose=False, checkpoint_folder=ck, checkpoint_every=5)
+        reset_counts()
+        first = HPF(maxiter=5, **kw).fit(coo)
+        resumed = HPF(maxiter=10, **kw).fit(coo, resume=True)
+        launches_resume = read_counts()
+        ref = ell_fit["arrays"]
+        equal = all(np.array_equal(getattr(resumed, n), ref[n]) for n in STATE_NAMES)
+        dev_resume = max(np.abs(getattr(resumed, n) / ref[n] - 1).max() for n in STATE_NAMES)
+        ck_bytes = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        print("[3i] checkpoint writes: %.3f s (iteration 5), %.3f s (iteration 10), %d bytes "
+              "each; resumed fit (5 + 5 iterations) against phase 3's 10: %s, max rel %.3e; "
+              "launch counters %s"
+              % (first.fit_stats_.phases["checkpoints"], resumed.fit_stats_.phases["checkpoints"],
+                 ck_bytes, "bit-equal" if equal else "not bit-equal", dev_resume,
+                 json.dumps(launches_resume)))
+        if resumed.niter != ell_fit["niter"] or dev_resume > RESUME_LIMIT:
+            raise AssertionError(f"the resumed fit differs from the uninterrupted one: "
+                                 f"niter {resumed.niter}, max rel {dev_resume:.3e}")
+        del first, resumed
+        path = os.path.join(tmp, "model")
+        _, save_ms = walled(lambda: model.save(path))
+        loaded, load_ms = walled(lambda: HPF.load(path))
+        model_bytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        some = serve_users[:1024]
+        same = np.array_equal(loaded.topN_batch(some, n=10), model.topN_batch(some, n=10))
+        print("[3i] save of the SVI model after the online updates (%d users): wall %.3f ms, %d "
+              "bytes; load: wall %.3f ms; topN_batch(n=10) of 1,024 users after the load: %s"
+              % (model.nusers, save_ms, model_bytes, load_ms, "equal" if same else "DIFFERENT"))
+        if not same or loaded.nusers != model.nusers:
+            raise AssertionError("the loaded model serves other top-n lists")
+        del loaded
+    del model, train, val, coo
     torch.cuda.empty_cache()
 
     # -- 4. agreement and determinism at a small size -----------------------
@@ -1115,7 +1491,15 @@ def main():
               (small,), {}),
              ("SVI", AGREE_SVI, dict(maxiter=10, check_every=2, stop_crit="val-llk",
                                      users_per_batch=25, items_per_batch=17),
-              (small_train,), dict(val_set=small_val)))
+              (small_train,), dict(val_set=small_val)),
+             ("COO full batch", AGREE, dict(engine="coo", maxiter=60, check_every=10,
+                                            stop_crit="train-llk"), (small,), {}),
+             ("COO SVI", AGREE_SVI, dict(engine="coo", maxiter=10, check_every=2,
+                                         stop_crit="train-llk", users_per_batch=25,
+                                         items_per_batch=17), (small_train,), {}),
+             ("bfloat16 tables, full batch", AGREE_BF16,
+              dict(gather_dtype="bfloat16", maxiter=10, check_every=5, stop_crit="train-llk"),
+              (small,), {}))
     for label, limits, opts, args, fit_kw in paths:
         for use_float in (True, False):
             dtype_name = "float32" if use_float else "float64"
@@ -1149,13 +1533,17 @@ def main():
     stamp("phase 4b")
     agree_online()
 
+    stamp("phase 4c")
+    persistence_small(small)
+
     # -- 5. results -----------------------------------------------------------
     stamp("phase 5")
     kernels = []
     paths = {"full_batch": launches_fb, "svi_val": launches_val, "eval_llk": launches_eval,
              "svi_train": launches_train, "svi_diffnorm": launches_dn,
              "svi_maxiter_val": launches_mv, "serving": launches_serving,
-             "online": launches_online}
+             "online": launches_online, "coo": launches_coo, "bf16": launches_bf16,
+             "resume": launches_resume}
     for name, r in real.items():
         src, rep = REPLACES[name]
         by_path = {path: counts[name] for path, counts in paths.items()}

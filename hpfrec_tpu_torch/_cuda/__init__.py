@@ -28,6 +28,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     # t_self, t_other, rows, cols, vals, out, m, w, k, col_off, wps
     "ell_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32],
+    # the same with bfloat16 tables and float32 out; typed by vals
+    "ell_phi_sums_bf16": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32],
     # seg, inv_perm, split_indptr, split_seg_pos, out, n_rows, k, P
     "segment_table_sums": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
     # sums, scaler_old, colsum_other, prior, scaler_shape, add_scaler,
@@ -35,6 +37,9 @@ _SIGNATURES = {
     "table_update": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I32, _I32],
     # shp, rte, tab, partials, n, k, nblocks
     "table_derive": [_P, _P, _P, _P, _I64, _I32, _I32],
+    # the same two with a bfloat16 tab
+    "table_update_bf16": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I32, _I32],
+    "table_derive_bf16": [_P, _P, _P, _P, _I64, _I32, _I32],
     # partials, colsum, nblocks, k
     "colsum_finish": [_P, _P, _I32, _I32],
     # theta, beta, rows, cols, vals, partials, m, w, k, col_off, full_llk
@@ -47,6 +52,10 @@ _SIGNATURES = {
     # scale, head_l, tail_l, head_o, tail_o, s_loc, s_oth, omask, n, n_oth, k
     "batch_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _I64, _I64, _I32],
+    # t_tab, b_tab, y, ix_u, ix_i, user_bounds, n_users, item_keys,
+    # item_order, scale, head_u, tail_u, head_i, tail_i, su, si, n, n_items, k
+    "coo_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I64, _I64, _I32],
     # shp_in, rte_in, sums, mask, scaler_in, colsum, prior, scaler_shape,
     # add_scaler, step, mult, blend_all, global, shp_out, rte_out,
     # scaler_out, partials, n, k, nblocks
@@ -67,6 +76,9 @@ _SIGNATURES = {
 }
 # entry points without a float type: name -> argument types before the stream
 _UNTYPED = {
+    # seg (float32), inv_perm, split_indptr, split_seg_pos, out (float64),
+    # n_rows, k, P
+    "segment_table_sums_f32_f64": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
     # rows, m, mask
     "row_mask": [_P, _I64, _P],
     # scores, rows, items, npairs, b, nI

@@ -1,5 +1,5 @@
-"""ctypes bindings of the host C++ helpers (CSR build, ELL fill, in-row
-column sort, integer factorize).
+"""ctypes bindings of the host C++ helpers (CSR build, batch row gather,
+ELL fill, in-row column sort, integer factorize).
 
 The library is built on first use from ``csr_ops.cpp`` beside this file
 (see ``build.py``).  If no toolchain is present, ``available()`` is False and
@@ -26,7 +26,11 @@ def _declare(lib):
     lib.has_openmp.restype = ctypes.c_int
     lib.set_num_threads.argtypes = [ctypes.c_int]
     lib.set_num_threads.restype = None
+    lib.gather_starts.argtypes = [_P, _P, _I64, _P]
+    lib.gather_starts.restype = None
     for t in ("f32", "f64"):
+        getattr(lib, f"gather_rows_{t}").argtypes = [_P, _P, _P, _P, _I64, _P, _P, _P, _P]
+        getattr(lib, f"gather_rows_{t}").restype = None
         getattr(lib, f"coo_to_csr_{t}").argtypes = [_P, _P, _P, _I64, _I64, _P, _P, _P]
         getattr(lib, f"coo_to_csr_{t}").restype = None
         getattr(lib, f"ell_fill_{t}").argtypes = [_P, _P, _P, _P, _I64, _I64, _P, _P]
@@ -100,6 +104,29 @@ def coo_to_csr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, nrows: int)
         rows.ctypes.data, cols.ctypes.data, vals.ctypes.data, nnz, nrows,
         indptr.ctypes.data, out_cols.ctypes.data, out_vals.ctypes.data)
     return indptr, out_cols, out_vals
+
+
+def gather_rows(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
+                rows: np.ndarray):
+    """Concatenate CSR slices of ``rows``: returns (vals, row_ids, col_ids)."""
+    lib = _need()
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    vdt = np.float64 if data.dtype == np.float64 else np.float32
+    data = np.ascontiguousarray(data, dtype=vdt)
+    nbatch = rows.shape[0]
+    out_starts = np.empty(nbatch + 1, dtype=np.int64)
+    lib.gather_starts(indptr.ctypes.data, rows.ctypes.data, nbatch, out_starts.ctypes.data)
+    total = int(out_starts[-1])
+    out_rows = np.empty(total, dtype=np.int32)
+    out_cols = np.empty(total, dtype=np.int32)
+    out_vals = np.empty(total, dtype=vdt)
+    getattr(lib, f"gather_rows_{_vt(vdt)}")(
+        indptr.ctypes.data, indices.ctypes.data, data.ctypes.data, rows.ctypes.data, nbatch,
+        out_starts.ctypes.data, out_rows.ctypes.data, out_cols.ctypes.data,
+        out_vals.ctypes.data)
+    return out_vals, out_rows, out_cols
 
 
 def ell_fill(seg_start: np.ndarray, seg_len: np.ndarray, indices: np.ndarray,

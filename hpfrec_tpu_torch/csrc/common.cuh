@@ -8,11 +8,40 @@
 // No kernel uses atomics, so every result is bit-identical from run to run.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace hpf {
+
+// Table storage to arithmetic type: a plain cast, but bfloat16 widens
+// exactly through its intrinsic.
+template <typename A, typename S>
+__device__ __forceinline__ A widen(S x) {
+  return (A)x;
+}
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Arithmetic type to table storage.  float64 -> bfloat16 rounds through
+// float32 (two round-to-nearest-even steps), as PyTorch's and XLA's CPU
+// conversions do; a single direct rounding (__double2bfloat16) would
+// differ on values within 2^-30 of a bfloat16 rounding midpoint.
+template <typename S, typename A>
+__device__ __forceinline__ S narrow(A x) {
+  return (S)x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, double>(double x) {
+  return __float2bfloat16_rn((float)x);
+}
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;  // hpfrec_tpu_torch/_cuda WARPS_PER_BLOCK

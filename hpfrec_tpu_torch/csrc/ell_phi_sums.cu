@@ -24,20 +24,24 @@
 // (cols, then the row), so a 8192-slot segment on one warp is a long
 // serial tail; WPS warps split it (warp s takes slot groups s, s + WPS,
 // ...) and add their partial sums through shared memory in warp order.
-// Accumulation is in T, as the JAX version's accumulation dtype (f32 for
-// f32 tables, f64 for f64).  One launch per bucket; no atomics, so the
-// result is bit-identical run to run.
+// Accumulation is in the JAX version's accumulation dtype: the table type
+// for float32 and float64 tables; for bfloat16 tables (gather_dtype=
+// 'bfloat16', ell.py:476, 519-524) rows are widened to float32 as they are
+// loaded, vals (float32 or float64) are rounded to float32, and the sums are
+// float32.  One launch per bucket; no atomics, so the result is
+// bit-identical run to run.
 #include "common.cuh"
 
 namespace hpf {
 
 constexpr int kSlotUnroll = 4;
 
-template <int KPL, typename T>
+// TT: table storage, V: vals, T: arithmetic and output.
+template <int KPL, typename TT, typename V, typename T>
 __global__ void __launch_bounds__(kThreads)
-    ell_phi_sums_kernel(const T* __restrict__ t_self, const T* __restrict__ t_other,
+    ell_phi_sums_kernel(const TT* __restrict__ t_self, const TT* __restrict__ t_other,
                         const int32_t* __restrict__ rows, const int32_t* __restrict__ cols,
-                        const T* __restrict__ vals, T* __restrict__ out, int64_t m, int w, int k,
+                        const V* __restrict__ vals, T* __restrict__ out, int64_t m, int w, int k,
                         int64_t col_off, int wps) {
   __shared__ T red[kWarpsPerBlock][kWarp * KPL];
   const int lane = threadIdx.x & (kWarp - 1);
@@ -51,12 +55,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int q = 0; q < KPL; ++q) acc[q] = T(0);
 
   if (active) {
-    const T* srow = t_self + (int64_t)rows[seg] * k;
+    const TT* srow = t_self + (int64_t)rows[seg] * k;
     T s[KPL];
 #pragma unroll
     for (int q = 0; q < KPL; ++q) {
       const int c = lane + kWarp * q;
-      s[q] = c < k ? srow[c] : T(0);
+      s[q] = c < k ? widen<T>(srow[c]) : T(0);
     }
     const int64_t base = seg * (int64_t)w;
     for (int j0 = sub * kSlotUnroll; j0 < w; j0 += wps * kSlotUnroll) {
@@ -64,13 +68,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < kSlotUnroll; ++u) {
         const int j = j0 + u;
-        v[u] = j < w ? vals[base + j] : T(0);
+        v[u] = j < w ? (T)vals[base + j] : T(0);
         d[u] = T(0);
-        const T* orow = t_other + ((int64_t)(v[u] != T(0) ? cols[base + j] : 0) + col_off) * k;
+        const TT* orow = t_other + ((int64_t)(v[u] != T(0) ? cols[base + j] : 0) + col_off) * k;
 #pragma unroll
         for (int q = 0; q < KPL; ++q) {
           const int c = lane + kWarp * q;
-          p[u][q] = (v[u] != T(0) && c < k) ? s[q] * orow[c] : T(0);
+          p[u][q] = (v[u] != T(0) && c < k) ? s[q] * widen<T>(orow[c]) : T(0);
           d[u] += p[u][q];
         }
       }
@@ -108,15 +112,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int KPL, typename T>
-cudaError_t launch_phi(const T* t_self, const T* t_other, const int32_t* rows, const int32_t* cols,
-                       const T* vals, T* out, int64_t m, int w, int k, int64_t col_off, int wps,
-                       cudaStream_t stream) {
+template <int KPL, typename TT, typename V, typename T>
+cudaError_t launch_phi(const TT* t_self, const TT* t_other, const int32_t* rows,
+                       const int32_t* cols, const V* vals, T* out, int64_t m, int w, int k,
+                       int64_t col_off, int wps, cudaStream_t stream) {
   if (m <= 0) return cudaSuccess;
   if (wps != 1 && wps != 2 && wps != 4 && wps != 8) return cudaErrorInvalidValue;
   const int64_t per_block = kWarpsPerBlock / wps;
   const int64_t blocks = (m + per_block - 1) / per_block;
-  ell_phi_sums_kernel<KPL, T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  ell_phi_sums_kernel<KPL, TT, V, T><<<(unsigned)blocks, kThreads, 0, stream>>>(
       t_self, t_other, rows, cols, vals, out, m, w, k, col_off, wps);
   return cudaGetLastError();
 }
@@ -135,6 +139,23 @@ int hpf_ell_phi_sums_f32(const float* t_self, const float* t_other, const int32_
 int hpf_ell_phi_sums_f64(const double* t_self, const double* t_other, const int32_t* rows,
                          const int32_t* cols, const double* vals, double* out, int64_t m,
                          int32_t w, int32_t k, int64_t col_off, int32_t wps, void* stream) {
+  HPF_DISPATCH_KPL(k, hpf::launch_phi, t_self, t_other, rows, cols, vals, out, m, w, k, col_off,
+                   wps, (cudaStream_t)stream);
+}
+
+// bfloat16 tables; vals in the state dtype; float32 sums
+int hpf_ell_phi_sums_bf16_f32(const __nv_bfloat16* t_self, const __nv_bfloat16* t_other,
+                              const int32_t* rows, const int32_t* cols, const float* vals,
+                              float* out, int64_t m, int32_t w, int32_t k, int64_t col_off,
+                              int32_t wps, void* stream) {
+  HPF_DISPATCH_KPL(k, hpf::launch_phi, t_self, t_other, rows, cols, vals, out, m, w, k, col_off,
+                   wps, (cudaStream_t)stream);
+}
+
+int hpf_ell_phi_sums_bf16_f64(const __nv_bfloat16* t_self, const __nv_bfloat16* t_other,
+                              const int32_t* rows, const int32_t* cols, const double* vals,
+                              float* out, int64_t m, int32_t w, int32_t k, int64_t col_off,
+                              int32_t wps, void* stream) {
   HPF_DISPATCH_KPL(k, hpf::launch_phi, t_self, t_other, rows, cols, vals, out, m, w, k, col_off,
                    wps, (cudaStream_t)stream);
 }

@@ -7,6 +7,10 @@
 // contiguous range [split_indptr[r], split_indptr[r + 1]) of
 // split_seg_pos, a per-row CSR built on the host at upload.
 //
+// With bfloat16 gather tables under a float64 state, K1's segment sums are
+// float32: the sums are taken in float32 and written as float64, the cast
+// of ell.py:726-727 after the reassembly.
+//
 // What bounds it on the card: moving (n_rows + n_split_segments) rows of
 // k values; a pure memory pass with no arithmetic to speak of.
 //
@@ -18,11 +22,11 @@
 
 namespace hpf {
 
-template <typename T>
+template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
     segment_table_sums_kernel(const T* __restrict__ seg, const int32_t* __restrict__ inv_perm,
                               const int32_t* __restrict__ split_indptr,
-                              const int32_t* __restrict__ split_seg_pos, T* __restrict__ out,
+                              const int32_t* __restrict__ split_seg_pos, O* __restrict__ out,
                               int64_t n, int k, int P) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int64_t row = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
@@ -40,18 +44,18 @@ __global__ void __launch_bounds__(kThreads)
       }
       a += e;
     }
-    out[row * k + c] = a;
+    out[row * k + c] = (O)a;
   }
 }
 
-template <typename T>
+template <typename T, typename O>
 cudaError_t launch_segment_sums(const T* seg, const int32_t* inv_perm, const int32_t* split_indptr,
-                                const int32_t* split_seg_pos, T* out, int64_t n, int k, int P,
+                                const int32_t* split_seg_pos, O* out, int64_t n, int k, int P,
                                 cudaStream_t stream) {
   if (n <= 0) return cudaSuccess;
   if (k <= 0 || P <= 0) return cudaErrorInvalidValue;
   const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  segment_table_sums_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  segment_table_sums_kernel<T, O><<<(unsigned)blocks, kThreads, 0, stream>>>(
       seg, inv_perm, split_indptr, split_seg_pos, out, n, k, P);
   return cudaGetLastError();
 }
@@ -70,6 +74,14 @@ int hpf_segment_table_sums_f32(const float* seg, const int32_t* inv_perm,
 int hpf_segment_table_sums_f64(const double* seg, const int32_t* inv_perm,
                                const int32_t* split_indptr, const int32_t* split_seg_pos,
                                double* out, int64_t n, int32_t k, int32_t P, void* stream) {
+  return hpf::launch_segment_sums(seg, inv_perm, split_indptr, split_seg_pos, out, n, k, P,
+                                  (cudaStream_t)stream);
+}
+
+// float32 segment sums written as float64
+int hpf_segment_table_sums_f32_f64(const float* seg, const int32_t* inv_perm,
+                                   const int32_t* split_indptr, const int32_t* split_seg_pos,
+                                   double* out, int64_t n, int32_t k, int32_t P, void* stream) {
   return hpf::launch_segment_sums(seg, inv_perm, split_indptr, split_seg_pos, out, n, k, P,
                                   (cudaStream_t)stream);
 }

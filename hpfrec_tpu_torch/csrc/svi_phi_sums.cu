@@ -42,6 +42,16 @@
 //   sorted order and reuses scale_s; its finish pass runs one warp per
 //   other-side row, finds the row's run by binary search in the sorted
 //   keys, writes zeros and omask = 0 where there is none.
+//
+// K7c — the same sums over a whole fit's training stream, the blocked-COO
+// engine's E-step: replaces hpfrec_tpu/ops/cavi.py:phi_segment_sums
+// (cavi.py:92-113, driven by cavi_step and run_cavi_block, :116-177).
+// Local side = users over the user-sorted stream, other side = items; the
+// wrapper hands over the user run bounds and the item-side order and
+// sorted keys, built once per fit (no per-call sort), and no mask is
+// written.  Only the nnz real triplets are walked: a padded tail (index 0,
+// y = 0) would give user 0 a second run, and with one writer per run that
+// second, all-zero run would overwrite user 0's sum.
 #include "common.cuh"
 
 namespace hpf {
@@ -193,7 +203,7 @@ __global__ void __launch_bounds__(kThreads)
   if (hi <= lo || lo / kChunk == (hi - 1) / kChunk) return;
   T sum[KPL];
   add_cut_run<KPL, T>(head, tail, lo, hi, lane, k, sum);
-  const int64_t r = seg_rows[q];
+  const int64_t r = seg_rows != nullptr ? seg_rows[q] : q;  // K7c: row q itself
   const T* f = t_loc + r * k;
   T* dst = s_loc + r * k;
 #pragma unroll
@@ -226,7 +236,7 @@ __global__ void __launch_bounds__(kThreads)
     if (skeys[m] <= r) a = m + 1; else b = m;
   }
   const int64_t hi = a;
-  if (lane == 0) omask[r] = hi > lo ? 1 : 0;
+  if (omask != nullptr && lane == 0) omask[r] = hi > lo ? 1 : 0;
   T* dst = s_oth + r * k;
   if (hi <= lo) {
 #pragma unroll
@@ -307,6 +317,34 @@ int hpf_batch_phi_sums_f64(const double* t_loc, const double* t_oth, const doubl
   HPF_DISPATCH_KPL(k, hpf::launch_batch_phi, t_loc, t_oth, y, rows, cols, bounds, base, seg_rows,
                    nq, skeys, order, scale, head_l, tail_l, head_o, tail_o, s_loc, s_oth, omask,
                    n, n_oth, k, (cudaStream_t)stream);
+}
+
+// K7c: t_tab (n_users, k), b_tab (n_items, k); the stream y / ix_u / ix_i
+// (n,) sorted by user, user_bounds (n_users + 1,) its user runs, item_keys
+// (n,) the sorted item ids and item_order (n,) the stable order that sorts
+// them; su must arrive zeroed, si is written in full.
+int hpf_coo_phi_sums_f32(const float* t_tab, const float* b_tab, const float* y,
+                         const int32_t* ix_u, const int32_t* ix_i, const int32_t* user_bounds,
+                         int64_t n_users, const int32_t* item_keys, const int64_t* item_order,
+                         float* scale, float* head_u, float* tail_u, float* head_i,
+                         float* tail_i, float* su, float* si, int64_t n, int64_t n_items,
+                         int32_t k, void* stream) {
+  HPF_DISPATCH_KPL(k, hpf::launch_batch_phi, t_tab, b_tab, y, ix_u, ix_i, user_bounds, 0,
+                   (const int32_t*)nullptr, n_users, item_keys, item_order, scale, head_u,
+                   tail_u, head_i, tail_i, su, si, (uint8_t*)nullptr, n, n_items, k,
+                   (cudaStream_t)stream);
+}
+
+int hpf_coo_phi_sums_f64(const double* t_tab, const double* b_tab, const double* y,
+                         const int32_t* ix_u, const int32_t* ix_i, const int32_t* user_bounds,
+                         int64_t n_users, const int32_t* item_keys, const int64_t* item_order,
+                         double* scale, double* head_u, double* tail_u, double* head_i,
+                         double* tail_i, double* su, double* si, int64_t n, int64_t n_items,
+                         int32_t k, void* stream) {
+  HPF_DISPATCH_KPL(k, hpf::launch_batch_phi, t_tab, b_tab, y, ix_u, ix_i, user_bounds, 0,
+                   (const int32_t*)nullptr, n_users, item_keys, item_order, scale, head_u,
+                   tail_u, head_i, tail_i, su, si, (uint8_t*)nullptr, n, n_items, k,
+                   (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,11 @@
 //   both:         mean = shp / rte;  tab = exp(digamma(shp) - log(rte) -
 //                 rowmax), a non-finite rowmax set to 0 (cavi.py:61-68);
 //                 colsum(mean) as per-block partials
-// colsum_finish adds the partials over blocks in block order.
+// colsum_finish adds the partials over blocks in block order.  With
+// gather_dtype='bfloat16' (ell.py:752-754, 804-806) tab is stored in
+// bfloat16 (narrow() in common.cuh: float64 rounds through float32, as the
+// frameworks' conversions do); shp, rte, the scaler and the colsums stay in
+// the state dtype.
 //
 // What bounds it on the card: one streaming pass over the side's tables
 // (read sums or shp+rte, write shp, rte and tab: 16-20 bytes per element
@@ -30,11 +34,11 @@
 
 namespace hpf {
 
-template <int KPL, bool UPDATE, typename T>
+template <int KPL, bool UPDATE, typename T, typename TabT>
 __global__ void __launch_bounds__(kThreads)
     table_kernel(const T* __restrict__ a_in, const T* __restrict__ b_in,
                  const T* __restrict__ colsum_other, T prior, T scaler_shape, T add_scaler,
-                 T* __restrict__ shp_out, T* __restrict__ rte_out, T* __restrict__ tab_out,
+                 T* __restrict__ shp_out, T* __restrict__ rte_out, TabT* __restrict__ tab_out,
                  T* __restrict__ scaler_out, T* __restrict__ partials, int64_t n, int k) {
   __shared__ T red[kWarpsPerBlock][kWarp * KPL];
   const int lane = threadIdx.x & (kWarp - 1);
@@ -79,7 +83,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int q = 0; q < KPL; ++q) {
       const int c = lane + kWarp * q;
       if (c < k) {
-        tab_out[off + c] = dexp(elog[q] - mx);
+        tab_out[off + c] = narrow<TabT>(dexp(elog[q] - mx));
         if (UPDATE) {
           shp_out[off + c] = shp[q];
           rte_out[off + c] = rte[q];
@@ -115,23 +119,23 @@ __global__ void colsum_finish_kernel(const T* __restrict__ partials, T* __restri
   if (threadIdx.x == 0) colsum[c] = s;
 }
 
-template <int KPL, typename T>
+template <int KPL, typename T, typename TabT>
 cudaError_t launch_update(const T* sums, const T* scaler_old, const T* colsum_other, double prior,
-                          double scaler_shape, double add_scaler, T* shp, T* rte, T* tab,
+                          double scaler_shape, double add_scaler, T* shp, T* rte, TabT* tab,
                           T* scaler_new, T* partials, int64_t n, int k, int nblocks,
                           cudaStream_t stream) {
   if (nblocks <= 0) return cudaErrorInvalidValue;
-  table_kernel<KPL, true, T><<<nblocks, kThreads, 0, stream>>>(
+  table_kernel<KPL, true, T, TabT><<<nblocks, kThreads, 0, stream>>>(
       sums, scaler_old, colsum_other, (T)prior, (T)scaler_shape, (T)add_scaler, shp, rte, tab,
       scaler_new, partials, n, k);
   return cudaGetLastError();
 }
 
-template <int KPL, typename T>
-cudaError_t launch_derive(const T* shp, const T* rte, T* tab, T* partials, int64_t n, int k,
+template <int KPL, typename T, typename TabT>
+cudaError_t launch_derive(const T* shp, const T* rte, TabT* tab, T* partials, int64_t n, int k,
                           int nblocks, cudaStream_t stream) {
   if (nblocks <= 0) return cudaErrorInvalidValue;
-  table_kernel<KPL, false, T><<<nblocks, kThreads, 0, stream>>>(
+  table_kernel<KPL, false, T, TabT><<<nblocks, kThreads, 0, stream>>>(
       shp, rte, nullptr, T(0), T(0), T(0), nullptr, nullptr, tab, nullptr, partials, n, k);
   return cudaGetLastError();
 }
@@ -174,6 +178,41 @@ int hpf_table_derive_f32(const float* shp, const float* rte, float* tab, float* 
 
 int hpf_table_derive_f64(const double* shp, const double* rte, double* tab, double* partials,
                          int64_t n, int32_t k, int32_t nblocks, void* stream) {
+  HPF_DISPATCH_KPL(k, hpf::launch_derive, shp, rte, tab, partials, n, k, nblocks,
+                   (cudaStream_t)stream);
+}
+
+// bfloat16 tab, everything else in the state dtype
+int hpf_table_update_bf16_f32(const float* sums, const float* scaler_old,
+                              const float* colsum_other, double prior, double scaler_shape,
+                              double add_scaler, float* shp, float* rte, __nv_bfloat16* tab,
+                              float* scaler_new, float* partials, int64_t n, int32_t k,
+                              int32_t nblocks, void* stream) {
+  HPF_DISPATCH_KPL(k, hpf::launch_update, sums, scaler_old, colsum_other, prior, scaler_shape,
+                   add_scaler, shp, rte, tab, scaler_new, partials, n, k, nblocks,
+                   (cudaStream_t)stream);
+}
+
+int hpf_table_update_bf16_f64(const double* sums, const double* scaler_old,
+                              const double* colsum_other, double prior, double scaler_shape,
+                              double add_scaler, double* shp, double* rte, __nv_bfloat16* tab,
+                              double* scaler_new, double* partials, int64_t n, int32_t k,
+                              int32_t nblocks, void* stream) {
+  HPF_DISPATCH_KPL(k, hpf::launch_update, sums, scaler_old, colsum_other, prior, scaler_shape,
+                   add_scaler, shp, rte, tab, scaler_new, partials, n, k, nblocks,
+                   (cudaStream_t)stream);
+}
+
+int hpf_table_derive_bf16_f32(const float* shp, const float* rte, __nv_bfloat16* tab,
+                              float* partials, int64_t n, int32_t k, int32_t nblocks,
+                              void* stream) {
+  HPF_DISPATCH_KPL(k, hpf::launch_derive, shp, rte, tab, partials, n, k, nblocks,
+                   (cudaStream_t)stream);
+}
+
+int hpf_table_derive_bf16_f64(const double* shp, const double* rte, __nv_bfloat16* tab,
+                              double* partials, int64_t n, int32_t k, int32_t nblocks,
+                              void* stream) {
   HPF_DISPATCH_KPL(k, hpf::launch_derive, shp, rte, tab, partials, n, k, nblocks,
                    (cudaStream_t)stream);
 }

@@ -1,13 +1,17 @@
 """The ``HPF`` model class on PyTorch: full-batch CAVI, mini-batch SVI,
-batch serving and online updates on one device.
+batch serving, online updates and persistence on one device.
 
 Port of ``hpfrec_tpu/models/hpf.py`` (itself API-compatible with the
 reference ``hpfrec/__init__.py:11-1459``): the constructor with all of the
 reference's arguments and their validation; ``fit`` in full-batch CAVI on
-the bucketed-ELL engine or in mini-batch SVI (``users_per_batch`` /
+the bucketed-ELL engine (with bfloat16 gather tables on request) or the
+blocked-COO engine, or in mini-batch SVI (``users_per_batch`` /
 ``items_per_batch``), with all four stopping criteria and a validation
-set; ``eval_llk``; ``predict`` / ``topN`` on the fitted host factors, with
-large ``predict`` batches (65,536 pairs or more) on the device;
+set, checkpoints and resume, the end-of-fit CSV export (``save_folder``)
+and a trace of the fit (``profile_dir``); ``eval_llk``; ``save`` /
+``load`` (files that ``hpfrec_tpu`` reads and writes too); ``predict`` /
+``topN`` on the fitted host factors, with large ``predict`` batches
+(65,536 pairs or more) on the device;
 ``topN_batch`` on a cached device ``Beta``; and the online updates
 ``partial_fit`` (with ``new_users`` / ``new_items`` growth),
 ``predict_factors`` and ``add_user``, which keep the device state cached
@@ -19,9 +23,9 @@ One keyword-only argument is new: ``device`` (default ``"cuda"``), where
 the JAX class has ``mesh``.  With ``device="cuda"`` and no CUDA, ``fit``
 raises; nothing falls back to the CPU.
 
-Options and methods of the JAX class that are not ported yet raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.  Fixed (seed,
-dtype, device) gives bit-identical runs: no kernel uses atomics.
+Multi-device execution (``mesh``, ``shard_tables``) is not ported yet and
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.  Fixed
+(seed, dtype, device) gives bit-identical runs: no kernel uses atomics.
 """
 
 from __future__ import annotations
@@ -84,12 +88,12 @@ class HPF:
         kernels and raises in ``fit`` when CUDA is absent; ``"cpu"`` runs
         the kernels' plain PyTorch versions.
 
-    Not ported yet (raise ``NotImplementedError``): ``engine='coo'``,
-    ``shard_tables``, ``mesh``, ``checkpoint_folder`` /
-    ``checkpoint_every`` / ``resume``, ``save_folder``, ``profile_dir``,
-    ``gather_dtype='bfloat16'``, and ``save`` / ``load``.
-    ``gather_dtype`` ``'auto'`` and ``'float32'`` both mean the state
-    dtype.
+    Not ported yet (raise ``NotImplementedError``): ``shard_tables`` and
+    ``mesh``.  ``gather_dtype`` ``'auto'`` and ``'float32'`` both mean the
+    state dtype (JAX's ``'auto'`` picks bfloat16 above a TPU threshold);
+    ``'bfloat16'`` stores the ELL engine's exp tables in bfloat16.
+    ``save_folder`` writes ``users.csv`` / ``items.csv`` without pandas;
+    ``profile_dir`` receives a ``torch.profiler`` Chrome trace.
 
     ``partial_fit``, ``predict_factors``, ``add_user`` and
     ``utils.evaluation`` take an ``(n, 3)`` / ``(n, 2)`` ndarray (and a
@@ -209,23 +213,19 @@ class HPF:
             raise ValueError(
                 "shard_tables=True requires engine='ell'; the blocked-COO "
                 "engine has no table-sharded (model-parallel) variant.")
+        if engine == "coo" and gather_dtype != "auto":
+            warnings.warn(
+                "gather_dtype=%r has no effect with engine='coo' (the "
+                "blocked-COO engine computes in the state dtype); use "
+                "engine='ell' for reduced-precision gather tables."
+                % (gather_dtype,))
         if checkpoint_every is not None:
             assert isinstance(checkpoint_every, int) and checkpoint_every > 0
         assert gather_dtype in ("auto", "float32", "bfloat16")
 
         # options of hpfrec_tpu.HPF that this package does not run yet
-        if engine == "coo":
-            raise _not_ported("engine='coo' (the blocked-COO engine, K7)", "9")
         if shard_tables or mesh is not None:
             raise _not_ported("Multi-device execution (mesh/shard_tables)", "10-11")
-        if checkpoint_folder is not None or checkpoint_every is not None:
-            raise _not_ported("Checkpointing (checkpoint_folder/checkpoint_every)", "5")
-        if save_folder is not None:
-            raise _not_ported("CSV export (save_folder)", "5")
-        if profile_dir is not None:
-            raise _not_ported("Fit tracing (profile_dir)", "5")
-        if gather_dtype == "bfloat16":
-            raise _not_ported("gather_dtype='bfloat16' (bf16 gather tables)", "3")
 
         self.k = k
         self.a = a
@@ -450,15 +450,19 @@ class HPF:
         scipy ``coo_array``), as ``hpfrec_tpu.HPF.fit`` does: full-batch
         CAVI, or mini-batch SVI when ``users_per_batch`` /
         ``items_per_batch`` are set; ``val_set`` (same formats) feeds the
-        val-llk criterion."""
+        val-llk criterion.
+
+        With ``checkpoint_folder`` / ``checkpoint_every`` set at
+        construction, the six state arrays, the iteration counter (and in
+        SVI the shuffle rng and the numeration arrays) are written during
+        the fit; ``resume=True`` continues from the latest checkpoint,
+        one written by this package or by ``hpfrec_tpu``."""
         if self.stop_crit == 'val-llk' and val_set is None:
             raise ValueError("If 'stop_crit' is set to 'val-llk', must provide a validation set.")
-        if resume:
-            raise _not_ported("Resuming from a checkpoint (resume=True)", "5")
         dev = self._torch_device()
 
         from .. import _native
-        from ..utils.profiling import FitStats
+        from ..utils.profiling import FitStats, maybe_trace
 
         if _native.available():
             _native.set_num_threads(self.ncores)
@@ -482,6 +486,18 @@ class HPF:
         if self.verbose:
             self._print_data_info()
 
+        if self.save_folder is not None:
+            from ..utils.io import series_csv
+
+            if self.reindex:
+                if self.verbose:
+                    print("\nSaving user and item mappings...\n")
+                series_csv(os.path.join(self.save_folder, 'users.csv'), self.user_mapping_)
+                series_csv(os.path.join(self.save_folder, 'items.csv'), self.item_mapping_)
+            data_utils.hyperparams_txt(
+                self.save_folder, self.a, self.a_prime, self.b_prime,
+                self.c, self.c_prime, self.d_prime, self.k, self.random_seed)
+
         val_arrays = None
         if (val_set is not None) and (self.stop_crit not in ("diff-norm", "train-llk")):
             with stats.phase("valset"):
@@ -493,7 +509,7 @@ class HPF:
                 self.stop_crit = 'train-llk'
 
         svi_mode = (self.users_per_batch != 0) or (self.items_per_batch != 0)
-        if self.block_size is not None and val_arrays is None:
+        if self.engine == "ell" and self.block_size is not None and val_arrays is None:
             warnings.warn(
                 "block_size has no effect on this fit: it sizes blocked-COO "
                 "device buffers, which the ELL engine only allocates for a "
@@ -505,12 +521,17 @@ class HPF:
         hp = self._hp()
         if self.verbose:
             print("Initializing parameters...")
-        state = initialize_state(self.nusers, self.nitems, hp, self.random_seed,
-                                 self._dtype)
+        self._resume_meta = None
+        if resume:
+            state = self._resume_state()
+        else:
+            state = initialize_state(self.nusers, self.nitems, hp, self.random_seed,
+                                     self._dtype)
         nnz = int(pdata.y.shape[0])
         stats.nnz = nnz
         self._nnz = nnz
         self._metric_ell = None
+        self._metric_coo = None
         self._val = None
         if val_arrays is not None:
             with stats.phase("valset"):
@@ -519,19 +540,22 @@ class HPF:
         if self.verbose:
             print("Initializing optimization procedure...")
         st_time = time.time()
-        if svi_mode:
-            state, colsums = self._run_svi(state, pdata, hp, dev, stats)
-        else:
-            state, colsums = self._run_full_batch(state, pdata, hp, dev, stats)
+        with maybe_trace(self.profile_dir):
+            if svi_mode:
+                state, colsums = self._run_svi(state, pdata, hp, dev, stats)
+            else:
+                state, colsums = self._run_full_batch(state, pdata, hp, dev, stats)
         end_tm = (time.time() - st_time) / 60.0
         with stats.phase("metric_checks"):
             self._final_eval(state, colsums)
-        self._metric_ell = self._val = None  # per-fit device buffers
+        self._metric_ell = self._metric_coo = self._val = None  # per-fit device buffers
         stats.stop(self.niter + 1)
         if self.verbose:
             self._print_final_msg(self.niter + 1, self._last_llk, self._last_rmse, end_tm)
 
         self._state_to_host(state)
+        if self.save_folder is not None:
+            self._save_parameters(state)
         if self.keep_data and (not svi_mode or not hasattr(self, "seen")):
             self._store_metadata(pdata)
         if self.produce_dicts and self.reindex:
@@ -549,6 +573,41 @@ class HPF:
         data, nnz = device_blocked_coo(vy, vu, vi, dev, self.block_size)
         return types.SimpleNamespace(data=data, nnz=nnz, iu=vu, ii=vi)
 
+    def _resume_state(self) -> VariationalState:
+        """The state of the latest checkpoint, as host tensors of the fit's
+        dtype; keeps its meta and rng for the loop (JAX ``hpf.py:705-720``)."""
+        from ..models.state import state_from_numpy
+        from ..utils import io as io_utils
+
+        if not io_utils.has_checkpoint(self.checkpoint_folder):
+            raise ValueError(
+                "resume=True but no checkpoint found in 'checkpoint_folder'.")
+        ck_state, meta, ck_rng = io_utils.load_checkpoint(self.checkpoint_folder)
+        if ck_state.G_shp.shape != (self.nusers, self.k):
+            raise ValueError(
+                "Checkpoint shape %s does not match data (%d users, k=%d)."
+                % (ck_state.G_shp.shape, self.nusers, self.k))
+        self._resume_meta = (meta, ck_rng)
+        if self.verbose:
+            print("Resuming from checkpoint at iteration %d..." % meta["niter"])
+        return state_from_numpy([a.astype(self._dtype, copy=False) for a in ck_state], "cpu")
+
+    def _maybe_checkpoint(self, state, iters_done, rng=None, last_crit=None,
+                          extra_arrays=None):
+        """Write a checkpoint when ``iters_done`` is a multiple of
+        ``checkpoint_every`` (JAX ``hpf.py:881-898``)."""
+        if self.checkpoint_folder is None or self.checkpoint_every is None:
+            return
+        if iters_done % self.checkpoint_every == 0:
+            from ..utils import io as io_utils
+
+            extra = {}
+            if last_crit is not None:
+                extra["last_crit"] = float(last_crit)
+            with self.fit_stats_.phase("checkpoints"):
+                io_utils.save_checkpoint(self.checkpoint_folder, state, iters_done,
+                                         rng=rng, extra=extra, extra_arrays=extra_arrays)
+
     def _load_kernels(self, dev, stats):
         with stats.phase("kernel_build"):
             if dev.type == "cuda":
@@ -557,19 +616,32 @@ class HPF:
                 _cuda.load()
 
     def _run_full_batch(self, state, pdata, hp, dev, stats):
-        """Full-batch CAVI on the ELL engine.  Returns the final state and a
-        function giving its mean colsums (for the train metric)."""
-        from ..ops.ell import (_carry_init, build_layouts, run_cavi_block_ell,
+        """Full-batch CAVI on the ELL engine (K1-K3; bfloat16 exp tables
+        with ``gather_dtype='bfloat16'``) or the blocked-COO engine (K7c,
+        K3).  Returns the final state and a function giving its mean
+        colsums (for the train metric)."""
+        from ..ops.cavi import _carry_init, coo_stream, run_cavi_block_coo
+        from ..ops.ell import (build_layouts, gather_table_dtype, run_cavi_block_ell,
                                to_device)
 
-        with stats.phase("host_pack"):
-            ell_u, ell_i = build_layouts(pdata, self._dtype)
-        self._load_kernels(dev, stats)
+        coo = None
+        gd = None
+        if self.engine == "coo":
+            with stats.phase("host_pack"):
+                coo = coo_stream(pdata, dev, self.block_size)
+            self._metric_coo = coo.data
+            self._load_kernels(dev, stats)
+        else:
+            gd = gather_table_dtype(self.gather_dtype)
+            with stats.phase("host_pack"):
+                ell_u, ell_i = build_layouts(pdata, self._dtype)
+            self._load_kernels(dev, stats)
+            with stats.phase("transfer"):
+                lay_u = to_device(ell_u, dev)
+                lay_i = to_device(ell_i, dev)
+            self._metric_ell = lay_u
         with stats.phase("transfer"):
-            lay_u = to_device(ell_u, dev)
-            lay_i = to_device(ell_i, dev)
             state = VariationalState(*[a.to(dev) for a in state])
-        self._metric_ell = lay_u
 
         self._last_llk = 0.0
         self._last_rmse = 0.0
@@ -578,13 +650,20 @@ class HPF:
         Theta_prev = state.G_shp / state.G_rte if self.stop_crit == 'diff-norm' else None
 
         iters_done = 0
+        if self._resume_meta is not None:
+            meta, _ = self._resume_meta
+            iters_done = int(meta["niter"])
+            last_crit = meta.get("last_crit")
         chunk = self.check_every if self.check_every > 0 else self.maxiter
         with stats.phase("iterations"):
-            carry = _carry_init(state)
+            carry = _carry_init(state, gd)
         while iters_done < self.maxiter:
             n = min(chunk, self.maxiter - iters_done)
             with stats.phase("iterations"):
-                carry = run_cavi_block_ell(carry, lay_u, lay_i, n, hp)
+                if coo is not None:
+                    carry = run_cavi_block_coo(carry, coo, n, hp)
+                else:
+                    carry = run_cavi_block_ell(carry, lay_u, lay_i, n, hp, gd)
             iters_done += n
             stop = False
             if self.check_every > 0 and n == self.check_every:
@@ -592,6 +671,7 @@ class HPF:
                     stop, last_crit, Theta_prev = self._evaluate_criterion(
                         carry.state, iters_done, last_crit, Theta_prev,
                         lambda c=carry: (c.theta_colsum, c.beta_colsum))
+            self._maybe_checkpoint(carry.state, iters_done, last_crit=last_crit)
             if stop:
                 break
         self.niter = iters_done - 1
@@ -630,14 +710,22 @@ class HPF:
         users_numeration = np.arange(self.nusers, dtype=np.int64) if use_users else None
         items_numeration = np.arange(self.nitems, dtype=np.int64) if use_items else None
 
-        # train-metric checks ride a user-side ELL layout (untiled), built
-        # only when a check or the final eval reads train metrics
+        # train-metric checks ride the blocked-COO training stream under
+        # engine='coo' (JAX hpf.py:1269); else a user-side ELL layout
+        # (untiled), built only when a check or the final eval reads train
+        # metrics
         need_metric = (self._val is None) and (
             (self.check_every > 0 and self.stop_crit != 'diff-norm')
             or self.stop_crit == 'train-llk'
             or (self.verbose and self.stop_crit in ('diff-norm', 'maxiter')))
         ell_m = None
-        if need_metric:
+        if self.engine == "coo":
+            from ..ops.cavi import device_blocked_coo
+
+            with stats.phase("host_pack"):
+                self._metric_coo = device_blocked_coo(pdata.y, pdata.ix_u, pdata.ix_i, dev,
+                                                      self.block_size)[0]
+        elif need_metric:
             with stats.phase("host_pack"):
                 ell_m = build_ell(indptr_u, indices_u, data_u, self.nusers, dtype=dt)
         self._load_kernels(dev, stats)
@@ -658,7 +746,21 @@ class HPF:
         last_crit = None
         Theta_prev = state.G_shp / state.G_rte if self.stop_crit == 'diff-norm' else None
         i = 0
-        for i in range(self.maxiter):
+        start_epoch = 0
+        if self._resume_meta is not None:
+            meta, ck_rng = self._resume_meta
+            start_epoch = int(meta["niter"])
+            last_crit = meta.get("last_crit")
+            if ck_rng is not None:
+                rng = ck_rng
+            # the shuffles permute the numeration arrays in place, so the
+            # permutations are loop state and are restored with the rng
+            xa = meta.get("extra_arrays", {})
+            if "users_numeration" in xa:
+                users_numeration = xa["users_numeration"].astype(np.int64)
+            if "items_numeration" in xa:
+                items_numeration = xa["items_numeration"].astype(np.int64)
+        for i in range(start_epoch, self.maxiter):
             step = float(self.step_size(i))
             if use_users and use_items:
                 user_epoch = ((i + 1) % 2) == 0
@@ -674,12 +776,20 @@ class HPF:
                     rng.shuffle(items_numeration)
                     state = svi_run_epoch(state, side_i, items_numeration,
                                           self.items_per_batch, step, hp, False)
+            stop = False
             if self.check_every > 0 and ((i + 1) % self.check_every) == 0:
                 with stats.phase("metric_checks"):
                     stop, last_crit, Theta_prev = self._evaluate_criterion(
                         state, i + 1, last_crit, Theta_prev, colsums(state))
-                if stop:
-                    break
+            xa = {}
+            if users_numeration is not None:
+                xa["users_numeration"] = users_numeration
+            if items_numeration is not None:
+                xa["items_numeration"] = items_numeration
+            self._maybe_checkpoint(state, i + 1, rng=rng, last_crit=last_crit,
+                                   extra_arrays=xa)
+            if stop:
+                break
         self.niter = i
         # serve-time metadata keeps the truncated indptr like the reference
         # (hpfrec/__init__.py:424)
@@ -689,8 +799,9 @@ class HPF:
     def _criterion_metric(self, state, colsums, use_val=True):
         """(llk, rmse, name) of one check: over the validation set when
         there is one (and ``use_val``), else the train metric on the
-        user-side ELL layout with the colsums that ``colsums()`` gives."""
-        from ..ops.metrics import ell_train_llk_rmse, val_llk_rmse
+        user-side ELL layout, or on the blocked-COO training stream, with
+        the colsums that ``colsums()`` gives."""
+        from ..ops.metrics import ell_train_llk_rmse, train_llk_rmse, val_llk_rmse
 
         Theta = state.G_shp / state.G_rte
         Beta = state.L_shp / state.L_rte
@@ -699,7 +810,11 @@ class HPF:
                                      self.full_llk)
             return llk, rmse, "val"
         theta_colsum, beta_colsum = colsums()
-        llk, rmse = ell_train_llk_rmse(Theta, Beta, self._metric_ell, self._nnz,
+        if self._metric_ell is not None:
+            llk, rmse = ell_train_llk_rmse(Theta, Beta, self._metric_ell, self._nnz,
+                                           theta_colsum, beta_colsum, self.full_llk)
+        else:
+            llk, rmse = train_llk_rmse(Theta, Beta, self._metric_coo, self._nnz,
                                        theta_colsum, beta_colsum, self.full_llk)
         return llk, rmse, "train"
 
@@ -773,6 +888,18 @@ class HPF:
             llk, rmse, _ = self._criterion_metric(state, colsums)
         self._last_llk, self._last_rmse = llk, rmse
         self.train_llk = llk
+
+    def _save_parameters(self, state):
+        """End-of-fit CSV export, the reference's file set and format
+        (``cython_loops.pxi:44-49, 408-411``)."""
+        if self.verbose:
+            print("Saving final parameters to .csv files...")
+        G_shp, G_rte, L_shp, L_rte, k_rte, t_rte = (_to_host(a) for a in state)
+        names = ["Theta", "Beta", "Gamma_shp", "Gamma_rte", "Lambda_shp",
+                 "Lambda_rte", "kappa_rte", "tau_rte"]
+        objs = [G_shp / G_rte, L_shp / L_rte, G_shp, G_rte, L_shp, L_rte, k_rte, t_rte]
+        for name, obj in zip(names, objs):
+            np.savetxt(os.path.join(self.save_folder, name), obj, fmt="%.10f", delimiter=',')
 
     def _store_metadata(self, pdata):
         """Seen-items CSR for ``topN(exclude_seen=True)`` (reference
@@ -1363,11 +1490,21 @@ class HPF:
         return True
 
     def save(self, path):
-        raise _not_ported("save", "5")
+        """Save the fitted model to the directory ``path``: ``model.npz`` and
+        ``model.json``, the files of ``hpfrec_tpu.HPF.save``."""
+        from ..utils.io import save_model
+
+        save_model(self, path)
+        return self
 
     @classmethod
-    def load(cls, path, step_size=None):
-        raise _not_ported("load", "5")
+    def load(cls, path, step_size=None, device="cuda"):
+        """Load a model saved by :meth:`save` (of this package or of
+        ``hpfrec_tpu``) onto ``device``.  ``step_size`` (a function) is not
+        serialized; pass it again if you need a non-default one."""
+        from ..utils.io import load_model
+
+        return load_model(path, step_size=step_size, device=device)
 
     # ------------------------------------------------------------------
     # printing (reference formats: hpfrec/__init__.py:1448-1458,

@@ -1,9 +1,10 @@
-"""Per-side table math of the CAVI update (K3).
+"""The CAVI table math (K3), the carried iteration both full-batch
+engines share, and the blocked-COO engine (K7c).
 
-Port of ``hpfrec_tpu/ops/cavi.py:elog_tables``/``exp_elog_tables`` and of
-the table math of ``hpfrec_tpu/ops/ell.py:cavi_step_ell_carried`` /
-``_carry_init``.  For one side (users: prior ``a``, scaler ``k_rte``;
-items: prior ``c``, scaler ``t_rte``)::
+Port of ``hpfrec_tpu/ops/cavi.py`` and of the table math of
+``hpfrec_tpu/ops/ell.py:cavi_step_ell_carried`` / ``_carry_init``.  For
+one side (users: prior ``a``, scaler ``k_rte``; items: prior ``c``,
+scaler ``t_rte``)::
 
     shp    = prior + sums
     rte    = scaler_shape / scaler_old + colsum_other
@@ -15,20 +16,30 @@ items: prior ``c``, scaler ``t_rte``)::
 ``side_update`` runs all of it; ``side_derive`` only derives ``tab`` and
 ``colsum`` from a given (shp, rte).  Both launch the hand-written kernel of
 ``csrc/table_update.cu`` for CUDA tensors and run the plain PyTorch
-version below for CPU tensors.  The SVI batches (``ops/svi.py``) derive
-both sides' tables with ``side_derive`` before every batch.
+version below for CPU tensors; with ``tab_dtype=torch.bfloat16`` (the
+``gather_dtype='bfloat16'`` option of the ELL engine) they store ``tab``
+in bfloat16 (launches counted in ``.launches_bf16``, the others in
+``.launches``).  The SVI batches (``ops/svi.py``) derive both sides' tables
+with ``side_derive`` before every batch.
 
-``BlockedCOO`` (the validation set's layout) and ``_phi_block`` (the COO
-phi, the plain form of the SVI batch phi sums) are ported; the blocked-COO
-engine itself (``phi_segment_sums``, ``cavi_step``, ``run_cavi_block``) is
-not.
+``cavi_step_carried`` is one iteration given its phi sums: the user side
+is updated first, then the item side, each producing the next iteration's
+exp table and mean colsum (the ``Carry``).  The ELL engine
+(``ops/ell.py``) gets its phi sums from K1/K2, the blocked-COO engine
+(``engine='coo'``) from **K7c** ``coo_phi_sums``
+(``csrc/svi_phi_sums.cu``): the SVI kernel's segmented reductions over
+the whole user-sorted training stream, with the item-side order built
+once per fit (``coo_stream``).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from ..models.state import VariationalState
 
 
 class BlockedCOO(NamedTuple):
@@ -80,17 +91,29 @@ def exp_elog_tables(shp, rte):
 
 
 def _side_update_plain(sums, scaler_old, colsum_other, prior, scaler_shape,
-                       add_scaler):
+                       add_scaler, tab_dtype=None):
     shp = prior + sums
     rte = scaler_shape / scaler_old + colsum_other
     mean = shp / rte
     tab = exp_elog_tables(shp, rte)
     scaler = add_scaler + mean.sum(dim=1, keepdim=True)
-    return shp, rte, tab, scaler, mean.sum(dim=0, keepdim=True)
+    return (shp, rte, tab if tab_dtype is None else tab.to(tab_dtype), scaler,
+            mean.sum(dim=0, keepdim=True))
 
 
-def _side_derive_plain(shp, rte):
-    return exp_elog_tables(shp, rte), (shp / rte).sum(dim=0, keepdim=True)
+def _side_derive_plain(shp, rte, tab_dtype=None):
+    tab = exp_elog_tables(shp, rte)
+    return (tab if tab_dtype is None else tab.to(tab_dtype),
+            (shp / rte).sum(dim=0, keepdim=True))
+
+
+def _tab_kernel(name, tab_dtype):
+    """K3's entry point for a tab of ``tab_dtype`` (None: the state dtype)."""
+    if tab_dtype is None:
+        return name
+    if tab_dtype != torch.bfloat16:
+        raise TypeError(f"{name}: tab_dtype must be None or torch.bfloat16")
+    return name + "_bf16"
 
 
 def _colsum_blocks(n: int) -> int:
@@ -107,49 +130,191 @@ def _finish_colsum(partials, nblocks, k):
 
 
 def side_update(sums, scaler_old, colsum_other, prior: float,
-                scaler_shape: float, add_scaler: float):
+                scaler_shape: float, add_scaler: float, tab_dtype=None):
     """K3 update form.  Returns ``(shp, rte, tab, scaler, colsum)`` with
-    shapes (n, k) x 3, (n, 1), (1, k)."""
+    shapes (n, k) x 3, (n, 1), (1, k); ``tab`` in ``tab_dtype`` (None: the
+    state dtype)."""
     if not sums.is_cuda:
         return _side_update_plain(sums, scaler_old, colsum_other, prior,
-                                  scaler_shape, add_scaler)
+                                  scaler_shape, add_scaler, tab_dtype)
     from .. import _cuda
 
     n, k = sums.shape
     _cuda.check(sums, scaler_old, colsum_other, dtype=sums.dtype)
     if scaler_old.shape != (n, 1) or colsum_other.shape != (1, k):
         raise ValueError("side_update: shape mismatch")
-    shp, rte, tab = (torch.empty_like(sums) for _ in range(3))
+    name = _tab_kernel("table_update", tab_dtype)
+    shp, rte = torch.empty_like(sums), torch.empty_like(sums)
+    tab = torch.empty_like(sums, dtype=tab_dtype)
     scaler = torch.empty_like(scaler_old)
     nblocks = _colsum_blocks(n)
     partials = torch.empty((nblocks, k), dtype=sums.dtype, device=sums.device)
-    _cuda.launch("table_update", sums.dtype, k, sums, scaler_old, colsum_other,
+    _cuda.launch(name, sums.dtype, k, sums, scaler_old, colsum_other,
                  float(prior), float(scaler_shape), float(add_scaler),
                  shp, rte, tab, scaler, partials, n, k, nblocks)
-    side_update.launches += 1
+    if tab_dtype is None:
+        side_update.launches += 1
+    else:
+        side_update.launches_bf16 += 1
     return shp, rte, tab, scaler, _finish_colsum(partials, nblocks, k)
 
 
-side_update.launches = 0
+side_update.launches = side_update.launches_bf16 = 0
 
 
-def side_derive(shp, rte):
-    """K3 derive-only form: ``(tab, colsum(shp / rte))``."""
+def side_derive(shp, rte, tab_dtype=None):
+    """K3 derive-only form: ``(tab, colsum(shp / rte))``, ``tab`` in
+    ``tab_dtype`` (None: the state dtype)."""
     if not shp.is_cuda:
-        return _side_derive_plain(shp, rte)
+        return _side_derive_plain(shp, rte, tab_dtype)
     from .. import _cuda
 
     n, k = shp.shape
     _cuda.check(shp, rte, dtype=shp.dtype)
     if rte.shape != (n, k):
         raise ValueError("side_derive: shape mismatch")
-    tab = torch.empty_like(shp)
+    name = _tab_kernel("table_derive", tab_dtype)
+    tab = torch.empty_like(shp, dtype=tab_dtype)
     nblocks = _colsum_blocks(n)
     partials = torch.empty((nblocks, k), dtype=shp.dtype, device=shp.device)
-    _cuda.launch("table_derive", shp.dtype, k, shp, rte, tab, partials, n, k,
-                 nblocks)
-    side_derive.launches += 1
+    _cuda.launch(name, shp.dtype, k, shp, rte, tab, partials, n, k, nblocks)
+    if tab_dtype is None:
+        side_derive.launches += 1
+    else:
+        side_derive.launches_bf16 += 1
     return tab, _finish_colsum(partials, nblocks, k)
 
 
-side_derive.launches = 0
+side_derive.launches = side_derive.launches_bf16 = 0
+
+
+# ---- the carried iteration ---------------------------------------------
+
+class Carry(NamedTuple):
+    """Loop carry of the full-batch engines: the state, both sides' exp
+    tables (in the gather dtype), and both colsums of the posterior means
+    (colsum(Theta) feeds the train-llk correction, colsum(Beta) the next
+    user-side rate)."""
+
+    state: VariationalState
+    t_tab: torch.Tensor
+    b_tab: torch.Tensor
+    theta_colsum: torch.Tensor  # (1, k)
+    beta_colsum: torch.Tensor  # (1, k)
+
+
+def _carry_init(state, gather_dtype=None) -> Carry:
+    """Derive the exp tables and mean colsums from a state (K3 derive);
+    ``gather_dtype`` (None or torch.bfloat16) is the tables' storage."""
+    t_tab, theta_colsum = side_derive(state.G_shp, state.G_rte, gather_dtype)
+    b_tab, beta_colsum = side_derive(state.L_shp, state.L_rte, gather_dtype)
+    return Carry(state, t_tab, b_tab, theta_colsum, beta_colsum)
+
+
+def cavi_step_carried(carry: Carry, su, si, hp, gather_dtype=None) -> Carry:
+    """The table math of one CAVI iteration (reference
+    ``cython_loops.pxi:227-259``) given both sides' phi sums of the
+    carried tables: the user side is updated first with the carried
+    colsum(Beta) and the old k_rte, then the item side with colsum of the
+    new Theta and the old t_rte (K3's update form, twice)."""
+    state = carry.state
+    G_shp, G_rte, t_new, k_rte, theta_colsum = side_update(
+        su, state.k_rte, carry.beta_colsum, hp.a, hp.k_shp, hp.add_k_rte, gather_dtype)
+    L_shp, L_rte, b_new, t_rte, beta_colsum = side_update(
+        si, state.t_rte, theta_colsum, hp.c, hp.t_shp, hp.add_t_rte, gather_dtype)
+    return Carry(VariationalState(G_shp, G_rte, L_shp, L_rte, k_rte, t_rte),
+                 t_new, b_new, theta_colsum, beta_colsum)
+
+
+# ---- K7c: the blocked-COO engine -----------------------------------------
+
+class CooStream(NamedTuple):
+    """A fit's training triplets on the device for the blocked-COO engine:
+    the padded blocked stream (user-sorted; K5's train metric reads it),
+    and for K7c its first ``nnz`` entries with the user run bounds and the
+    item-side order, built once per fit."""
+
+    data: BlockedCOO
+    nnz: int
+    user_bounds: torch.Tensor  # (nU + 1,) int32
+    item_order: torch.Tensor  # (nnz,) int64: stable sort of ix_i
+    item_keys: torch.Tensor  # (nnz,) int32: ix_i in that order
+
+    def flat(self):
+        """``(y, ix_u, ix_i)`` of the real triplets, (nnz,) each."""
+        return tuple(a.reshape(-1)[:self.nnz] for a in self.data)
+
+
+def coo_stream(pdata, device, block_size=None) -> CooStream:
+    """Upload processed, user-sorted triplets (``utils.data.ProcessedData``)
+    for the blocked-COO engine.  The item order is a stable counting sort
+    on the host (the CSC build of ``utils.data.build_csr`` over the triplet
+    positions), once per fit.  Counts must fit int32."""
+    from ..utils.data import build_csr
+    from .ell import _INT32_MAX, _upload
+
+    if not pdata.sorted_by_user:
+        raise ValueError("the blocked-COO engine needs user-sorted triplets")
+    nnz = int(pdata.y.shape[0])
+    if nnz > _INT32_MAX:
+        raise ValueError("too many nonzeros for int32 indexing: %d" % nnz)
+    device = torch.device(device)
+    data, _ = device_blocked_coo(pdata.y, pdata.ix_u, pdata.ix_i, device, block_size)
+    bounds = np.zeros(pdata.nusers + 1, dtype=np.int64)
+    np.cumsum(np.bincount(pdata.ix_u, minlength=pdata.nusers), out=bounds[1:])
+    indptr_i, order, _ = build_csr(pdata.ix_i, np.arange(nnz, dtype=np.int32), pdata.y,
+                                   pdata.nitems, nnz)
+    keys = np.repeat(np.arange(pdata.nitems, dtype=np.int32), np.diff(indptr_i))
+    return CooStream(data=data, nnz=nnz, user_bounds=_upload(bounds, np.int32, device),
+                     item_order=_upload(order, np.int64, device),
+                     item_keys=_upload(keys, np.int32, device))
+
+
+def coo_phi_sums(t_tab, b_tab, coo: CooStream):
+    """K7c: ``(su (nU, k), si (nI, k))``, the phi rows of every training
+    triplet summed per user and per item (JAX ``phi_segment_sums``)."""
+    y, iu, ii = coo.flat()
+    if not t_tab.is_cuda:
+        from .svi import phi_sums_tables
+
+        return phi_sums_tables(t_tab, b_tab, y, iu, ii)
+    from .. import _cuda
+    from .svi import _PHI_CHUNK
+
+    n = coo.nnz
+    n_users, k = t_tab.shape
+    n_items = b_tab.shape[0]
+    _cuda.check(t_tab, b_tab, y, dtype=t_tab.dtype)
+    _cuda.check(iu, ii, coo.user_bounds, coo.item_keys, dtype=torch.int32)
+    _cuda.check(coo.item_order, dtype=torch.int64)
+    if (b_tab.shape[1] != k or coo.user_bounds.shape != (n_users + 1,)
+            or coo.item_keys.shape != (n,) or coo.item_order.shape != (n,)):
+        raise ValueError("coo_phi_sums: shape mismatch")
+    nchunks = max(1, -(-n // _PHI_CHUNK))
+    scale = torch.empty_like(y)
+    head_u, tail_u, head_i, tail_i = (
+        torch.empty((nchunks, k), dtype=y.dtype, device=y.device) for _ in range(4))
+    su = torch.zeros_like(t_tab)
+    si = torch.empty_like(b_tab)
+    _cuda.launch("coo_phi_sums", y.dtype, k, t_tab, b_tab, y, iu, ii, coo.user_bounds,
+                 n_users, coo.item_keys, coo.item_order, scale, head_u, tail_u, head_i,
+                 tail_i, su, si, n, n_items, k)
+    coo_phi_sums.launches += 1
+    return su, si
+
+
+coo_phi_sums.launches = 0
+
+
+def run_cavi_block_coo(carry: Carry, coo: CooStream, niter: int, hp) -> Carry:
+    """``niter`` CAVI iterations of the blocked-COO engine (JAX
+    ``run_cavi_block``) as a loop of launches with no host sync: K7c over
+    the carried tables, then K3's update for users and for items.  JAX's
+    ``cavi_step`` derives both exp tables and colsum(Beta) from the state
+    at the top of every iteration; the carry holds the same values, made
+    where the previous iteration updated each side (JAX ``ell.py:776-777``:
+    the expressions are identical on identical values)."""
+    for _ in range(int(niter)):
+        su, si = coo_phi_sums(carry.t_tab, carry.b_tab, coo)
+        carry = cavi_step_carried(carry, su, si, hp)
+    return carry

@@ -17,11 +17,19 @@ The device half runs two hand-written CUDA kernels:
   to table order, split rows added in a fixed order (no atomics).
 
 Each wrapper takes its plain PyTorch version for CPU tensors, launches the
-kernel for CUDA tensors, and counts its launches in ``.launches``.  The
-TPU scheduling devices of the JAX module (op chunking, barrier chains,
-interleaving, mini-rows, bfloat16 gather tables) are not ported, and the
-fit builds untiled layouts; the kernels take each bucket's column base
-offset, so a tiled layout (``col_chunk_rows``) runs too.
+kernel for CUDA tensors, and counts its launches in ``.launches`` (K1's
+bfloat16-table form in ``.launches_bf16``).
+
+bfloat16 gather tables (``gather_dtype='bfloat16'``): K3 stores the exp
+tables in bfloat16, K1 widens each gathered row to float32 and sums in
+float32, K2 reassembles in float32, and the sums reach the state dtype
+after the reassembly (JAX ``ell.py:466-476, 519-524, 723-727``).  The
+port's ``'auto'`` keeps the state dtype (``gather_table_dtype``).
+
+The TPU scheduling devices of the JAX module (op chunking, barrier chains,
+interleaving, mini-rows) are not ported, and the fit builds untiled
+layouts; the kernels take each bucket's column base offset, so a tiled
+layout (``col_chunk_rows``) runs too.
 """
 
 from __future__ import annotations
@@ -33,8 +41,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.state import VariationalState
-from .cavi import side_derive, side_update
+from .cavi import Carry, cavi_step_carried
 
 # Quarter-octave width ladder: pow2 x {1, 7/8, 3/4, 5/8}.
 _LADDER_FRACS = (1.0, 7 / 8, 0.75, 5 / 8)
@@ -358,11 +365,19 @@ def to_device(layout: EllLayout, device) -> DeviceEll:
 
 # ---- K1: per-bucket phi sums -----------------------------------------
 
+def _acc_dtype(table_dtype):
+    """K1's accumulation dtype: float32 for bfloat16 tables (JAX
+    ``ell.py:476``), else the tables' own."""
+    return torch.float32 if table_dtype == torch.bfloat16 else table_dtype
+
+
 def _bucket_phi_sums_plain(t_self, t_other, rows, cols, vals, col_off):
-    """Plain version of K1: ``(m, k)`` phi sums of one bucket."""
-    p = t_self[rows.long()][:, None, :] * t_other[cols.long() + col_off]
+    """Plain version of K1: ``(m, k)`` phi sums of one bucket, in
+    ``_acc_dtype`` of the tables (rows widened after the gather)."""
+    acc = _acc_dtype(t_self.dtype)
+    p = t_self[rows.long()].to(acc)[:, None, :] * t_other[cols.long() + col_off].to(acc)
     denom = p.sum(-1)
-    scale = torch.where(denom > 0, vals / denom, torch.zeros_like(denom))
+    scale = torch.where(denom > 0, vals.to(acc) / denom, torch.zeros_like(denom))
     return torch.einsum("cw,cwk->ck", scale, p)
 
 
@@ -374,7 +389,9 @@ def _warps_per_segment(w: int) -> int:
 
 
 def bucket_phi_sums(t_self, t_other, rows, cols, vals, col_off, out):
-    """K1 for one bucket, written into ``out`` (m, k)."""
+    """K1 for one bucket, written into ``out`` (m, k).  Tables of the state
+    dtype, or bfloat16 tables with ``vals`` of the state dtype and a
+    float32 ``out``."""
     if not t_self.is_cuda:
         out.copy_(_bucket_phi_sums_plain(t_self, t_other, rows, cols, vals,
                                          col_off))
@@ -383,23 +400,32 @@ def bucket_phi_sums(t_self, t_other, rows, cols, vals, col_off, out):
 
     m, w = cols.shape
     k = t_self.shape[1]
-    _cuda.check(t_self, t_other, vals, out, dtype=t_self.dtype)
+    bf16 = t_self.dtype == torch.bfloat16
+    _cuda.check(t_self, t_other, dtype=t_self.dtype)
+    _cuda.check(vals, dtype=vals.dtype)
+    _cuda.check(out, dtype=_acc_dtype(t_self.dtype))
     _cuda.check(rows, cols, dtype=torch.int32)
+    if not bf16 and vals.dtype != t_self.dtype:
+        raise TypeError("bucket_phi_sums: vals and tables differ in dtype")
     if (t_other.shape[1] != k or out.shape != (m, k) or rows.shape != (m,)
             or vals.shape != (m, w)):
         raise ValueError("bucket_phi_sums: shape mismatch")
-    _cuda.launch("ell_phi_sums", t_self.dtype, k, t_self, t_other, rows, cols,
-                 vals, out, m, w, k, col_off, _warps_per_segment(w))
-    bucket_phi_sums.launches += 1
+    _cuda.launch("ell_phi_sums_bf16" if bf16 else "ell_phi_sums", vals.dtype, k, t_self,
+                 t_other, rows, cols, vals, out, m, w, k, col_off, _warps_per_segment(w))
+    if bf16:
+        bucket_phi_sums.launches_bf16 += 1
+    else:
+        bucket_phi_sums.launches += 1
     return out
 
 
-bucket_phi_sums.launches = 0
+bucket_phi_sums.launches = bucket_phi_sums.launches_bf16 = 0
 
 
 def all_bucket_sums(t_self, t_other, layout: DeviceEll):
-    """Per-segment phi sums over all buckets, in segment order: (n_segs, k)."""
-    seg = torch.empty((layout.n_segs, t_self.shape[1]), dtype=t_self.dtype,
+    """Per-segment phi sums over all buckets, in segment order: (n_segs, k),
+    in K1's accumulation dtype."""
+    seg = torch.empty((layout.n_segs, t_self.shape[1]), dtype=_acc_dtype(t_self.dtype),
                       device=t_self.device)
     for b in layout.buckets:
         m = b.rows.shape[0]
@@ -425,21 +451,29 @@ def _segment_table_sums_plain(seg, layout: DeviceEll):
     return out
 
 
-def segment_table_sums(seg, layout: DeviceEll):
+def segment_table_sums(seg, layout: DeviceEll, out_dtype=None):
     """K2: reassemble per-segment sums (n_segs, k) into table order
-    (n_rows, k)."""
+    (n_rows, k), summed in the dtype of ``seg`` and written in
+    ``out_dtype`` (None: the same; float32 sums may be written as
+    float64)."""
+    out_dtype = seg.dtype if out_dtype is None else out_dtype
     if not seg.is_cuda:
-        return _segment_table_sums_plain(seg, layout)
+        return _segment_table_sums_plain(seg, layout).to(out_dtype)
     from .. import _cuda
 
     k = seg.shape[1]
     _cuda.check(seg, dtype=seg.dtype)
     _cuda.check(layout.inv_perm, layout.split_indptr, layout.split_seg_pos,
                 dtype=torch.int32)
-    out = torch.empty((layout.n_rows, k), dtype=seg.dtype, device=seg.device)
-    _cuda.launch("segment_table_sums", seg.dtype, k, seg, layout.inv_perm,
-                 layout.split_indptr, layout.split_seg_pos, out,
-                 layout.n_rows, k, layout.split_seg_pos.shape[1])
+    out = torch.empty((layout.n_rows, k), dtype=out_dtype, device=seg.device)
+    args = (seg, layout.inv_perm, layout.split_indptr, layout.split_seg_pos, out,
+            layout.n_rows, k, layout.split_seg_pos.shape[1])
+    if out_dtype == seg.dtype:
+        _cuda.launch("segment_table_sums", seg.dtype, k, *args)
+    elif (seg.dtype, out_dtype) == (torch.float32, torch.float64):
+        _cuda.launch("segment_table_sums_f32_f64", None, k, *args)
+    else:
+        raise TypeError(f"segment_table_sums: {seg.dtype} sums to {out_dtype}")
     segment_table_sums.launches += 1
     return out
 
@@ -447,55 +481,43 @@ def segment_table_sums(seg, layout: DeviceEll):
 segment_table_sums.launches = 0
 
 
-def ell_phi_sums(t_self, t_other, layout: DeviceEll):
-    """Per-table-row phi sums, shape (n_rows, k): K1 then K2."""
-    return segment_table_sums(all_bucket_sums(t_self, t_other, layout), layout)
+def ell_phi_sums(t_self, t_other, layout: DeviceEll, out_dtype=None):
+    """Per-table-row phi sums, shape (n_rows, k): K1 then K2, written in
+    ``out_dtype`` (None: K1's accumulation dtype)."""
+    return segment_table_sums(all_bucket_sums(t_self, t_other, layout), layout, out_dtype)
+
+
+def gather_table_dtype(mode: str = "auto"):
+    """The storage dtype of the gathered exp tables (JAX
+    ``ell.py:gather_table_dtype``): ``torch.bfloat16`` for ``'bfloat16'``,
+    else None (the state dtype).  JAX's ``'auto'`` switches to bfloat16
+    once a float32 table exceeds 64 MiB, a threshold of the TPU's gather
+    window; the port's ``'auto'`` keeps the state dtype until the H100 has
+    measured the choice (``chip_smoke.py`` phase 3h)."""
+    return torch.bfloat16 if mode == "bfloat16" else None
 
 
 # ---- the CAVI loop ---------------------------------------------------
 
-class EllCarry(NamedTuple):
-    """Loop carry: the state, both sides' exp tables, and both colsums of
-    the posterior means (colsum(Theta) feeds the train-llk correction,
-    colsum(Beta) the next user-side rate)."""
-
-    state: VariationalState
-    t_tab: torch.Tensor
-    b_tab: torch.Tensor
-    theta_colsum: torch.Tensor  # (1, k)
-    beta_colsum: torch.Tensor  # (1, k)
-
-
-def _carry_init(state) -> EllCarry:
-    """Derive the exp tables and mean colsums from a state (K3 derive)."""
-    t_tab, theta_colsum = side_derive(state.G_shp, state.G_rte)
-    b_tab, beta_colsum = side_derive(state.L_shp, state.L_rte)
-    return EllCarry(state, t_tab, b_tab, theta_colsum, beta_colsum)
+def cavi_step_ell_carried(carry: Carry, ell_u: DeviceEll, ell_i: DeviceEll, hp,
+                          gather_dtype=None) -> Carry:
+    """One CAVI iteration (reference ``cython_loops.pxi:227-259``): both
+    E-step sums read the carried (old) exp tables, reach the state dtype
+    after K2, then ``cavi_step_carried`` updates the user side and the
+    item side."""
+    dt = carry.state.G_shp.dtype
+    su = ell_phi_sums(carry.t_tab, carry.b_tab, ell_u, dt)
+    si = ell_phi_sums(carry.b_tab, carry.t_tab, ell_i, dt)
+    return cavi_step_carried(carry, su, si, hp, gather_dtype)
 
 
-def cavi_step_ell_carried(carry: EllCarry, ell_u: DeviceEll, ell_i: DeviceEll,
-                          hp) -> EllCarry:
-    """One CAVI iteration (reference ``cython_loops.pxi:227-259``).  Both
-    E-step sums read the old exp tables; the user side is updated first
-    with the carried colsum(Beta) and the old k_rte, then the item side
-    with colsum of the new Theta and the old t_rte."""
-    state = carry.state
-    su = ell_phi_sums(carry.t_tab, carry.b_tab, ell_u)
-    si = ell_phi_sums(carry.b_tab, carry.t_tab, ell_i)
-    G_shp, G_rte, t_new, k_rte, theta_colsum = side_update(
-        su, state.k_rte, carry.beta_colsum, hp.a, hp.k_shp, hp.add_k_rte)
-    L_shp, L_rte, b_new, t_rte, beta_colsum = side_update(
-        si, state.t_rte, theta_colsum, hp.c, hp.t_shp, hp.add_t_rte)
-    return EllCarry(VariationalState(G_shp, G_rte, L_shp, L_rte, k_rte, t_rte),
-                    t_new, b_new, theta_colsum, beta_colsum)
-
-
-def run_cavi_block_ell(carry: EllCarry, ell_u: DeviceEll, ell_i: DeviceEll,
-                       niter: int, hp) -> EllCarry:
+def run_cavi_block_ell(carry: Carry, ell_u: DeviceEll, ell_i: DeviceEll,
+                       niter: int, hp, gather_dtype=None) -> Carry:
     """``niter`` CAVI iterations as a loop of launches with no host sync;
     returns the final carry (its ``state`` is the new state).  Unlike the
     JAX function it takes the carry, not the state: a fit derives it once
-    (``_carry_init``) and passes it from block to block."""
+    (``ops.cavi._carry_init``, with the same ``gather_dtype``) and passes it from
+    block to block."""
     for _ in range(int(niter)):
-        carry = cavi_step_ell_carried(carry, ell_u, ell_i, hp)
+        carry = cavi_step_ell_carried(carry, ell_u, ell_i, hp, gather_dtype)
     return carry

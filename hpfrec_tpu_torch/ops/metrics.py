@@ -4,7 +4,8 @@ pair and table reductions (K11).
 
 Port of ``hpfrec_tpu/ops/metrics.py``: ``ell_llk_parts`` /
 ``ell_llk_rmse_sums`` / ``ell_train_llk_rmse`` (K4), ``llk_rmse_sums`` /
-``val_llk_rmse`` (K5), and ``predict_pairs`` / ``sum_pairs_prediction`` /
+``val_llk_rmse`` / ``train_llk_rmse`` (K5; the last is the blocked-COO
+engine's train metric), and ``predict_pairs`` / ``sum_pairs_prediction`` /
 ``theta_diff_norm`` / ``rowsum_dot_rows`` (K11, ``csrc/pair_ops.cu``).
 Over the slots with ``y > 0``: ``yhat = <Theta[u], Beta[i]>``, ``ll = y
 log(yhat) [- lgamma(y+1)]``, ``se = (y - yhat)^2``, ``sp = yhat``.  The
@@ -85,8 +86,14 @@ def ell_train_llk_rmse(Theta, Beta, layout: DeviceEll, nnz: int,
     floats.  One device readback.  The correction is rounded to float32,
     as ``hpfrec_tpu.ops.metrics._colsum_dot`` returns it for either
     dtype."""
-    parts = ell_llk_rmse_sums(Theta, Beta, layout, full_llk)
-    k = Theta.shape[1]
+    return _train_llk(ell_llk_rmse_sums(Theta, Beta, layout, full_llk), nnz,
+                      theta_colsum, beta_colsum)
+
+
+def _train_llk(parts, nnz, theta_colsum, beta_colsum):
+    """(llk, rmse) from (n, 3) float64 partials on the device and the two
+    (1, k) colsums, read back together."""
+    k = theta_colsum.shape[1]
     host = torch.cat([parts.reshape(-1),
                       theta_colsum.reshape(-1).to(torch.float64),
                       beta_colsum.reshape(-1).to(torch.float64)]).cpu().numpy()
@@ -135,6 +142,16 @@ def llk_rmse_sums(Theta, Beta, data: BlockedCOO, full_llk: bool = False):
 
 
 llk_rmse_sums.launches = 0
+
+
+def train_llk_rmse(Theta, Beta, data: BlockedCOO, nnz: int, theta_colsum,
+                   beta_colsum, full_llk: bool = False):
+    """Training criterion of the blocked-COO engine (JAX
+    ``metrics.py:train_llk_rmse``): K5 over the training stream, with the
+    all-pairs correction from the colsums that K3 made for the same state,
+    as in ``ell_train_llk_rmse``.  Host floats, one device readback."""
+    return _train_llk(llk_rmse_sums(Theta, Beta, data, full_llk), nnz, theta_colsum,
+                      beta_colsum)
 
 
 def val_llk_rmse(Theta, Beta, data: BlockedCOO, nnz: int, full_llk: bool = False):

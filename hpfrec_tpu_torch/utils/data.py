@@ -6,12 +6,13 @@ A jax-free copy of ``hpfrec_tpu/utils/data.py`` (reference
 needs it, ndarray and scipy ``coo_array`` input do not, and reindexing and
 id mapping have numpy and native fallbacks.  The O(nnz) passes use the
 native helpers in ``_native`` when they built, numpy/scipy otherwise.
-``gather_batch_nonzeros`` is not copied: it serves only the JAX package's
-host-batch SVI path, which the port does not have.
+``gather_batch_nonzeros`` serves ``compat.get_unique_items_batch``;
+``hyperparams_txt`` the ``save_folder`` export.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import NamedTuple, Optional
 
@@ -292,3 +293,40 @@ def build_csr(ix_u: np.ndarray, ix_i: np.ndarray, y: np.ndarray, nusers: int,
     X = coo_array((y, (ix_u, ix_i)), shape=(nusers, nitems)).tocsr()
     return (X.indptr.astype(np.int64, copy=False),
             X.indices.astype(np.int32, copy=False), X.data)
+
+
+def gather_batch_nonzeros(indptr, indices, data, rows: np.ndarray):
+    """Concatenate the CSR slices of ``rows``: returns (y, ix_row, ix_col)
+    where ``ix_row`` repeats each row id by its degree.  This is the
+    reference's two-pass batch gather (``cython_loops.pxi:27-42, 770-797``)."""
+    from .. import _native
+
+    if _native.available():
+        return _native.gather_rows(indptr, indices, data, rows)
+    rows64 = rows.astype(np.int64, copy=False)
+    starts = indptr[rows64]
+    counts = (indptr[rows64 + 1] - starts).astype(np.int64)
+    total = int(counts.sum())
+    # vectorized ragged gather: position j within the output maps to
+    # indices[starts[r_j] + (j - out_start[r_j])]
+    out_r = np.repeat(rows.astype(np.int32, copy=False), counts)
+    ends = np.cumsum(counts)
+    gather_ix = np.repeat(starts - (ends - counts), counts) + np.arange(total, dtype=np.int64)
+    return data[gather_ix], out_r, indices[gather_ix]
+
+
+def hyperparams_txt(path: str, a, a_prime, b_prime, c, c_prime, d_prime, k, random_seed):
+    """Write hyperparameters.txt in the reference's exact format
+    (``hpfrec/__init__.py:494-506``)."""
+    with open(os.path.join(path, "hyperparameters.txt"), "w") as pf:
+        pf.write("a: %.3f\n" % a)
+        pf.write("a_prime: %.3f\n" % a_prime)
+        pf.write("b_prime: %.3f\n" % b_prime)
+        pf.write("c: %.3f\n" % c)
+        pf.write("c_prime: %.3f\n" % c_prime)
+        pf.write("d_prime: %.3f\n" % d_prime)
+        pf.write("k: %d\n" % k)
+        if random_seed is not None:
+            pf.write("random seed: %d\n" % random_seed)
+        else:
+            pf.write("random seed: None\n")

@@ -1,7 +1,8 @@
-"""Per-fit accounting: ``FitStats``, surfaced on the model as ``fit_stats_``.
+"""Per-fit accounting (``FitStats``, surfaced on the model as
+``fit_stats_``) and the fit's trace (``maybe_trace``).
 
-Port of ``hpfrec_tpu/utils/profiling.py:FitStats``.  Device work is
-asynchronous, so on a CUDA device every phase ends with
+Port of ``hpfrec_tpu/utils/profiling.py:FitStats`` and ``maybe_trace``.
+Device work is asynchronous, so on a CUDA device every phase ends with
 ``torch.cuda.synchronize()``: a phase then owns the device time of the
 work it enqueued.
 """
@@ -9,9 +10,35 @@ work it enqueued.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional
+
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def maybe_trace(profile_dir):
+    """With a ``profile_dir``, run the wrapped region under
+    ``torch.profiler.profile`` (CPU activity, and CUDA activity when a CUDA
+    device is present) and write its Chrome trace to
+    ``profile_dir/trace.json``, readable in Perfetto or chrome://tracing;
+    without one, do nothing."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, TRACE_FILE))
 
 
 @dataclass

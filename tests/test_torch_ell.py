@@ -154,6 +154,7 @@ def test_run_cavi_block_ell_matches_jax(dtype, niter, rtol, chunk):
     from hpfrec_tpu.models import state as SJ
     from hpfrec_tpu.ops import ell as J
     from hpfrec_tpu_torch.models import state as ST
+    from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as T
 
     _x64(dtype)
@@ -170,7 +171,7 @@ def test_run_cavi_block_ell_matches_jax(dtype, niter, rtol, chunk):
     ref = J.run_cavi_block_ell(SJ.initialize_state(nU, nI, hp_j, 5, dtype),
                                *lay_j, jnp.asarray(niter, jnp.int32), hp_j)
     carry = T.run_cavi_block_ell(
-        T._carry_init(ST.initialize_state(nU, nI, hp_t, 5, dtype)), *lay_t,
+        C._carry_init(ST.initialize_state(nU, nI, hp_t, 5, dtype)), *lay_t,
         niter, hp_t)
     for ours, theirs in zip(carry.state, ref):
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=rtol, atol=0)
@@ -190,6 +191,7 @@ def test_block_carry_equals_rederived(dtype):
     them afresh from its state gives, bit for bit, so a fit passes the carry
     from block to block instead of deriving it again."""
     from hpfrec_tpu_torch.models import state as ST
+    from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as T
 
     nU, nI, k = 90, 70, 6
@@ -199,8 +201,8 @@ def test_block_carry_equals_rederived(dtype):
             for r, c, n_r, n_c in ((iu, ii, nU, nI), (ii, iu, nI, nU))]
     hp = ST.Hyperparams(k=k)
     carry = T.run_cavi_block_ell(
-        T._carry_init(ST.initialize_state(nU, nI, hp, 5, dtype)), *lays, 3, hp)
-    fresh = T._carry_init(carry.state)
+        C._carry_init(ST.initialize_state(nU, nI, hp, 5, dtype)), *lays, 3, hp)
+    fresh = C._carry_init(carry.state)
     for name in ("t_tab", "b_tab", "theta_colsum", "beta_colsum"):
         np.testing.assert_array_equal(getattr(carry, name).numpy(),
                                       getattr(fresh, name).numpy())

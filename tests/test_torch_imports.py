@@ -37,6 +37,34 @@ def test_no_jax_or_hpfrec_tpu_import(path):
         assert top not in ("jaxlib", "hpfrec_tpu"), f"{path.name} imports {mod}"
 
 
+@pytest.mark.parametrize("module", ["hpfrec_tpu_torch.compat", "hpfrec_tpu_torch.utils.io"])
+def test_module_loads_neither_jax_nor_the_jax_package(module):
+    """Importing the module and calling it (a checkpoint round trip, a
+    batch gather) in a fresh interpreter loads no jax and no hpfrec_tpu
+    module."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import importlib, tempfile, numpy as np\n"
+        f"m = importlib.import_module({module!r})\n"
+        "if hasattr(m, 'save_checkpoint'):\n"
+        "    from hpfrec_tpu_torch.models.state import VariationalState\n"
+        "    d = tempfile.mkdtemp()\n"
+        "    z = np.ones((2, 2))\n"
+        "    m.save_checkpoint(d, VariationalState(z, z, z, z, z[:, :1], z[:, :1]), 3,\n"
+        "                      rng=np.random.default_rng(1))\n"
+        "    m.load_checkpoint(d)\n"
+        "else:\n"
+        "    m.get_unique_items_batch(np.array([0]), np.array([0, 2]), np.array([1, 0]), 1)\n"
+        "bad = [n for n in set(sys.modules) - before\n"
+        "       if n.split('.')[0] in ('jax', 'jaxlib', 'hpfrec_tpu')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=PKG.parent)
+
+
 def test_chip_smoke_imports_no_jax():
     path = PKG.parent / "chip_smoke.py"
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -1,7 +1,9 @@
 """Each CUDA kernel of hpfrec_tpu_torch against its plain PyTorch version
 on the card, in float32 and float64, on small layouts that cover split
 rows, tiled (column-offset) buckets and zero-degree rows, SVI batches
-whose rows span many of K7's 256-slot chunks on both sides, top-n ranking
+whose rows span many of K7's 256-slot chunks on both sides, the whole-stream
+phi sums of the blocked-COO engine (K7c), the bfloat16-table forms of K1
+and K3, top-n ranking
 (K6) with ties, fully masked rows and every size class of n, the fold-in
 loop (K10) and the pair reductions (K11).
 
@@ -345,6 +347,115 @@ def test_row_mask_kernel(cuda):
     assert torch.equal(S.build_row_mask(11, rows.to(cuda)).cpu(), S.build_row_mask(11, rows))
 
 
+# ---- K7c and the bfloat16 forms of K1 and K3 ----------------------------
+
+def _coo(nU, nI, nnz, dtype, device, seed, block_size=None):
+    """A fit's COO stream: user-sorted triplets (user 0's run first), items
+    Zipf-skewed so item 0's run spans many 256-slot chunks, blocked with a
+    padded tail when ``block_size`` does not divide nnz."""
+    from hpfrec_tpu_torch.ops.cavi import coo_stream
+    from hpfrec_tpu_torch.utils.data import process_data
+
+    y, iu, ii = _counts(nU, nI, nnz, seed)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    pdata = process_data(np.column_stack([iu, ii, y]), "maxiter", False, npdt)
+    return pdata, coo_stream(pdata, device, block_size)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [8, 50, 200])
+def test_coo_phi_sums_kernel_vs_plain(cuda, dtype, k):
+    """K7c over a whole stream with a padded tail, users without triplets
+    and an item whose run crosses many chunks; deterministic."""
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops.svi import phi_sums_tables
+
+    pdata, coo = _coo(5000, 150, 40000, dtype, cuda, seed=21, block_size=1000)
+    assert coo.data.y.numel() > coo.nnz and int(pdata.ix_u[0]) == 0
+    assert np.bincount(pdata.ix_i).max() > 10 * 256
+    t = _tables(pdata.nusers + 2, k, dtype, cuda, 1)  # two users with no triplets
+    b = _tables(pdata.nitems, k, dtype, cuda, 2)
+    coo = coo._replace(user_bounds=torch.cat([coo.user_bounds, coo.user_bounds[-1:].repeat(2)]))
+    su, si = C.coo_phi_sums(t, b, coo)
+    ref_u, ref_i = phi_sums_tables(t, b, *coo.flat())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(su, ref_u, **TOL[dtype])
+    torch.testing.assert_close(si, ref_i, **TOL[dtype])
+    assert not bool(su[-2:].any())
+    again = C.coo_phi_sums(t, b, coo)
+    assert torch.equal(again[0], su) and torch.equal(again[1], si)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,chunk,k", CASES)
+def test_ell_phi_sums_bf16_kernel_vs_plain(cuda, dtype, chunk, k):
+    """K1 on bfloat16 tables (vals in the state dtype): float32 sums; K2
+    reassembles them in float32 and writes the state dtype."""
+    from hpfrec_tpu_torch.ops import ell as E
+
+    nU, nI = 300, 120
+    y, iu, ii = _counts(nU, nI, 4000, seed=1)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    lay = _layout(y, iu, ii, nU + 3, nI, npdt, cuda, chunk)
+    t = _tables(nU + 3, k, dtype, cuda, 2).to(torch.bfloat16)
+    b = _tables(nI, k, dtype, cuda, 3).to(torch.bfloat16)
+    seg = E.all_bucket_sums(t, b, lay)
+    assert seg.dtype == torch.float32
+    ref = torch.cat([E._bucket_phi_sums_plain(t, b, bk.rows, bk.cols, bk.vals, bk.col_off)
+                     for bk in lay.buckets])
+    torch.testing.assert_close(seg, ref, **TOL[torch.float32])
+    out = E.segment_table_sums(seg, lay, dtype)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out, E._segment_table_sums_plain(seg, lay).to(dtype),
+                               **TOL[torch.float32])
+    assert torch.equal(E.segment_table_sums(E.all_bucket_sums(t, b, lay), lay, dtype), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [8, 50, 256])
+def test_table_update_bf16_kernel_vs_plain(cuda, dtype, k):
+    """K3 with a bfloat16 tab: shp, rte, scaler and colsum as in the state
+    dtype form, and tab bit-equal to the state-dtype kernel's tab rounded
+    to bfloat16 (float64 through float32, as PyTorch rounds it); against
+    the plain version within one bfloat16 step (2^-7 relative at most:
+    the two exps differ by a few ulps, which can straddle a rounding
+    boundary)."""
+    from hpfrec_tpu_torch.ops import cavi as C
+
+    n = 5000
+    sums = _tables(n, k, dtype, cuda, 4) * 30
+    scaler = _tables(n, 1, dtype, cuda, 5) + 1
+    colsum = _tables(1, k, dtype, cuda, 6) * 100
+    args = (sums, scaler, colsum, 0.3, 0.3 + k * 0.3, 0.3)
+    got = C.side_update(*args, torch.bfloat16)
+    full = C.side_update(*args)
+    ref = C._side_update_plain(*args, torch.bfloat16)
+    assert got[2].dtype == torch.bfloat16 == ref[2].dtype
+    assert torch.equal(got[2], full[2].to(torch.bfloat16))
+    torch.testing.assert_close(got[2].float(), ref[2].float(), rtol=2.0 ** -7, atol=0)
+    for i in (0, 1, 3, 4):
+        assert torch.equal(got[i], full[i])
+        torch.testing.assert_close(got[i], ref[i], **TOL[dtype])
+    tab, cs = C.side_derive(got[0], got[1], torch.bfloat16)
+    assert torch.equal(tab, got[2]) and torch.equal(cs, got[4])
+
+
+@pytest.mark.gpu
+def test_table_bf16_store_rounds_float64_through_float32(cuda):
+    """An exp-table entry just above a bfloat16 midpoint: one direct
+    float64 rounding would give 0.5 + 2^-8, the store gives 0.5."""
+    from hpfrec_tpu_torch.ops import cavi as C
+
+    above = 0.5 + 2.0 ** -9 + 2.0 ** -31
+    shp = torch.full((1, 2), 3.0, dtype=torch.float64, device=cuda)
+    rte = torch.tensor([[2.0, 2.0 / above]], dtype=torch.float64, device=cuda)
+    tab = C.side_derive(shp, rte, torch.bfloat16)[0]
+    assert tab.float().cpu().tolist() == [[1.0, 0.5]]
+    assert torch.equal(tab.cpu(), C._side_derive_plain(shp.cpu(), rte.cpu(), torch.bfloat16)[0])
+
+
 def test_launch_counters_stay_zero_on_cpu():
     """On CPU tensors every wrapper takes its plain version: no launch."""
     from hpfrec_tpu_torch.models.state import Hyperparams, VariationalState
@@ -358,8 +469,9 @@ def test_launch_counters_stay_zero_on_cpu():
                 C.side_derive, M.bucket_llk_parts, M.llk_rmse_sums,
                 S.build_epoch_buffers, S.batch_phi_sums, S.build_row_mask, S.svi_update,
                 T.topn_rows, S.user_factors_loop, M.predict_pairs, M.theta_diff_norm,
-                M.rowsum_dot_rows]
-    before = [w.launches for w in wrappers]
+                M.rowsum_dot_rows, C.coo_phi_sums]
+    counts = lambda: [(w.launches, getattr(w, "launches_bf16", 0)) for w in wrappers]  # noqa: E731
+    before = counts()
     y, iu, ii = _counts(40, 30, 300, seed=3)
     lay = _layout(y, iu, ii, 40, 30, np.float32, "cpu")
     t = _tables(40, 5, torch.float32, "cpu", 1)
@@ -367,6 +479,10 @@ def test_launch_counters_stay_zero_on_cpu():
     su = E.ell_phi_sums(t, b, lay)
     C.side_update(su, t[:, :1], b[:1], 0.3, 1.8, 0.3)
     C.side_derive(t, t + 1)
+    C.side_derive(t, t + 1, torch.bfloat16)
+    C.side_update(su, t[:, :1], b[:1], 0.3, 1.8, 0.3, torch.bfloat16)
+    E.ell_phi_sums(t.bfloat16(), b.bfloat16(), lay, torch.float64)
+    C.coo_phi_sums(t[:, :5], b, _coo(40, 30, 300, torch.float32, "cpu", seed=3)[1])
     M.ell_llk_rmse_sums(t, b, lay)
     M.llk_rmse_sums(t, b, _blocked(y, iu, ii, np.float32, "cpu"))
     batch = _batch(40, 30, torch.float32, "cpu", 5, long_row=300)
@@ -383,7 +499,7 @@ def test_launch_counters_stay_zero_on_cpu():
     M.sum_pairs_prediction(t, b, pairs, pairs)
     M.theta_diff_norm(t, t + 1)
     M.rowsum_dot_rows(t, b, pairs, pairs)
-    assert [w.launches for w in wrappers] == before
+    assert counts() == before
 
 
 # ---- K6: top-n ----------------------------------------------------------
