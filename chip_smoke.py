@@ -62,6 +62,18 @@ non-zero, with no result line):
    resumed to 10 against phase 3's fit, the wall of each checkpoint write;
    ``save`` and ``load`` of the SVI fit after phase 3f's updates, the wall
    of each, and ``topN_batch`` of 1,024 users equal after the load;
+3j. data parallel (``HPF(mesh=...)``, ranks that this script starts as
+   processes of its own, ``--dp-rank``, after the kernels are built):
+   (a) an NCCL mesh of every card (one on most machines) fits phase 3's
+   ELL and COO fits and phase 3b's SVI fit at the MillionSong shape and a
+   partial_fit, held against the one-device fits (ELL bit-equal); s/
+   iteration beside the one-device figure; K12's exchanges timed with CUDA
+   events and their bytes; (b) two ranks on the one card over gloo, named
+   (NCCL refuses two ranks on one card), fit phase 2's data set in float64
+   in full batch (both engines), SVI with val-llk and a partial_fit: the
+   ranks bit-equal to each other, ELL bit-equal to the one-rank card fit,
+   the others within stated limits; (c) with two or more cards, (a) is
+   (b) over NCCL at the MillionSong shape;
 4. agreement and determinism at a small size, full batch and alternating
    SVI with val-llk, the COO engine in full batch and SVI, the ELL engine
    with bfloat16 tables: two card fits are bit-identical, and the card
@@ -79,6 +91,7 @@ Without a CUDA device, or without the package beside it, it exits non-zero.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -925,6 +938,556 @@ def random_state(nU, nI, dtype, device, seed):
                             t(nI, K, lo=20, hi=60), t(nU, 1), t(nI, 1))
 
 
+def kernel_counters():
+    """name -> (wrapper, the attribute that counts its launches): every
+    kernel wrapper, and the data-parallel exchanges (K12), which count the
+    collectives they issue.  The bfloat16-table forms of K1 and K3 count
+    in their wrappers' .launches_bf16."""
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.ops import metrics as M
+    from hpfrec_tpu_torch.ops import svi as S
+    from hpfrec_tpu_torch.ops import topk as T
+    from hpfrec_tpu_torch.parallel import engine as P
+
+    wrappers = {"ell_phi_sums": E.bucket_phi_sums, "segment_table_sums": E.segment_table_sums,
+                "table_update": C.side_update, "table_derive": C.side_derive,
+                "ell_llk": M.bucket_llk_parts, "coo_llk": M.llk_rmse_sums,
+                "batch_phi_sums": S.batch_phi_sums, "svi_update": S.svi_update,
+                "epoch_gather": S.build_epoch_buffers, "row_mask": S.build_row_mask,
+                "topn": T.topn_rows, "fold_in": S.user_factors_loop,
+                "predict_pairs": M.predict_pairs, "theta_diff_norm": M.theta_diff_norm,
+                "rowsum_dot_rows": M.rowsum_dot_rows, "coo_phi_sums": C.coo_phi_sums,
+                "sharded_ell_phi_sums": P.sharded_ell_phi_sums,
+                "sharded_svi_phi_sums": P.sharded_svi_phi_sums,
+                "sharded_coo_phi_sums": P.sharded_coo_phi_sums,
+                "gather_partials": P.gather_partials}
+    counters = {name: (w, "launches") for name, w in wrappers.items()}
+    counters.update({"ell_phi_sums_bf16": (E.bucket_phi_sums, "launches_bf16"),
+                     "table_update_bf16": (C.side_update, "launches_bf16"),
+                     "table_derive_bf16": (C.side_derive, "launches_bf16")})
+    return counters
+
+
+def reset_counters(counters):
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
+
+
+def read_counters(counters):
+    import torch
+
+    torch.cuda.synchronize()
+    return {name: getattr(w, attr) for name, (w, attr) in counters.items()}
+
+
+def recording_hpf():
+    """``HPF`` that records the llk of every convergence check in
+    ``llk_trace``."""
+    from hpfrec_tpu_torch import HPF
+
+    class RecordingHPF(HPF):
+        def _evaluate_criterion(self, *args, **kwargs):
+            out = super()._evaluate_criterion(*args, **kwargs)
+            self.llk_trace.append(self._last_llk)
+            return out
+
+    return RecordingHPF
+
+# -- 3j. data parallel ---------------------------------------------------------
+# The fits each rank of a data-parallel mesh runs (``dp_fits``), per data set:
+# "msd", the MillionSong shape in float32 (the fits of phases 3, 3g and 3b),
+# and "small", phase 2's ~1M-nonzero set in float64; then a partial_fit of a
+# seeded user batch of the SVI model's own triplets.
+DP_FITS = {
+    "msd": [("ell", dict(k=K, stop_crit="train-llk", check_every=5, maxiter=10, random_seed=1),
+             "all"),
+            ("coo", dict(engine="coo", k=K, stop_crit="train-llk", check_every=5, maxiter=10,
+                         random_seed=1), "all"),
+            ("svi", dict(k=K, stop_crit="val-llk", check_every=2, maxiter=6, random_seed=1,
+                         **SVI_BATCHES), "train")],
+    "small": [("ell", dict(k=K, stop_crit="train-llk", check_every=5, maxiter=10, random_seed=1,
+                           use_float=False), "all"),
+              ("coo", dict(engine="coo", k=K, stop_crit="train-llk", check_every=5, maxiter=10,
+                           random_seed=1, use_float=False), "all"),
+              ("svi", dict(k=K, stop_crit="val-llk", check_every=2, maxiter=6, random_seed=1,
+                           use_float=False, **SMALL_BATCHES), "train")],
+}
+DP_PARTIAL_FIT_USERS = {"msd": 100_000, "small": 2_600}
+# the kernels and exchanges each data-parallel fit must launch
+DP_REQUIRED = {
+    "ell": ("sharded_ell_phi_sums", "ell_phi_sums", "segment_table_sums", "table_update",
+            "gather_partials", "ell_llk"),
+    "coo": ("sharded_coo_phi_sums", "coo_phi_sums", "table_update", "gather_partials",
+            "coo_llk"),
+    "svi": ("sharded_svi_phi_sums", "batch_phi_sums", "svi_update", "epoch_gather",
+            "table_derive", "gather_partials", "coo_llk"),
+    "partial_fit": ("sharded_svi_phi_sums", "batch_phi_sums", "svi_update", "table_derive"),
+}
+# a data-parallel fit against the one-device fit on the same card.  On one
+# rank every exchange hands back its input, so every fit (ELL, COO, SVI,
+# partial_fit) must be bit-equal, llk included.  On more: ELL's exchange
+# copies segment sums, so its factors stay bit-equal and its llk is within
+# DP_ELL_LLK relative (K4's partials are cut at other places); COO, SVI and
+# partial_fit add the other side's rows over the ranks in another order.
+# Their float64 limits ("small", two ranks over gloo on one card) give the
+# gaps measured on the CPU (tests/test_torch_parallel.py, <= 1.8e-14) and on
+# the card (<= 3.3e-14) over 300x room; the float32 ones ("msd", two or more
+# cards: never run on a one-card machine) are phase 4's card-vs-CPU limits
+# AGREE (full batch) and AGREE_SVI, which hold the same fits with every sum
+# in another order
+DP_LIMITS = {"float64": dict(llk=1e-11, factors=1e-11)}
+DP_ELL_LLK = 1e-12
+DP_TIMEOUT_S = 900
+# NVLink between two H100s of one host, each way (NVIDIA data sheet)
+PEAK_LINK = 450e9
+REPLACES.update({
+    "sharded_ell_phi_sums": ("hpfrec_tpu_torch/parallel/engine.py",
+                             "hpfrec_tpu/parallel/engine.py:65"),
+    "sharded_svi_phi_sums": ("hpfrec_tpu_torch/parallel/engine.py",
+                             "hpfrec_tpu/parallel/engine.py:120"),
+    "sharded_coo_phi_sums": ("hpfrec_tpu_torch/parallel/engine.py",
+                             "hpfrec_tpu/parallel/engine.py:143"),
+    "gather_partials": ("hpfrec_tpu_torch/parallel/engine.py",
+                        "hpfrec_tpu/parallel/engine.py:166"),
+})
+
+
+def dp_fit_names(task):
+    return [name for name, _, _ in DP_FITS[task]] + ["partial_fit"]
+
+
+def array_digests(m):
+    """sha256 of each fitted state array of a model (bit-equality across
+    processes without moving the arrays)."""
+    import hashlib
+
+    return {n: hashlib.sha256(np.ascontiguousarray(getattr(m, n)).tobytes()).hexdigest()
+            for n in STATE_NAMES}
+
+
+def fit_summary(m, launches, **extra):
+    st = m.fit_stats_
+    return dict(llk=[float(x) for x in m.llk_trace], niter=int(m.niter),
+                phases={k: float(v) for k, v in st.phases.items()}, wall=float(st.wall_seconds),
+                digests=array_digests(m), launches=launches, **extra)
+
+
+def save_triplets(path, coo):
+    os.makedirs(path, exist_ok=True)
+    for name, a in (("row", coo.row), ("col", coo.col), ("data", coo.data)):
+        np.save(os.path.join(path, name + ".npy"), a)
+    with open(os.path.join(path, "shape.json"), "w") as f:
+        json.dump(list(coo.shape), f)
+
+
+def load_triplets(path):
+    from scipy.sparse import coo_array
+
+    with open(os.path.join(path, "shape.json")) as f:
+        shape = tuple(json.load(f))
+    row, col, data = (np.load(os.path.join(path, n + ".npy")) for n in ("row", "col", "data"))
+    return coo_array((data, (row, col)), shape=shape)
+
+
+def dp_fits(task, data, mesh, device, counters, save=None):
+    """The task's fits (``DP_FITS``) on ``mesh`` (None: one device), then a
+    ``partial_fit`` of a user batch on the SVI model.  Returns ({fit name:
+    fit_summary}, {fit name: model}); ``save(name, model)``, if given, is
+    called after each fit."""
+    RecordingHPF = recording_hpf()
+    out, models = {}, {}
+    for name, kw, which in DP_FITS[task]:
+        m = RecordingHPF(device=device, mesh=mesh, verbose=False, **kw)
+        m.llk_trace = []
+        reset_counters(counters)
+        if which == "train":
+            m.fit(data["train"], val_set=data["val"])
+        else:
+            m.fit(data["all"])
+        out[name] = fit_summary(m, read_counters(counters))
+        models[name] = m
+        if save is not None:
+            save(name, m)
+    train = data["train"]
+    pick = np.zeros(train.shape[0], dtype=bool)
+    pick[np.random.default_rng(12).choice(train.shape[0], DP_PARTIAL_FIT_USERS[task],
+                                          replace=False)] = True
+    sel = pick[train.row]
+    m = models["svi"]
+    reset_counters(counters)
+    _, wall = walled(lambda: m.partial_fit(np.column_stack([train.row[sel], train.col[sel],
+                                                            train.data[sel]])))
+    out["partial_fit"] = fit_summary(m, read_counters(counters), wall_ms=wall)
+    if save is not None:
+        save("partial_fit", m)
+    return out, models
+
+
+def exchange_bound(nbytes_, world, kind):
+    """Least time (ms) of an exchange of ``nbytes_`` (the gathered or
+    reduced buffers), from the bytes it must move: on one rank an
+    out-of-place all_gather reads its input and writes its output once at
+    the HBM rate, and an in-place all_reduce moves nothing; on more, the
+    bytes each rank sends over NVLink (an all_gather (n-1)/n of them, a ring
+    all_reduce 2(n-1)/n)."""
+    if world == 1:
+        return 2 * nbytes_ / PEAK_BYTES * 1e3 if kind == "all_gather" else 0.0
+    share_ = (world - 1) / world * (1 if kind == "all_gather" else 2)
+    return share_ * nbytes_ / PEAK_LINK * 1e3
+
+
+def dp_exchange_suite(mesh, data, model, reps):
+    """K12's four functions at the shapes of the "msd" fits, on the ELL
+    fit's state: each against the one-device computation of the same sums
+    (max abs error; raises beyond its limit: none on one rank, where the
+    exchange hands back its input, and for K12a's copied segment sums; on
+    more ranks TOL's float32 rtol of the largest sum for the sums added over
+    the ranks, DP_ELL_LLK for the llk), its exchange timed with CUDA events
+    (``ms``) beside a device copy of the same bytes (``plain_ms``), and the
+    whole sharded function against the one-device function (``fn_ms``,
+    ``one_device_ms``); raises if an exchange reads under its bound.  Every
+    rank runs the same collectives in the same order."""
+    import torch
+
+    from hpfrec_tpu_torch.models.state import state_from_numpy
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.ops import metrics as M
+    from hpfrec_tpu_torch.ops import svi as S
+    from hpfrec_tpu_torch.parallel import engine as P
+    from hpfrec_tpu_torch.utils.data import build_csr, process_data, share
+
+    dev, n = mesh.device, mesh.world_size
+    shard = (mesh.rank, n)
+    state = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
+                              model.Lambda_rte, model.k_rte, model.t_rte], dev)
+    t_tab, b_tab = C.side_derive(state.G_shp, state.G_rte)[0], C.side_derive(state.L_shp,
+                                                                            state.L_rte)[0]
+    Theta, Beta = state.G_shp / state.G_rte, state.L_shp / state.L_rte
+    pdata = process_data(data["all"], "train-llk", False, np.float32, sort_by_user=True)
+    out = {}
+
+    def case(name, exchange, plain, fn, one, nbytes_, kind, err, limit):
+        if err > (0.0 if n == 1 else limit):
+            raise AssertionError(f"3j {name} on {n} rank(s): max abs error {err:.3e} against "
+                                 f"the one-device function (limit "
+                                 f"{0.0 if n == 1 else limit:.3e})")
+        ms, plain_ms = cuda_ms(exchange, reps), cuda_ms(plain, reps)
+        bound_ms = exchange_bound(nbytes_, n, kind)
+        if ms < bound_ms:
+            raise AssertionError(f"3j {name}: exchange {ms:.4f} ms under its bound "
+                                 f"{bound_ms:.4f} ms")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, fn_ms=cuda_ms(fn, reps),
+                         one_device_ms=cuda_ms(one, reps), bytes=int(nbytes_), ops=0,
+                         bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                         max_abs_err=float(err), max_rel_err=None)
+
+    def max_err(got, ref):
+        return max(float((g.double() - r.double()).abs().max()) for g, r in zip(got, ref))
+
+    def summed_limit(ref):  # sums added over the ranks in another order
+        return TOL["float32"]["rtol"] * max(float(r.double().abs().max()) for r in ref)
+
+    # K12a, per iteration (both sides), and K12d, per train-llk check
+    sh = [E.to_device(h, dev, shard) for h in E.build_layouts(pdata, np.float32, n)]
+    full = sh if n == 1 else [E.to_device(h, dev) for h in E.build_layouts(pdata, np.float32)]
+    sides = ((t_tab, b_tab, 0), (b_tab, t_tab, 1))
+    local = [E.all_bucket_sums(a, b, sh[j]) for a, b, j in sides]
+    gathered = [P.all_gather_rows(mesh, x) for x in local]
+    bufs = [torch.empty_like(g) for g in gathered]
+    case("sharded_ell_phi_sums",
+         lambda: [P.all_gather_rows(mesh, x) for x in local],
+         lambda: [b.copy_(g) for b, g in zip(bufs, gathered)],
+         lambda: [P.sharded_ell_phi_sums(mesh, a, b, sh[j]) for a, b, j in sides],
+         lambda: [E.ell_phi_sums(a, b, full[j]) for a, b, j in sides],
+         nbytes(*gathered), "all_gather",
+         max_err([P.sharded_ell_phi_sums(mesh, a, b, sh[j]) for a, b, j in sides],
+                 [E.ell_phi_sums(a, b, full[j]) for a, b, j in sides]), 0.0)
+    parts = M.ell_llk_rmse_sums(Theta, Beta, sh[0])
+    part_buf = torch.empty_like(parts)
+    got = float(P.gather_partials(mesh, parts)[:, 0].sum())
+    ref = float(M.ell_llk_rmse_sums(Theta, Beta, full[0])[:, 0].sum())
+    case("gather_partials", lambda: P.gather_partials(mesh, parts),
+         lambda: part_buf.copy_(parts),
+         lambda: P.gather_partials(mesh, M.ell_llk_rmse_sums(Theta, Beta, sh[0])).cpu(),
+         lambda: M.ell_llk_rmse_sums(Theta, Beta, full[0]).cpu(),
+         n * nbytes(parts), "all_gather", abs(got - ref), DP_ELL_LLK * abs(ref))
+    out["sharded_ell_phi_sums"]["segments_per_rank"] = [lay.n_segs for lay in sh]
+    del sh, full, local, gathered, bufs
+
+    # K12c, per iteration
+    part = C.coo_stream(pdata, dev, None, shard)
+    whole = part if n == 1 else C.coo_stream(pdata, dev)
+    su, si = P.sharded_coo_phi_sums(mesh, t_tab, b_tab, part)
+    a, b = su.clone(), si.clone()
+    ref = C.coo_phi_sums(t_tab, b_tab, whole)
+    case("sharded_coo_phi_sums", lambda: P.all_reduce_sum(mesh, a, b),
+         lambda: (a.copy_(su), b.copy_(si)),
+         lambda: P.sharded_coo_phi_sums(mesh, t_tab, b_tab, part),
+         lambda: C.coo_phi_sums(t_tab, b_tab, whole), nbytes(su, si), "all_reduce",
+         max_err((su, si), ref), summed_limit(ref))
+    out["sharded_coo_phi_sums"]["triplets_per_rank"] = part.nnz
+    del part, whole, su, si, a, b
+
+    # K12b, per batch: the first user batch of a seeded epoch of the SVI fit's
+    # training set (SVI_BATCHES)
+    spdata = process_data(data["train"], "val-llk", False, np.float32)
+    side = S.epoch_side(*build_csr(spdata.ix_u, spdata.ix_i, spdata.y, spdata.nusers,
+                                   spdata.nitems), np.float32, dev)
+    perm = np.random.default_rng(7).permutation(side.n_rows)
+    off_h = S.epoch_offsets(side.deg, perm)
+    perm_d, off_d = (torch.from_numpy(x.astype(np.int32)).to(dev) for x in (perm, off_h))
+    e_y, e_row, e_col = S.build_epoch_buffers(side.y, side.cols, side.indptr, perm_d, off_d)
+    r1 = SVI_BATCHES["users_per_batch"]
+    s0, s1 = int(off_h[0]), int(off_h[r1])
+    whole = (t_tab, b_tab, e_y[s0:s1], e_row[s0:s1], e_col[s0:s1], off_d[:r1 + 1], s0,
+             perm_d[:r1])
+    q0, q1 = share(off_h[:r1 + 1], n, mesh.rank)  # the rank's rows, as ops.svi cuts them
+    a0, a1 = int(off_h[q0]), int(off_h[q1])
+    mine = (t_tab, b_tab, e_y[a0:a1], e_row[a0:a1], e_col[a0:a1], off_d[q0:q1 + 1], a0,
+            perm_d[q0:q1])
+    got = P.sharded_svi_phi_sums(mesh, *mine)
+    ref = S.batch_phi_sums(*whole)
+    if not torch.equal(got[2], ref[2]):
+        raise AssertionError("3j sharded_svi_phi_sums: the touched-row mask differs from "
+                             "the one-device mask")
+    copies = [g.clone() for g in got]
+    case("sharded_svi_phi_sums", lambda: P.reduce_batch_sums(mesh, *copies),
+         lambda: [c.copy_(g) for c, g in zip(copies, got)],
+         lambda: P.sharded_svi_phi_sums(mesh, *mine),
+         lambda: S.batch_phi_sums(*whole), nbytes(*got), "all_reduce",
+         max_err(got[:2], ref[:2]), summed_limit(ref[:2]))
+    out["sharded_svi_phi_sums"]["batch_triplets"] = s1 - s0
+    return out
+
+
+def dp_rank_main(cfg_path):
+    """One rank of a data-parallel mesh that ``spawn_ranks`` started: the
+    task's fits on the mesh (``dp_fits``), a check that each fit launched
+    its kernels and exchanges, the exchange suite where asked; writes
+    ``rank<r>.json`` (and, on rank 0, the factors of the fits that are
+    compared by value) to the run's directory."""
+    import torch
+    import torch.distributed as dist
+
+    from hpfrec_tpu_torch.parallel import distributed
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    warnings.filterwarnings("ignore", message="When using 'partial_fit'")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = distributed.initialize(cfg["init"], num_processes=cfg["world"],
+                                  process_id=cfg["rank"], initialization_timeout=300,
+                                  backend=cfg["backend"], device=cfg["device"])
+    if (mesh.world_size, mesh.rank, mesh.backend) != (cfg["world"], cfg["rank"], cfg["backend"]):
+        raise AssertionError(f"mesh {mesh} is not the one asked for: {cfg}")
+    data = {"all": load_triplets(os.path.join(cfg["data"], "all"))}
+    if os.path.isdir(os.path.join(cfg["data"], "train")):
+        data.update(train=load_triplets(os.path.join(cfg["data"], "train")),
+                    val=load_triplets(os.path.join(cfg["data"], "val")))
+    else:
+        data["train"], data["val"] = holdout(data["all"], 0.01, seed=5)
+
+    def save(name, m):
+        if cfg["rank"] == 0 and name in cfg["save"]:
+            for attr in ("Theta", "Beta"):
+                np.save(os.path.join(cfg["out"], "%s_%s.npy" % (name, attr)), getattr(m, attr))
+
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    results, models = dp_fits(cfg["task"], data, mesh, mesh.device, counters, save)
+    results["fits_s"] = time.perf_counter() - t0
+    for name, kernels in DP_REQUIRED.items():
+        missing = [k for k in kernels if results[name]["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"rank {mesh.rank}, {name} fit: never launched {missing}")
+    if cfg["suite"]:
+        results["exchanges"] = dp_exchange_suite(mesh, data, models["ell"], reps=5)
+    results["device"] = torch.cuda.get_device_name(mesh.device)
+    with open(os.path.join(cfg["out"], "rank%d.json" % cfg["rank"]), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(task, world, backend, devices, data_dir, save=(), suite=False):
+    """Run ``world`` ranks of a data-parallel mesh (this script with
+    ``--dp-rank``), each on its device of ``devices``, rendezvous through a
+    file.  Waits for every rank within ``DP_TIMEOUT_S``; a rank that fails
+    ends the others and fails the run.  Returns (the ranks' results, the
+    run's directory, its wall seconds)."""
+    run = tempfile.mkdtemp(prefix="hpf_dp_")
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            cfg = dict(task=task, world=world, rank=r, backend=backend, device=devices[r],
+                       init="file://" + os.path.join(run, "rendezvous"), data=data_dir,
+                       out=run, save=list(save), suite=suite)
+            path = os.path.join(run, "rank%d.cfg.json" % r)
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            log = open(os.path.join(run, "rank%d.log" % r), "w")
+            procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                            "--dp-rank", path], stdout=log,
+                                           stderr=subprocess.STDOUT), log))
+        while any(p.poll() is None for p, _ in procs):
+            if any(p.poll() not in (None, 0) for p, _ in procs):
+                break
+            if time.perf_counter() - t0 > DP_TIMEOUT_S:
+                raise AssertionError(f"{task} mesh: ranks still running after {DP_TIMEOUT_S} s")
+            time.sleep(0.5)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if failed:  # report a rank that failed on its own before one this script ended
+        r = min(failed, key=lambda r: procs[r][0].returncode < 0)
+        with open(os.path.join(run, "rank%d.log" % r)) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"{task} mesh, rank {r} of {world} exited "
+                             f"{procs[r][0].returncode}:\n{tail}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(run, "rank%d.json" % r)) as f:
+            results.append(json.load(f))
+    return results, run, time.perf_counter() - t0
+
+
+def check_ranks_equal(task, results):
+    """Every rank of a mesh holds the same fitted arrays, bit for bit."""
+    for r, res in enumerate(results[1:], 1):
+        for fit in dp_fit_names(task):
+            if res[fit]["digests"] != results[0][fit]["digests"]:
+                raise AssertionError(f"{task} mesh: rank {r}'s {fit} arrays differ from rank 0's")
+            if res[fit]["llk"] != results[0][fit]["llk"]:
+                raise AssertionError(f"{task} mesh: rank {r}'s {fit} llk differs from rank 0's")
+
+
+def check_against_one_device(tag, name, res, ref, run, dtype_name, world):
+    """A mesh fit (rank 0's ``res``) against the one-device fit ``ref``
+    (llk, niter, digests, Theta, Beta); raises beyond the limits
+    (``DP_LIMITS``).  Returns the printed figures."""
+    llk, ref_llk = np.array(res["llk"]), np.array(ref["llk"])
+    if res["niter"] != ref["niter"] or llk.shape != ref_llk.shape:
+        raise AssertionError(f"{tag} {name}: {res['niter']} iterations against {ref['niter']}")
+    dev_llk = float(np.abs(llk / ref_llk - 1).max()) if llk.size else 0.0
+    bit_equal = res["digests"] == ref["digests"]
+    if world == 1:
+        if not bit_equal or dev_llk != 0.0:
+            raise AssertionError(f"{tag} {name} fit on one rank: not bit-equal to the "
+                                 f"one-device fit (state bit-equal {bit_equal}, llk max rel "
+                                 f"{dev_llk:.3e})")
+        return "state and llk bit-equal (one rank: required)"
+    if name == "ell":
+        if not bit_equal:
+            raise AssertionError(f"{tag} ELL fit: factors not bit-equal to the one-device fit")
+        if dev_llk > DP_ELL_LLK:
+            raise AssertionError(f"{tag} ELL fit: llk {dev_llk:.3e} off the one-device fit's")
+        return "factors bit-equal, llk max rel %.3e (limit %g)" % (dev_llk, DP_ELL_LLK)
+    lim = (DP_LIMITS[dtype_name] if dtype_name in DP_LIMITS
+           else (AGREE if name == "coo" else AGREE_SVI)[dtype_name])
+    dev_f = max(float(np.abs(np.load(os.path.join(run, "%s_%s.npy" % (name, a))) / ref[a] - 1)
+                      .max()) for a in ("Theta", "Beta"))
+    if dev_llk > lim["llk"] or dev_f > lim["factors"]:
+        raise AssertionError(f"{tag} {name} fit: llk {dev_llk:.3e}, factors {dev_f:.3e} off "
+                             f"the one-device fit")
+    return ("%s; llk max rel %.3e (limit %g), Theta/Beta max rel %.3e (limit %g)"
+            % ("state bit-equal" if bit_equal else "state not bit-equal", dev_llk, lim["llk"],
+               dev_f, lim["factors"]))
+
+
+def fit_reference(m, s_per_it):
+    """What a data-parallel fit is held against: a one-device fit's llk
+    trace, iterations, digests, factors and seconds per iteration."""
+    return dict(llk=list(m.llk_trace), niter=int(m.niter), digests=array_digests(m),
+                Theta=np.array(m.Theta), Beta=np.array(m.Beta), s_per_it=s_per_it)
+
+
+def dp_s_per_it(res):
+    """Seconds per iteration (full batch) or per epoch (SVI) of a fit."""
+    iters = res["niter"] + 1
+    loop = res["phases"].get("iterations", res["phases"].get("user_epochs", 0.0)
+                             + res["phases"].get("item_epochs", 0.0))
+    return loop / iters
+
+
+def phase_3j(data_root, refs, small, counters, real):
+    """Phase 3j: (a) the MillionSong fits (``data_root/msd``) on an NCCL mesh
+    of every card, held against the one-device fits of phases 3, 3g and 3b
+    (``refs``), with K12's exchange suite, whose figures go into ``real``;
+    (b) phase 2's data set (``small``) on two ranks of one card over gloo,
+    held against one-rank card fits made here; (c) (b) over NCCL, which (a)
+    covers when there are two or more cards.  Returns the launch counts of
+    (a)'s and (b)'s rank 0."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    results, run, wall = spawn_ranks("msd", n_cards, "nccl",
+                                     ["cuda:%d" % r for r in range(n_cards)],
+                                     os.path.join(data_root, "msd"), save=("coo", "svi"),
+                                     suite=True)
+    check_ranks_equal("msd", results)
+    r0 = results[0]
+    print("[3j] (a) NCCL mesh of %d rank(s), one per card (%s), MillionSong shape, float32: "
+          "the ranks ran %.1f s (their fits %.1f s); the ranks hold bit-equal arrays"
+          % (n_cards, r0["device"], wall, r0["fits_s"]))
+    for name, unit in (("ell", "s/iteration"), ("coo", "s/iteration"), ("svi", "s/epoch")):
+        ref = refs[name]
+        verdict = check_against_one_device("3j", name, r0[name], ref, run, "float32", n_cards)
+        print("[3j] %s fit on the mesh: %.4f %s (one device, phase %s: %.4f), wall %.3f s; "
+              "llk at checks %s; against the one-device fit: %s"
+              % (name, dp_s_per_it(r0[name]), unit, {"ell": "3", "coo": "3g", "svi": "3b"}[name],
+                 ref["s_per_it"], r0[name]["wall"], r0[name]["llk"], verdict))
+    print("[3j] partial_fit of a %d-user batch on the mesh's SVI model: wall %.3f ms"
+          % (DP_PARTIAL_FIT_USERS["msd"], r0["partial_fit"]["wall_ms"]))
+    for name, ex in r0["exchanges"].items():
+        print("[3j] %-21s exchange %.4f ms (a device copy of its bytes %.4f ms; bound %.4f ms), "
+              "%d bytes; the whole sharded function %.4f ms against %.4f ms on one device; "
+              "max abs error against one device %.3e%s"
+              % (name, ex["ms"], ex["plain_ms"], ex["bound_ms"], ex["bytes"], ex["fn_ms"],
+                 ex["one_device_ms"], ex["max_abs_err"],
+                 "".join("; %s %s" % (k, v) for k, v in ex.items()
+                         if k in ("segments_per_rank", "triplets_per_rank", "batch_triplets"))))
+        real[name] = ex
+    launches_dp = {k: sum(r0[f]["launches"][k] for f in dp_fit_names("msd"))
+                   for k in counters}
+    print("[3j] launch counters, the mesh's fits (rank 0):", json.dumps(launches_dp))
+    shutil.rmtree(run)
+    torch.cuda.empty_cache()
+
+    small_dir = os.path.join(data_root, "small")
+    for part, c in small.items():
+        save_triplets(os.path.join(small_dir, part), c)
+    small_refs = {}
+    dp_fits("small", small, None, "cuda", counters,
+            save=lambda name, m: small_refs.__setitem__(name, fit_reference(m, None)))
+    results, run, wall = spawn_ranks("small", 2, "gloo", ["cuda:0", "cuda:0"], small_dir,
+                                     save=("coo", "svi", "partial_fit"))
+    check_ranks_equal("small", results)
+    print("[3j] (b) two ranks on one card over gloo (named), phase 2's data set (%d "
+          "triplets), float64: the ranks ran %.1f s; the ranks hold bit-equal arrays"
+          % (small["all"].nnz, wall))
+    for name in dp_fit_names("small"):
+        verdict = check_against_one_device("3j (b)", name, results[0][name], small_refs[name],
+                                           run, "float64", 2)
+        print("[3j] (b) %s against the one-rank card fit: %s" % (name, verdict))
+    launches_dp_gloo = {k: sum(results[0][f]["launches"][k]
+                               for f in dp_fit_names("small"))
+                        for k in counters}
+    shutil.rmtree(run)
+    if n_cards >= 2:
+        print("[3j] (c) NCCL over %d cards: (a) ran the MillionSong fits and the partial_fit "
+              "on every card, ranks bit-equal" % n_cards)
+    else:
+        print("[3j] (c) NCCL over two or more cards: skipped, this machine has one card")
+    return launches_dp, launches_dp_gloo
+
+
 def main():
     import torch
 
@@ -935,10 +1498,7 @@ def main():
     from hpfrec_tpu_torch import HPF, _cuda, _native
     from hpfrec_tpu_torch.models.state import state_from_numpy
     from hpfrec_tpu_torch.ops import cavi as C
-    from hpfrec_tpu_torch.ops import ell as E
-    from hpfrec_tpu_torch.ops import metrics as M
     from hpfrec_tpu_torch.ops import svi as S
-    from hpfrec_tpu_torch.ops import topk as T
     from hpfrec_tpu_torch.utils import evaluation as EV
     from hpfrec_tpu_torch.utils.data import process_data
 
@@ -946,33 +1506,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    wrappers = {"ell_phi_sums": E.bucket_phi_sums, "segment_table_sums": E.segment_table_sums,
-                "table_update": C.side_update, "table_derive": C.side_derive,
-                "ell_llk": M.bucket_llk_parts, "coo_llk": M.llk_rmse_sums,
-                "batch_phi_sums": S.batch_phi_sums, "svi_update": S.svi_update,
-                "epoch_gather": S.build_epoch_buffers, "row_mask": S.build_row_mask,
-                "topn": T.topn_rows, "fold_in": S.user_factors_loop,
-                "predict_pairs": M.predict_pairs, "theta_diff_norm": M.theta_diff_norm,
-                "rowsum_dot_rows": M.rowsum_dot_rows, "coo_phi_sums": C.coo_phi_sums}
-    # name -> (wrapper, its counter): the bfloat16-table forms of K1 and K3
-    # count in their wrappers' .launches_bf16
-    counters = {name: (w, "launches") for name, w in wrappers.items()}
-    counters.update({"ell_phi_sums_bf16": (E.bucket_phi_sums, "launches_bf16"),
-                     "table_update_bf16": (C.side_update, "launches_bf16"),
-                     "table_derive_bf16": (C.side_derive, "launches_bf16")})
+    counters = kernel_counters()
+    reset_counts = lambda: reset_counters(counters)  # noqa: E731
+    read_counts = lambda: read_counters(counters)  # noqa: E731
 
     t_start = time.perf_counter()
 
     def stamp(phase):
         print("[time] %s starts %.1f s into the run" % (phase, time.perf_counter() - t_start))
-
-    def reset_counts():
-        for w, attr in counters.values():
-            setattr(w, attr, 0)
-
-    def read_counts():
-        torch.cuda.synchronize()
-        return {name: getattr(w, attr) for name, (w, attr) in counters.items()}
 
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1031,11 +1572,7 @@ def main():
     print("[3] data: %d x %d, %d nonzeros, generated in %.1f s"
           % (*coo.shape, coo.nnz, time.perf_counter() - t0))
 
-    class RecordingHPF(HPF):
-        def _evaluate_criterion(self, *args, **kwargs):
-            out = super()._evaluate_criterion(*args, **kwargs)
-            self.llk_trace.append(self._last_llk)
-            return out
+    RecordingHPF = recording_hpf()
 
     model = RecordingHPF(k=K, stop_crit="train-llk", check_every=5, maxiter=10,
                          random_seed=1, device="cuda")
@@ -1071,6 +1608,7 @@ def main():
     ell_fit = dict(llk=list(model.llk_trace), niter=model.niter,
                    s_per_it=st.phases["iterations"] / iters,
                    arrays={n: getattr(model, n) for n in STATE_NAMES})
+    ell_ref = fit_reference(model, ell_fit["s_per_it"])
 
     lay_u, lay_i, _, slots = layouts_for(coo, np.float32, dev)
     fitted = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
@@ -1113,6 +1651,7 @@ def main():
              st.nnz * epochs / (st.phases["user_epochs"] + st.phases["item_epochs"]),
              st.nnz_per_second))
     print("[3b] val llk at checks:", model.llk_trace)
+    svi_ref = fit_reference(model, (st.phases["user_epochs"] + st.phases["item_epochs"]) / epochs)
     print("[3b] eval_llk(val):", ev)
     print("[3b] train-llk SVI fit (2 epochs): train llk at checks", check.llk_trace,
           "phases (s):", json.dumps({k: round(v, 3) for k, v in check.fit_stats_.phases.items()}))
@@ -1383,6 +1922,7 @@ def main():
     coo_fit.fit(coo)
     launches_coo = read_counts()
     fit_line("3g", coo_fit, ell_fit["s_per_it"])
+    coo_ref = fit_reference(coo_fit, coo_fit.fit_stats_.phases["iterations"] / (coo_fit.niter + 1))
     against_ell("3g", coo_fit, "COO fit", COO_VS_ELL_LLK)
     print("[3g] launch counters:", json.dumps(launches_coo))
     if min(launches_coo[n] for n in ("coo_phi_sums", "coo_llk", "table_update")) <= 0:
@@ -1480,7 +2020,19 @@ def main():
         if not same or loaded.nusers != model.nusers:
             raise AssertionError("the loaded model serves other top-n lists")
         del loaded
-    del model, train, val, coo
+    data_root = tempfile.mkdtemp(prefix="hpf_dp_data_")
+    try:
+        save_triplets(os.path.join(data_root, "msd", "all"), coo)
+        del model, train, val, coo
+        torch.cuda.empty_cache()
+
+        # -- 3j. data parallel ----------------------------------------------------
+        stamp("phase 3j")
+        launches_dp, launches_dp_gloo = phase_3j(
+            data_root, dict(ell=ell_ref, coo=coo_ref, svi=svi_ref),
+            {"all": coo_small, "train": train_small, "val": val_small}, counters, real)
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # -- 4. agreement and determinism at a small size -----------------------
@@ -1543,7 +2095,7 @@ def main():
              "svi_train": launches_train, "svi_diffnorm": launches_dn,
              "svi_maxiter_val": launches_mv, "serving": launches_serving,
              "online": launches_online, "coo": launches_coo, "bf16": launches_bf16,
-             "resume": launches_resume}
+             "resume": launches_resume, "dp": launches_dp, "dp_gloo": launches_dp_gloo}
     for name, r in real.items():
         src, rep = REPLACES[name]
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -1561,4 +2113,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
+        sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -1,5 +1,6 @@
 """The ``HPF`` model class on PyTorch: full-batch CAVI, mini-batch SVI,
-batch serving, online updates and persistence on one device.
+batch serving, online updates and persistence, on one device or in data
+parallel over ``torch.distributed``.
 
 Port of ``hpfrec_tpu/models/hpf.py`` (itself API-compatible with the
 reference ``hpfrec/__init__.py:11-1459``): the constructor with all of the
@@ -19,13 +20,20 @@ between calls.  The device work runs the hand-written CUDA kernels of
 ``hpfrec_tpu_torch/csrc`` on a CUDA device, and their plain PyTorch
 versions on the CPU.
 
-One keyword-only argument is new: ``device`` (default ``"cuda"``), where
-the JAX class has ``mesh``.  With ``device="cuda"`` and no CUDA, ``fit``
-raises; nothing falls back to the CPU.
+One keyword-only argument is new: ``device`` (default ``"cuda"``).  With
+``device="cuda"`` and no CUDA, ``fit`` raises; nothing falls back to the
+CPU.
 
-Multi-device execution (``mesh``, ``shard_tables``) is not ported yet and
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.  Fixed
-(seed, dtype, device) gives bit-identical runs: no kernel uses atomics.
+``mesh`` (a ``parallel.Mesh``, one process per device) fits in data
+parallel: every rank runs the same script on the same data, takes its
+share of the nonzeros through the kernels, and meets the other ranks in
+a collective (``parallel/engine.py``, K12); every rank ends with the same
+fitted attributes.  ``mesh=None`` is one device, where JAX's means all
+local devices.  The table-sharded engine (``shard_tables=True`` on a
+full-batch ELL fit over more than one rank) is not ported yet and raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.  Fixed (seed,
+dtype, device, mesh size) gives bit-identical runs: no kernel uses
+atomics.
 """
 
 from __future__ import annotations
@@ -86,10 +94,18 @@ class HPF:
     device : str or torch.device, keyword-only, default ``"cuda"``
         Where the iterations run.  ``"cuda"`` launches the port's CUDA
         kernels and raises in ``fit`` when CUDA is absent; ``"cpu"`` runs
-        the kernels' plain PyTorch versions.
+        the kernels' plain PyTorch versions.  With a ``mesh`` the model
+        runs on ``mesh.device`` instead.
+    mesh : hpfrec_tpu_torch.parallel.Mesh or None
+        This process's rank of a data-parallel group
+        (``parallel.distributed.initialize`` or ``parallel.make_mesh``).
+        None: one device (JAX's None is all local devices).  Every rank
+        calls ``fit`` / ``partial_fit`` with the same data; checkpoints,
+        ``save_folder`` and ``profile_dir`` are written by rank 0.
 
-    Not ported yet (raise ``NotImplementedError``): ``shard_tables`` and
-    ``mesh``.  ``gather_dtype`` ``'auto'`` and ``'float32'`` both mean the
+    Not ported yet (raises ``NotImplementedError``): ``shard_tables=True``
+    on a full-batch ELL fit over more than one rank.  ``gather_dtype``
+    ``'auto'`` and ``'float32'`` both mean the
     state dtype (JAX's ``'auto'`` picks bfloat16 above a TPU threshold);
     ``'bfloat16'`` stores the ELL engine's exp tables in bfloat16.
     ``save_folder`` writes ``users.csv`` / ``items.csv`` without pandas;
@@ -223,9 +239,13 @@ class HPF:
             assert isinstance(checkpoint_every, int) and checkpoint_every > 0
         assert gather_dtype in ("auto", "float32", "bfloat16")
 
-        # options of hpfrec_tpu.HPF that this package does not run yet
-        if shard_tables or mesh is not None:
-            raise _not_ported("Multi-device execution (mesh/shard_tables)", "10-11")
+        from ..parallel.mesh import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                "'mesh' must be a hpfrec_tpu_torch.parallel.Mesh (from "
+                "parallel.distributed.initialize or parallel.make_mesh), not %s"
+                % type(mesh).__name__)
 
         self.k = k
         self.a = a
@@ -299,7 +319,7 @@ class HPF:
                            k=self.k)
 
     def _torch_device(self) -> torch.device:
-        dev = torch.device(self.device)
+        dev = self.mesh.device if self.mesh is not None else torch.device(self.device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -459,6 +479,17 @@ class HPF:
         one written by this package or by ``hpfrec_tpu``."""
         if self.stop_crit == 'val-llk' and val_set is None:
             raise ValueError("If 'stop_crit' is set to 'val-llk', must provide a validation set.")
+        svi_mode = (self.users_per_batch != 0) or (self.items_per_batch != 0)
+        if self.shard_tables and svi_mode:
+            warnings.warn(
+                "shard_tables=True is ignored in mini-batch SVI mode "
+                "(users_per_batch/items_per_batch): only the full-batch ELL "
+                "engine has a table-sharded variant; SVI shards each batch's "
+                "phi sums over the mesh instead.")
+        elif self.shard_tables and self.engine == "ell" and self._n_ranks > 1:
+            # JAX hpf.py:925 takes its table-sharded engine here
+            raise _not_ported("The table-sharded engine (shard_tables=True on a "
+                              "full-batch ELL fit over more than one rank)", "11")
         dev = self._torch_device()
 
         from .. import _native
@@ -487,16 +518,7 @@ class HPF:
             self._print_data_info()
 
         if self.save_folder is not None:
-            from ..utils.io import series_csv
-
-            if self.reindex:
-                if self.verbose:
-                    print("\nSaving user and item mappings...\n")
-                series_csv(os.path.join(self.save_folder, 'users.csv'), self.user_mapping_)
-                series_csv(os.path.join(self.save_folder, 'items.csv'), self.item_mapping_)
-            data_utils.hyperparams_txt(
-                self.save_folder, self.a, self.a_prime, self.b_prime,
-                self.c, self.c_prime, self.d_prime, self.k, self.random_seed)
+            self._on_rank0(self._save_mappings)
 
         val_arrays = None
         if (val_set is not None) and (self.stop_crit not in ("diff-norm", "train-llk")):
@@ -508,7 +530,6 @@ class HPF:
             if val_arrays is None and self.stop_crit == 'val-llk':
                 self.stop_crit = 'train-llk'
 
-        svi_mode = (self.users_per_batch != 0) or (self.items_per_batch != 0)
         if self.engine == "ell" and self.block_size is not None and val_arrays is None:
             warnings.warn(
                 "block_size has no effect on this fit: it sizes blocked-COO "
@@ -521,11 +542,12 @@ class HPF:
         hp = self._hp()
         if self.verbose:
             print("Initializing parameters...")
+        self._fit_seed = self._agreed_seed(self.random_seed)
         self._resume_meta = None
         if resume:
             state = self._resume_state()
         else:
-            state = initialize_state(self.nusers, self.nitems, hp, self.random_seed,
+            state = initialize_state(self.nusers, self.nitems, hp, self._fit_seed,
                                      self._dtype)
         nnz = int(pdata.y.shape[0])
         stats.nnz = nnz
@@ -540,11 +562,13 @@ class HPF:
         if self.verbose:
             print("Initializing optimization procedure...")
         st_time = time.time()
-        with maybe_trace(self.profile_dir):
+        with maybe_trace(self.profile_dir if self._shard[0] == 0 else None):
             if svi_mode:
                 state, colsums = self._run_svi(state, pdata, hp, dev, stats)
             else:
                 state, colsums = self._run_full_batch(state, pdata, hp, dev, stats)
+        if self.profile_dir and self.mesh is not None:
+            self._on_rank0(lambda: None)  # the trace is on disk when fit returns
         end_tm = (time.time() - st_time) / 60.0
         with stats.phase("metric_checks"):
             self._final_eval(state, colsums)
@@ -555,7 +579,7 @@ class HPF:
 
         self._state_to_host(state)
         if self.save_folder is not None:
-            self._save_parameters(state)
+            self._on_rank0(lambda: self._save_parameters(state))
         if self.keep_data and (not svi_mode or not hasattr(self, "seen")):
             self._store_metadata(pdata)
         if self.produce_dicts and self.reindex:
@@ -564,13 +588,81 @@ class HPF:
         self.is_fitted = True
         return self
 
+    def _save_mappings(self):
+        from ..utils.io import series_csv
+
+        if self.reindex:
+            if self.verbose:
+                print("\nSaving user and item mappings...\n")
+            series_csv(os.path.join(self.save_folder, 'users.csv'), self.user_mapping_)
+            series_csv(os.path.join(self.save_folder, 'items.csv'), self.item_mapping_)
+        data_utils.hyperparams_txt(
+            self.save_folder, self.a, self.a_prime, self.b_prime,
+            self.c, self.c_prime, self.d_prime, self.k, self.random_seed)
+
+    # -- data parallel ---------------------------------------------------
+    @property
+    def _n_ranks(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world_size
+
+    @property
+    def _shard(self):
+        """This rank's (rank, n_ranks), for the shard forms of the uploads."""
+        return (0, 1) if self.mesh is None else (self.mesh.rank, self.mesh.world_size)
+
+    def _exchanges(self):
+        """Where a fit takes its phi sums and llk partials from: the
+        one-device kernels, or with a mesh K12's sharded forms over it
+        (``parallel/engine.py``), which the loops of ``ops/`` call in their
+        place.  ``ell``, ``coo`` and ``svi`` take the arguments of
+        ``ell_phi_sums``, ``coo_phi_sums`` and ``batch_phi_sums``;
+        ``partials`` maps the rank's llk partials to every rank's."""
+        if self.mesh is None:
+            from ..ops.cavi import coo_phi_sums
+            from ..ops.ell import ell_phi_sums
+            from ..ops.svi import batch_phi_sums
+
+            return types.SimpleNamespace(ell=ell_phi_sums, coo=coo_phi_sums,
+                                         svi=batch_phi_sums, partials=lambda parts: parts)
+        from functools import partial
+
+        from ..parallel import engine as P
+
+        return types.SimpleNamespace(
+            ell=partial(P.sharded_ell_phi_sums, self.mesh),
+            coo=partial(P.sharded_coo_phi_sums, self.mesh),
+            svi=partial(P.sharded_svi_phi_sums, self.mesh),
+            partials=partial(P.gather_partials, self.mesh))
+
+    def _agreed_seed(self, seed):
+        """``seed``, or with a mesh a seed every rank shares (rank 0's draw
+        when ``seed`` is not a positive int)."""
+        if self.mesh is None:
+            return seed
+        from ..parallel.engine import agreed_seed
+
+        return agreed_seed(self.mesh, seed)
+
+    def _on_rank0(self, write):
+        """Run ``write`` (a file write) once: on rank 0 of the mesh, and then
+        every rank waits for it; without a mesh, here."""
+        if self.mesh is None:
+            write()
+            return
+        from ..parallel.engine import barrier
+
+        if self.mesh.rank == 0:
+            write()
+        barrier(self.mesh)
+
     def _device_valset(self, val_arrays, dev):
-        """The validation triplets as a blocked COO stream on the device,
-        with the unblocked ids kept on the host for the final eval."""
+        """The validation triplets as a blocked COO stream on the device
+        (with a mesh: the rank's share of the blocks), with the unblocked
+        ids kept on the host for the final eval."""
         from ..ops.cavi import device_blocked_coo
 
         vy, vu, vi = val_arrays
-        data, nnz = device_blocked_coo(vy, vu, vi, dev, self.block_size)
+        data, nnz = device_blocked_coo(vy, vu, vi, dev, self.block_size, self._shard)
         return types.SimpleNamespace(data=data, nnz=nnz, iu=vu, ii=vi)
 
     def _resume_state(self) -> VariationalState:
@@ -605,8 +697,9 @@ class HPF:
             if last_crit is not None:
                 extra["last_crit"] = float(last_crit)
             with self.fit_stats_.phase("checkpoints"):
-                io_utils.save_checkpoint(self.checkpoint_folder, state, iters_done,
-                                         rng=rng, extra=extra, extra_arrays=extra_arrays)
+                self._on_rank0(lambda: io_utils.save_checkpoint(
+                    self.checkpoint_folder, state, iters_done, rng=rng, extra=extra,
+                    extra_arrays=extra_arrays))
 
     def _load_kernels(self, dev, stats):
         with stats.phase("kernel_build"):
@@ -618,8 +711,9 @@ class HPF:
     def _run_full_batch(self, state, pdata, hp, dev, stats):
         """Full-batch CAVI on the ELL engine (K1-K3; bfloat16 exp tables
         with ``gather_dtype='bfloat16'``) or the blocked-COO engine (K7c,
-        K3).  Returns the final state and a function giving its mean
-        colsums (for the train metric)."""
+        K3); with a mesh, on the rank's share of the layouts or of the
+        stream (K12a, K12c).  Returns the final state and a function giving
+        its mean colsums (for the train metric)."""
         from ..ops.cavi import _carry_init, coo_stream, run_cavi_block_coo
         from ..ops.ell import (build_layouts, gather_table_dtype, run_cavi_block_ell,
                                to_device)
@@ -628,17 +722,17 @@ class HPF:
         gd = None
         if self.engine == "coo":
             with stats.phase("host_pack"):
-                coo = coo_stream(pdata, dev, self.block_size)
+                coo = coo_stream(pdata, dev, self.block_size, self._shard)
             self._metric_coo = coo.data
             self._load_kernels(dev, stats)
         else:
             gd = gather_table_dtype(self.gather_dtype)
             with stats.phase("host_pack"):
-                ell_u, ell_i = build_layouts(pdata, self._dtype)
+                ell_u, ell_i = build_layouts(pdata, self._dtype, self._n_ranks)
             self._load_kernels(dev, stats)
             with stats.phase("transfer"):
-                lay_u = to_device(ell_u, dev)
-                lay_i = to_device(ell_i, dev)
+                lay_u = to_device(ell_u, dev, self._shard)
+                lay_i = to_device(ell_i, dev, self._shard)
             self._metric_ell = lay_u
         with stats.phase("transfer"):
             state = VariationalState(*[a.to(dev) for a in state])
@@ -655,15 +749,16 @@ class HPF:
             iters_done = int(meta["niter"])
             last_crit = meta.get("last_crit")
         chunk = self.check_every if self.check_every > 0 else self.maxiter
+        ex = self._exchanges()
         with stats.phase("iterations"):
             carry = _carry_init(state, gd)
         while iters_done < self.maxiter:
             n = min(chunk, self.maxiter - iters_done)
             with stats.phase("iterations"):
                 if coo is not None:
-                    carry = run_cavi_block_coo(carry, coo, n, hp)
+                    carry = run_cavi_block_coo(carry, coo, n, hp, ex.coo)
                 else:
-                    carry = run_cavi_block_ell(carry, lay_u, lay_i, n, hp, gd)
+                    carry = run_cavi_block_ell(carry, lay_u, lay_i, n, hp, gd, ex.ell)
             iters_done += n
             stop = False
             if self.check_every > 0 and n == self.check_every:
@@ -705,8 +800,8 @@ class HPF:
                 indptr_i, indices_i, data_i = data_utils.build_csr(
                     pdata.ix_i, pdata.ix_u, pdata.y, self.nitems, self.nusers)
 
-        rng = np.random.default_rng(
-            seed=self.random_seed if (self.random_seed is not None and self.random_seed > 0) else None)
+        seed = self._fit_seed
+        rng = np.random.default_rng(seed=seed if (seed is not None and seed > 0) else None)
         users_numeration = np.arange(self.nusers, dtype=np.int64) if use_users else None
         items_numeration = np.arange(self.nitems, dtype=np.int64) if use_items else None
 
@@ -724,14 +819,15 @@ class HPF:
 
             with stats.phase("host_pack"):
                 self._metric_coo = device_blocked_coo(pdata.y, pdata.ix_u, pdata.ix_i, dev,
-                                                      self.block_size)[0]
+                                                      self.block_size, self._shard)[0]
         elif need_metric:
             with stats.phase("host_pack"):
-                ell_m = build_ell(indptr_u, indices_u, data_u, self.nusers, dtype=dt)
+                ell_m = build_ell(indptr_u, indices_u, data_u, self.nusers, dtype=dt,
+                                  pad_shards=self._n_ranks)
         self._load_kernels(dev, stats)
         with stats.phase("transfer"):
             if ell_m is not None:
-                self._metric_ell = to_device(ell_m, dev)
+                self._metric_ell = to_device(ell_m, dev, self._shard)
             side_u = epoch_side(indptr_u, indices_u, data_u, dt, dev) if use_users else None
             side_i = epoch_side(indptr_i, indices_i, data_i, dt, dev) if use_items else None
             state = VariationalState(*[a.to(dev) for a in state])
@@ -745,6 +841,7 @@ class HPF:
         self._last_check_it = None
         last_crit = None
         Theta_prev = state.G_shp / state.G_rte if self.stop_crit == 'diff-norm' else None
+        svi_sums = self._exchanges().svi
         i = 0
         start_epoch = 0
         if self._resume_meta is not None:
@@ -770,12 +867,14 @@ class HPF:
                 with stats.phase("user_epochs"):
                     rng.shuffle(users_numeration)
                     state = svi_run_epoch(state, side_u, users_numeration,
-                                          self.users_per_batch, step, hp, True)
+                                          self.users_per_batch, step, hp, True,
+                                          phi_sums=svi_sums, shard=self._shard)
             else:
                 with stats.phase("item_epochs"):
                     rng.shuffle(items_numeration)
                     state = svi_run_epoch(state, side_i, items_numeration,
-                                          self.items_per_batch, step, hp, False)
+                                          self.items_per_batch, step, hp, False,
+                                          phi_sums=svi_sums, shard=self._shard)
             stop = False
             if self.check_every > 0 and ((i + 1) % self.check_every) == 0:
                 with stats.phase("metric_checks"):
@@ -805,17 +904,18 @@ class HPF:
 
         Theta = state.G_shp / state.G_rte
         Beta = state.L_shp / state.L_rte
+        gather = self._exchanges().partials
         if use_val and self._val is not None:
             llk, rmse = val_llk_rmse(Theta, Beta, self._val.data, self._val.nnz,
-                                     self.full_llk)
+                                     self.full_llk, gather)
             return llk, rmse, "val"
         theta_colsum, beta_colsum = colsums()
         if self._metric_ell is not None:
             llk, rmse = ell_train_llk_rmse(Theta, Beta, self._metric_ell, self._nnz,
-                                           theta_colsum, beta_colsum, self.full_llk)
+                                           theta_colsum, beta_colsum, self.full_llk, gather)
         else:
             llk, rmse = train_llk_rmse(Theta, Beta, self._metric_coo, self._nnz,
-                                       theta_colsum, beta_colsum, self.full_llk)
+                                       theta_colsum, beta_colsum, self.full_llk, gather)
         return llk, rmse, "train"
 
     def _evaluate_criterion(self, state, it, last_crit, Theta_prev, colsums):
@@ -878,7 +978,8 @@ class HPF:
         if self._val is not None:
             Theta = state.G_shp / state.G_rte
             Beta = state.L_shp / state.L_rte
-            parts = llk_rmse_sums(Theta, Beta, self._val.data, self.full_llk).cpu().numpy()
+            parts = self._exchanges().partials(
+                llk_rmse_sums(Theta, Beta, self._val.data, self.full_llk)).cpu().numpy()
             dev = Theta.device
             corr = rowsum_dot_rows(Theta, Beta, torch.from_numpy(self._val.iu).to(dev),
                                    torch.from_numpy(self._val.ii).to(dev))
@@ -1153,7 +1254,9 @@ class HPF:
         verbatim.  On the device: K3 derive, K7 phi sums over every row the
         batch touches, the declared rows' masks, K8 blend
         (``ops.svi.svi_batch_update``); the state stays cached on the
-        device for the next call."""
+        device for the next call.  With a ``mesh``, every rank calls it with
+        the same batch, and K7 runs on the rank's share of its rows
+        (K12b)."""
         from ..ops.ell import _upload
         from ..ops.svi import build_row_mask, svi_batch_update
 
@@ -1227,11 +1330,13 @@ class HPF:
 
         hp = self._hp()
         if (self.Theta is None) or (self.Beta is None):
-            state = initialize_state(self.nusers, self.nitems, hp,
-                                     self.random_seed if self.random_seed is not None else 0,
-                                     dt)
+            state = initialize_state(
+                self.nusers, self.nitems, hp,
+                self._agreed_seed(self.random_seed if self.random_seed is not None else 0), dt)
             self._state_to_host(state)
 
+        if new_users or new_items:
+            random_seed = self._agreed_seed(random_seed)
         if new_users:
             nusers_now = int(ix_u_batch.max()) + 1
             nusers_add = self.nusers - nusers_now
@@ -1288,7 +1393,8 @@ class HPF:
             state, Y_batch, ix_u_batch, ix_i_batch,
             row_mask(self.nusers, users_in_batch), row_mask(self.nitems, items_in_batch),
             float(dt(step_size)), float(dt(multiplier_batch)), hp,
-            user_side=user_batch, blend_all_scalers=True)
+            user_side=user_batch, blend_all_scalers=True, phi_sums=self._exchanges().svi,
+            shard=self._shard)
         self._state_to_host(state)
 
         self.niter = (self.niter or 0) + 1
@@ -1491,10 +1597,11 @@ class HPF:
 
     def save(self, path):
         """Save the fitted model to the directory ``path``: ``model.npz`` and
-        ``model.json``, the files of ``hpfrec_tpu.HPF.save``."""
+        ``model.json``, the files of ``hpfrec_tpu.HPF.save``.  With a mesh,
+        rank 0 writes them and every rank waits for it."""
         from ..utils.io import save_model
 
-        save_model(self, path)
+        self._on_rank0(lambda: save_model(self, path))
         return self
 
     @classmethod

@@ -50,13 +50,18 @@ class BlockedCOO(NamedTuple):
     ix_i: torch.Tensor  # int32
 
 
-def device_blocked_coo(y, ix_u, ix_i, device, block_size=None):
+def device_blocked_coo(y, ix_u, ix_i, device, block_size=None, shard=(0, 1)):
     """Host triplets as a ``BlockedCOO`` on ``device`` (``block_coo``'s
-    padding), and the number of real triplets."""
+    padding), and the number of real triplets.  ``shard=(rank,
+    n_shards)`` uploads only the rank's equal share of the blocks
+    (``block_coo`` pads their count to a multiple of ``n_shards``); the
+    count is still that of all the triplets."""
     from ..utils.data import block_coo
 
-    blk = block_coo(y, ix_u, ix_i, block_size=block_size)
-    return BlockedCOO(*(torch.from_numpy(a).to(device)
+    rank, n_shards = shard
+    blk = block_coo(y, ix_u, ix_i, block_size=block_size, n_shards=n_shards)
+    per = blk.y.shape[0] // n_shards
+    return BlockedCOO(*(torch.from_numpy(a[rank * per:(rank + 1) * per]).to(device)
                         for a in (blk.y, blk.ix_u, blk.ix_i))), blk.nnz
 
 
@@ -245,25 +250,33 @@ class CooStream(NamedTuple):
         return tuple(a.reshape(-1)[:self.nnz] for a in self.data)
 
 
-def coo_stream(pdata, device, block_size=None) -> CooStream:
+def coo_stream(pdata, device, block_size=None, shard=(0, 1)) -> CooStream:
     """Upload processed, user-sorted triplets (``utils.data.ProcessedData``)
     for the blocked-COO engine.  The item order is a stable counting sort
     on the host (the CSC build of ``utils.data.build_csr`` over the triplet
-    positions), once per fit.  Counts must fit int32."""
-    from ..utils.data import build_csr
+    positions), once per fit.  Counts must fit int32.
+
+    ``shard=(rank, n_shards)`` uploads the rank's share of the stream: the
+    stream is cut at user boundaries into near-equal shares
+    (``utils.data.share``), and the share gets its own user bounds
+    (empty for the other users) and item order."""
+    from ..utils.data import build_csr, share
     from .ell import _INT32_MAX, _upload
 
     if not pdata.sorted_by_user:
         raise ValueError("the blocked-COO engine needs user-sorted triplets")
-    nnz = int(pdata.y.shape[0])
-    if nnz > _INT32_MAX:
-        raise ValueError("too many nonzeros for int32 indexing: %d" % nnz)
+    if int(pdata.y.shape[0]) > _INT32_MAX:
+        raise ValueError("too many nonzeros for int32 indexing: %d" % int(pdata.y.shape[0]))
     device = torch.device(device)
-    data, _ = device_blocked_coo(pdata.y, pdata.ix_u, pdata.ix_i, device, block_size)
     bounds = np.zeros(pdata.nusers + 1, dtype=np.int64)
     np.cumsum(np.bincount(pdata.ix_u, minlength=pdata.nusers), out=bounds[1:])
-    indptr_i, order, _ = build_csr(pdata.ix_i, np.arange(nnz, dtype=np.int32), pdata.y,
-                                   pdata.nitems, nnz)
+    u0, u1 = share(bounds, shard[1], shard[0])
+    lo, hi = int(bounds[u0]), int(bounds[u1])
+    y, ix_u, ix_i = pdata.y[lo:hi], pdata.ix_u[lo:hi], pdata.ix_i[lo:hi]
+    nnz = hi - lo
+    bounds = np.clip(bounds - lo, 0, nnz)
+    data, _ = device_blocked_coo(y, ix_u, ix_i, device, block_size)
+    indptr_i, order, _ = build_csr(ix_i, np.arange(nnz, dtype=np.int32), y, pdata.nitems, nnz)
     keys = np.repeat(np.arange(pdata.nitems, dtype=np.int32), np.diff(indptr_i))
     return CooStream(data=data, nnz=nnz, user_bounds=_upload(bounds, np.int32, device),
                      item_order=_upload(order, np.int64, device),
@@ -306,15 +319,18 @@ def coo_phi_sums(t_tab, b_tab, coo: CooStream):
 coo_phi_sums.launches = 0
 
 
-def run_cavi_block_coo(carry: Carry, coo: CooStream, niter: int, hp) -> Carry:
+def run_cavi_block_coo(carry: Carry, coo: CooStream, niter: int, hp,
+                       phi_sums=coo_phi_sums) -> Carry:
     """``niter`` CAVI iterations of the blocked-COO engine (JAX
     ``run_cavi_block``) as a loop of launches with no host sync: K7c over
     the carried tables, then K3's update for users and for items.  JAX's
     ``cavi_step`` derives both exp tables and colsum(Beta) from the state
     at the top of every iteration; the carry holds the same values, made
     where the previous iteration updated each side (JAX ``ell.py:776-777``:
-    the expressions are identical on identical values)."""
+    the expressions are identical on identical values).  ``phi_sums`` is
+    K7c of the whole stream, or in a data-parallel fit K12c over the
+    rank's share ``coo`` (``parallel.engine.sharded_coo_phi_sums``)."""
     for _ in range(int(niter)):
-        su, si = coo_phi_sums(carry.t_tab, carry.b_tab, coo)
+        su, si = phi_sums(carry.t_tab, carry.b_tab, coo)
         carry = cavi_step_carried(carry, su, si, hp)
     return carry

@@ -139,15 +139,18 @@ def _sort_rows(indptr, indices, data, row_of, n_cols, nnz):
 
 def build_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
               n_rows: int, max_width: int = 8192, dtype=np.float32,
-              col_chunk_rows: Optional[int] = None,
+              pad_shards: int = 1, col_chunk_rows: Optional[int] = None,
               n_cols: Optional[int] = None) -> EllLayout:
     """Pack a CSR side into degree buckets (host, O(nnz)); the same layout
     as ``hpfrec_tpu.ops.ell.build_ell`` for the same arguments (and its
-    defaults ``min_width=8``, ``pad_shards=1``: the port runs on one
-    device, so buckets carry no shard padding).  ``col_chunk_rows``
-    (with ``n_cols``) enables column tiling: each row's sorted cols are
-    partitioned at chunk boundaries into per-(row, chunk) segments whose
-    cols are stored chunk-local, and each bucket carries its span."""
+    default ``min_width=8``).  ``pad_shards`` pads every bucket's segment
+    count to a multiple of the number of ranks with inert segments (row 0,
+    zero vals), so that each rank takes an equal slice of every bucket
+    (``to_device(..., shard=...)``); segment positions count the padding.
+    ``col_chunk_rows`` (with ``n_cols``) enables column tiling: each row's
+    sorted cols are partitioned at chunk boundaries into per-(row, chunk)
+    segments whose cols are stored chunk-local, and each bucket carries its
+    span."""
     deg = np.diff(indptr).astype(np.int64)
     nnz = int(indices.shape[0])
 
@@ -227,18 +230,20 @@ def build_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
             span = None
             off = 0
         m = len(sel)
-        cols = np.zeros((m, w), dtype=np.int32)
-        vals = np.zeros((m, w), dtype=dtype)
-        rows_arr = seg_row[sel].astype(np.int32)
-        _ragged_fill(seg_start[sel], seg_len[sel], indices, data, cols, vals,
+        m_pad = -(-m // pad_shards) * pad_shards
+        cols = np.zeros((m_pad, w), dtype=np.int32)
+        vals = np.zeros((m_pad, w), dtype=dtype)
+        rows_arr = np.zeros(m_pad, dtype=np.int32)
+        rows_arr[:m] = seg_row[sel]
+        _ragged_fill(seg_start[sel], seg_len[sel], indices, data, cols[:m], vals[:m],
                      dtype)
         if off:
             # store chunk-local ids; padding slots (cols 0) stay in-bounds
-            np.subtract(cols, np.int32(off), out=cols, where=vals != 0)
+            np.subtract(cols[:m], np.int32(off), out=cols[:m], where=vals[:m] != 0)
         buckets.append(EllBucket(rows=rows_arr, cols=cols, vals=vals))
         spans.append(span)
         seg_positions[sel] = pos + np.arange(m, dtype=np.int64)
-        pos += m
+        pos += m_pad
 
     inv_perm = seg_positions[first_seg[:-1]]
 
@@ -270,18 +275,18 @@ def build_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
                      col_spans=tuple(spans) if tiled else None)
 
 
-def build_layouts(pdata, dtype) -> Tuple[EllLayout, EllLayout]:
+def build_layouts(pdata, dtype, pad_shards: int = 1) -> Tuple[EllLayout, EllLayout]:
     """User- and item-side untiled layouts of processed triplets
     (``utils.data.ProcessedData``): CSR then ELL packing per side, the two
     sides built concurrently (their heavy parts are native calls that
-    release the GIL)."""
+    release the GIL); ``pad_shards`` as in ``build_ell``."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ..utils.data import build_csr
 
     def side(rows, cols, n_rows, n_cols):
         indptr, ind, dat = build_csr(rows, cols, pdata.y, n_rows, n_cols)
-        return build_ell(indptr, ind, dat, n_rows, dtype=dtype)
+        return build_ell(indptr, ind, dat, n_rows, dtype=dtype, pad_shards=pad_shards)
 
     with ThreadPoolExecutor(max_workers=1) as ex:
         item = ex.submit(side, pdata.ix_i, pdata.ix_u, pdata.nitems, pdata.nusers)
@@ -311,14 +316,20 @@ class DeviceBucket(NamedTuple):
 class DeviceEll:
     """A layout on a device.  Index arrays are int32; ``split_indptr`` is a
     per-row CSR over the chunks of ``split_seg_pos`` (chunks of one row are
-    contiguous), so that K2 adds each row's split chunks with no atomics."""
+    contiguous), so that K2 adds each row's split chunks with no atomics.
+
+    A rank's shard of a layout (``to_device(..., shard=(rank, n_shards))``)
+    holds its slice of every bucket: K1 writes ``n_segs`` local segment
+    sums, and K2's positions index the ``n_shards * n_segs`` sums that the
+    exchange gathers from all ranks, rank after rank."""
 
     buckets: List[DeviceBucket]
     inv_perm: torch.Tensor  # (n_rows,) int32
     split_seg_pos: torch.Tensor  # (n_split, P) int32, -1 = none
     split_indptr: torch.Tensor  # (n_rows + 1,) int32
     n_rows: int
-    n_segs: int  # segments over all buckets
+    n_segs: int  # segments over all buckets (of this rank's slices)
+    n_shards: int = 1
 
 
 _INT32_MAX = 2 ** 31 - 1
@@ -331,36 +342,66 @@ def _upload(a: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def to_device(layout: EllLayout, device) -> DeviceEll:
+def _gathered_positions(ms, n_shards: int) -> np.ndarray:
+    """Where each segment of the layout (buckets of ``ms`` segments, each a
+    multiple of ``n_shards``) lands in the gathered sums: rank r's slice of
+    every bucket, in bucket order, then rank r + 1's."""
+    per = np.asarray(ms, dtype=np.int64) // n_shards
+    local_start = np.concatenate([[0], np.cumsum(per)[:-1]])
+    pos = [r * int(per.sum()) + s + np.arange(p, dtype=np.int64)
+           for s, p in zip(local_start, per) for r in range(n_shards)]
+    return np.concatenate(pos) if pos else np.zeros(0, np.int64)
+
+
+def to_device(layout: EllLayout, device, shard: Tuple[int, int] = (0, 1)) -> DeviceEll:
     """Upload a host layout (from pinned memory when the target is CUDA).
-    Counts must fit int32, which every kernel indexes with."""
+    Counts must fit int32, which every kernel indexes with.
+
+    ``shard=(rank, n_shards)`` uploads only the rank's slice ``[rank * m /
+    n_shards, (rank + 1) * m / n_shards)`` of each bucket of m segments (a
+    layout built with ``pad_shards=n_shards``) and the replicated
+    reassembly arrays, its positions remapped to the rank-major order of
+    the gathered segment sums (``parallel.engine``)."""
     device = torch.device(device)
-    n_segs = sum(int(b.rows.shape[0]) for b in layout.buckets)
+    rank, n_shards = shard
+    ms = [int(b.rows.shape[0]) for b in layout.buckets]
+    n_segs = sum(ms)
     n_split = int(layout.split_rows.shape[0])
     if max(n_segs, layout.n_rows, n_split * layout.split_seg_pos.shape[1]) > _INT32_MAX:
         raise ValueError("layout too large for int32 indexing: %d segments, "
                          "%d rows, %d split chunks"
                          % (n_segs, layout.n_rows, n_split))
+    if any(m % n_shards for m in ms) or not 0 <= rank < n_shards:
+        raise ValueError("shard %s of a layout whose buckets hold %s segments "
+                         "(build it with pad_shards=%d)" % (shard, ms, n_shards))
+    inv_perm, split_seg_pos = layout.inv_perm, layout.split_seg_pos
+    if n_shards > 1:
+        where = _gathered_positions(ms, n_shards)
+        inv_perm = where[inv_perm]
+        split_seg_pos = np.where(split_seg_pos >= 0,
+                                 where[np.maximum(split_seg_pos, 0)], -1)
     buckets = []
     start = 0
     for j, b in enumerate(layout.buckets):
         span = layout.col_spans[j] if layout.col_spans is not None else None
+        per = ms[j] // n_shards
+        part = slice(rank * per, (rank + 1) * per)
         buckets.append(DeviceBucket(
-            rows=_upload(b.rows, np.int32, device),
-            cols=_upload(b.cols, np.int32, device),
-            vals=_upload(b.vals, b.vals.dtype, device),
+            rows=_upload(b.rows[part], np.int32, device),
+            cols=_upload(b.cols[part], np.int32, device),
+            vals=_upload(b.vals[part], b.vals.dtype, device),
             col_off=0 if span is None else int(span[0]),
             start=start))
-        start += int(b.rows.shape[0])
+        start += per
     split_indptr = np.zeros(layout.n_rows + 1, dtype=np.int64)
     np.cumsum(np.bincount(layout.split_rows, minlength=layout.n_rows),
               out=split_indptr[1:])
     return DeviceEll(
         buckets=buckets,
-        inv_perm=_upload(layout.inv_perm, np.int32, device),
-        split_seg_pos=_upload(layout.split_seg_pos, np.int32, device),
+        inv_perm=_upload(inv_perm, np.int32, device),
+        split_seg_pos=_upload(split_seg_pos, np.int32, device),
         split_indptr=_upload(split_indptr, np.int32, device),
-        n_rows=layout.n_rows, n_segs=n_segs)
+        n_rows=layout.n_rows, n_segs=start, n_shards=n_shards)
 
 
 # ---- K1: per-bucket phi sums -----------------------------------------
@@ -500,24 +541,27 @@ def gather_table_dtype(mode: str = "auto"):
 # ---- the CAVI loop ---------------------------------------------------
 
 def cavi_step_ell_carried(carry: Carry, ell_u: DeviceEll, ell_i: DeviceEll, hp,
-                          gather_dtype=None) -> Carry:
+                          gather_dtype=None, phi_sums=None) -> Carry:
     """One CAVI iteration (reference ``cython_loops.pxi:227-259``): both
     E-step sums read the carried (old) exp tables, reach the state dtype
     after K2, then ``cavi_step_carried`` updates the user side and the
-    item side."""
+    item side.  ``phi_sums`` is ``ell_phi_sums``, or in a data-parallel
+    fit K12a over the rank's shards of the layouts
+    (``parallel.engine.sharded_ell_phi_sums``)."""
     dt = carry.state.G_shp.dtype
-    su = ell_phi_sums(carry.t_tab, carry.b_tab, ell_u, dt)
-    si = ell_phi_sums(carry.b_tab, carry.t_tab, ell_i, dt)
+    phi_sums = phi_sums or ell_phi_sums
+    su = phi_sums(carry.t_tab, carry.b_tab, ell_u, dt)
+    si = phi_sums(carry.b_tab, carry.t_tab, ell_i, dt)
     return cavi_step_carried(carry, su, si, hp, gather_dtype)
 
 
 def run_cavi_block_ell(carry: Carry, ell_u: DeviceEll, ell_i: DeviceEll,
-                       niter: int, hp, gather_dtype=None) -> Carry:
+                       niter: int, hp, gather_dtype=None, phi_sums=None) -> Carry:
     """``niter`` CAVI iterations as a loop of launches with no host sync;
     returns the final carry (its ``state`` is the new state).  Unlike the
     JAX function it takes the carry, not the state: a fit derives it once
     (``ops.cavi._carry_init``, with the same ``gather_dtype``) and passes it from
     block to block."""
     for _ in range(int(niter)):
-        carry = cavi_step_ell_carried(carry, ell_u, ell_i, hp, gather_dtype)
+        carry = cavi_step_ell_carried(carry, ell_u, ell_i, hp, gather_dtype, phi_sums)
     return carry

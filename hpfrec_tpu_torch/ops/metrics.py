@@ -79,15 +79,22 @@ def ell_llk_rmse_sums(Theta, Beta, layout: DeviceEll, full_llk: bool = False):
                       for b in layout.buckets])
 
 
+def _one_device(parts):
+    return parts
+
+
 def ell_train_llk_rmse(Theta, Beta, layout: DeviceEll, nnz: int,
-                       theta_colsum, beta_colsum, full_llk: bool = False):
+                       theta_colsum, beta_colsum, full_llk: bool = False,
+                       gather=_one_device):
     """Training criterion (reference ``pxi:78``): ``sum(ll) -
     colsum(Theta).colsum(Beta)`` and ``sqrt(sum(se) / nnz)``, as host
     floats.  One device readback.  The correction is rounded to float32,
     as ``hpfrec_tpu.ops.metrics._colsum_dot`` returns it for either
-    dtype."""
-    return _train_llk(ell_llk_rmse_sums(Theta, Beta, layout, full_llk), nnz,
-                      theta_colsum, beta_colsum)
+    dtype.  In a data-parallel fit ``layout`` is the rank's shard and
+    ``gather`` brings every rank's partials (K12d,
+    ``parallel.engine.gather_partials``)."""
+    return _train_llk(gather(ell_llk_rmse_sums(Theta, Beta, layout, full_llk)),
+                      nnz, theta_colsum, beta_colsum)
 
 
 def _train_llk(parts, nnz, theta_colsum, beta_colsum):
@@ -145,20 +152,24 @@ llk_rmse_sums.launches = 0
 
 
 def train_llk_rmse(Theta, Beta, data: BlockedCOO, nnz: int, theta_colsum,
-                   beta_colsum, full_llk: bool = False):
+                   beta_colsum, full_llk: bool = False, gather=_one_device):
     """Training criterion of the blocked-COO engine (JAX
     ``metrics.py:train_llk_rmse``): K5 over the training stream, with the
     all-pairs correction from the colsums that K3 made for the same state,
-    as in ``ell_train_llk_rmse``.  Host floats, one device readback."""
-    return _train_llk(llk_rmse_sums(Theta, Beta, data, full_llk), nnz, theta_colsum,
-                      beta_colsum)
+    as in ``ell_train_llk_rmse``.  Host floats, one device readback.  In a
+    data-parallel fit ``data`` is the rank's share of the stream and
+    ``gather`` brings every rank's partials (K12d)."""
+    return _train_llk(gather(llk_rmse_sums(Theta, Beta, data, full_llk)), nnz,
+                      theta_colsum, beta_colsum)
 
 
-def val_llk_rmse(Theta, Beta, data: BlockedCOO, nnz: int, full_llk: bool = False):
+def val_llk_rmse(Theta, Beta, data: BlockedCOO, nnz: int, full_llk: bool = False,
+                 gather=_one_device):
     """Validation criterion (reference ``pxi:72``): ``sum(ll) - sum(sp)``
     over the observed pairs and ``sqrt(sum(se) / nnz)``, as host floats.
-    One device readback."""
-    parts = llk_rmse_sums(Theta, Beta, data, full_llk).cpu().numpy()
+    One device readback.  In a data-parallel fit ``data`` is the rank's
+    share of the blocks and ``gather`` brings every rank's partials (K12d)."""
+    parts = gather(llk_rmse_sums(Theta, Beta, data, full_llk)).cpu().numpy()
     llk = float(parts[:, 0].sum()) - float(parts[:, 2].sum())
     rmse = float(np.sqrt(parts[:, 1].sum() / nnz))
     return llk, rmse

@@ -312,13 +312,20 @@ def batch_multipliers(n_rows: int, batch_rows: int, dtype) -> np.ndarray:
 
 def svi_run_epoch(state: VariationalState, side: EpochSide, perm: np.ndarray,
                   batch_rows: int, step: float, hp: Hyperparams,
-                  user_side: bool, mark=None) -> VariationalState:
+                  user_side: bool, mark=None, phi_sums=batch_phi_sums,
+                  shard=(0, 1)) -> VariationalState:
     """One epoch over ``side``'s rows in the shuffled order ``perm``
     (reference ``pxi:275-377``; JAX ``svi_run_batches``): K9 once, then for
     each batch K3 derive on both sides, K7, the row mask and K8.  The host
     issues the launches and never waits on the device.  ``mark``, if given,
     is called with a stage's name as soon as the stage is issued (the
-    profile script records a CUDA event there)."""
+    profile script records a CUDA event there).  In a data-parallel fit
+    every rank runs the epoch on its replicated state, ``phi_sums`` is K12b
+    (``parallel.engine.sharded_svi_phi_sums``), and it gets the share of
+    each batch's rows that falls to rank ``shard[0]`` of ``shard[1]``
+    (``utils.data.share``)."""
+    from ..utils.data import share
+
     mark = mark or (lambda stage: None)
     device = state.G_shp.device
     dt = state.G_shp.dtype
@@ -334,15 +341,16 @@ def svi_run_epoch(state: VariationalState, side: EpochSide, perm: np.ndarray,
                               np.float32 if dt == torch.float32 else np.float64)
     for b, mult in enumerate(mults):
         r0, r1 = b * batch_rows, min(n_rows, (b + 1) * batch_rows)
-        s, e = int(offsets_h[r0]), int(offsets_h[r1])
+        q0, q1 = (r0 + q for q in share(offsets_h[r0:r1 + 1], shard[1], shard[0]))
+        s, e = int(offsets_h[q0]), int(offsets_h[q1])
         t_tab, theta_colsum = side_derive(state.G_shp, state.G_rte)
         b_tab, beta_colsum = side_derive(state.L_shp, state.L_rte)
         mark("K3 derive (both sides)")
         t_loc, t_oth, colsum_global = ((t_tab, b_tab, beta_colsum) if user_side
                                        else (b_tab, t_tab, theta_colsum))
         rows_b = perm_d[r0:r1]
-        s_loc, s_oth, omask = batch_phi_sums(t_loc, t_oth, e_y[s:e], e_row[s:e],
-                                             e_col[s:e], offsets_d[r0:r1 + 1], s, rows_b)
+        s_loc, s_oth, omask = phi_sums(t_loc, t_oth, e_y[s:e], e_row[s:e], e_col[s:e],
+                                       offsets_d[q0:q1 + 1], s, perm_d[q0:q1])
         mark("K7 phi sums (sort included)")
         lmask = build_row_mask(t_loc.shape[0], rows_b)
         mark("row mask")
@@ -372,7 +380,8 @@ def group_by_rows(rows: np.ndarray):
 def svi_batch_update(state: VariationalState, y: np.ndarray, iu: np.ndarray,
                      ii: np.ndarray, umask, imask, step: float, mult: float,
                      hp: Hyperparams, user_side: bool = True,
-                     blend_all_scalers: bool = False) -> VariationalState:
+                     blend_all_scalers: bool = False, phi_sums=batch_phi_sums,
+                     shard=(0, 1)) -> VariationalState:
     """One SVI mini-batch update (JAX ``ops/svi.py:svi_batch_update``) from
     host triplets in any order; ``umask``/``imask`` ((n, 1) bool on the
     state's device) mark the rows to blend.  The host groups the triplets
@@ -380,11 +389,18 @@ def svi_batch_update(state: VariationalState, y: np.ndarray, iu: np.ndarray,
     derives both exp tables, K7 sums phi on both sides over every row the
     triplets touch, and K8 blends.  ``user_side=True`` with
     ``blend_all_scalers=True`` is ``partial_fit(batch_type='users')``
-    (reference ``pxi:442-473``).  Returns a new state."""
+    (reference ``pxi:442-473``).  In a data-parallel fit ``phi_sums`` is
+    K12b and gets rank ``shard[0]``'s share of the rows, as in
+    ``svi_run_epoch``.  Returns a new state."""
+    from ..utils.data import share
+
     device = state.G_shp.device
     npdt = np.float32 if state.G_shp.dtype == torch.float32 else np.float64
     loc, oth = (iu, ii) if user_side else (ii, iu)
     order, seg_rows, bounds = group_by_rows(np.asarray(loc))
+    q0, q1 = share(bounds, shard[1], shard[0])
+    s, e = int(bounds[q0]), int(bounds[q1])
+    order = order[s:e]
     y_d = _upload(np.asarray(y)[order], npdt, device)
     rows_d = _upload(np.asarray(loc)[order], np.int32, device)
     cols_d = _upload(np.asarray(oth)[order], np.int32, device)
@@ -392,9 +408,9 @@ def svi_batch_update(state: VariationalState, y: np.ndarray, iu: np.ndarray,
     b_tab, beta_colsum = side_derive(state.L_shp, state.L_rte)
     t_loc, t_oth, colsum_global = ((t_tab, b_tab, beta_colsum) if user_side
                                    else (b_tab, t_tab, theta_colsum))
-    s_loc, s_oth, _ = batch_phi_sums(t_loc, t_oth, y_d, rows_d, cols_d,
-                                     _upload(bounds, np.int32, device), 0,
-                                     _upload(seg_rows, np.int32, device))
+    s_loc, s_oth, _ = phi_sums(t_loc, t_oth, y_d, rows_d, cols_d,
+                               _upload(bounds[q0:q1 + 1], np.int32, device), s,
+                               _upload(seg_rows[q0:q1], np.int32, device))
     su, si = (s_loc, s_oth) if user_side else (s_oth, s_loc)
     return svi_update(state, su, si, umask, imask, step, mult, hp, user_side,
                       blend_all_scalers, colsum_global)

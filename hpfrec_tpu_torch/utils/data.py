@@ -280,6 +280,21 @@ def block_coo(y: np.ndarray, ix_u: np.ndarray, ix_i: np.ndarray,
     return BlockedHost(y=_pad(y), ix_u=_pad(ix_u), ix_i=_pad(ix_i), nnz=nnz)
 
 
+def share(bounds: np.ndarray, n_ranks: int, rank: int):
+    """The runs ``[i0, i1)`` of rank ``rank`` when the runs with offsets
+    ``bounds`` (non-decreasing, (n_runs + 1,)) are split at run boundaries
+    into ``n_ranks`` near-equal shares of positions: share j ends at the
+    first boundary at or after ``bounds[0] + total * (j + 1) / n_ranks``.
+    A data-parallel fit cuts the user-sorted stream (``ops.cavi.coo_stream``)
+    and each SVI batch (``ops.svi``) so."""
+    bounds = np.asarray(bounds, dtype=np.int64)
+    total = int(bounds[-1] - bounds[0])
+    target = lambda j: int(bounds[0]) + total * j // n_ranks  # noqa: E731
+    cut = lambda j: (0 if j == 0 else len(bounds) - 1 if j == n_ranks  # noqa: E731
+                     else int(np.searchsorted(bounds, target(j), side="left")))
+    return cut(rank), cut(rank + 1)
+
+
 def build_csr(ix_u: np.ndarray, ix_i: np.ndarray, y: np.ndarray, nusers: int,
               nitems: int):
     """CSR over the training triplets: (indptr (nU+1,) int64, indices int32,

@@ -207,15 +207,27 @@ def test_constructor_defaults_match():
     assert pt["device"].default == "cuda"
 
 
-OFF_SLICE = [dict(shard_tables=True), dict(mesh=object())]
+OFF_SLICE = ["shard_tables", "mesh"]
 
 
-@pytest.mark.parametrize("kwargs", OFF_SLICE, ids=lambda d: ",".join(d))
-def test_off_slice_options_raise(kwargs):
+@pytest.mark.parametrize("option", OFF_SLICE)
+def test_off_slice_options_raise(option):
+    """A ``mesh`` that is not a ``parallel.Mesh`` is a TypeError; the
+    table-sharded engine (a full-batch ELL fit with ``shard_tables=True``
+    over more than one rank) is not ported and raises, naming its ROADMAP
+    item, before any collective: a stub two-rank mesh with no process
+    group serves."""
     from hpfrec_tpu_torch import HPF
+    from hpfrec_tpu_torch.parallel import Mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        HPF(**kwargs)
+    if option == "mesh":
+        with pytest.raises(TypeError, match="parallel.Mesh"):
+            HPF(mesh=object())
+        return
+    stub = Mesh(group=None, world_size=2, rank=0, device=torch.device("cpu"))
+    m = HPF(k=3, maxiter=2, check_every=2, verbose=False, shard_tables=True, mesh=stub)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 11"):
+        m.fit(_df(nU=20, nI=15, nnz=100))
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

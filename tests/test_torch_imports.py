@@ -37,11 +37,12 @@ def test_no_jax_or_hpfrec_tpu_import(path):
         assert top not in ("jaxlib", "hpfrec_tpu"), f"{path.name} imports {mod}"
 
 
-@pytest.mark.parametrize("module", ["hpfrec_tpu_torch.compat", "hpfrec_tpu_torch.utils.io"])
+@pytest.mark.parametrize("module", ["hpfrec_tpu_torch.compat", "hpfrec_tpu_torch.utils.io",
+                                    "hpfrec_tpu_torch.parallel.distributed"])
 def test_module_loads_neither_jax_nor_the_jax_package(module):
     """Importing the module and calling it (a checkpoint round trip, a
-    batch gather) in a fresh interpreter loads no jax and no hpfrec_tpu
-    module."""
+    batch gather, a single-process ``initialize`` and an exchange) in a
+    fresh interpreter loads no jax and no hpfrec_tpu module."""
     import subprocess
     import sys
 
@@ -57,6 +58,13 @@ def test_module_loads_neither_jax_nor_the_jax_package(module):
         "    m.save_checkpoint(d, VariationalState(z, z, z, z, z[:, :1], z[:, :1]), 3,\n"
         "                      rng=np.random.default_rng(1))\n"
         "    m.load_checkpoint(d)\n"
+        "elif hasattr(m, 'initialize'):\n"
+        "    import warnings, torch\n"
+        "    from hpfrec_tpu_torch.parallel import engine\n"
+        "    with warnings.catch_warnings():\n"
+        "        warnings.simplefilter('ignore')\n"
+        "        mesh = m.initialize(device='cpu')\n"
+        "    assert engine.all_gather_rows(mesh, torch.ones(2, 3)).shape == (2, 3)\n"
         "else:\n"
         "    m.get_unique_items_batch(np.array([0]), np.array([0, 2]), np.array([1, 0]), 1)\n"
         "bad = [n for n in set(sys.modules) - before\n"
