@@ -74,6 +74,26 @@ non-zero, with no result line):
    ranks bit-equal to each other, ELL bit-equal to the one-rank card fit,
    the others within stated limits; (c) with two or more cards, (a) is
    (b) over NCCL at the MillionSong shape;
+3k. the table-sharded engine (``HPF(mesh=..., shard_tables=True)``, K13):
+   (a) two ranks on the one card over gloo, named, fit phase 3's fit at the
+   MillionSong shape (10 iterations, train-llk every 5), and phase 3h's
+   with bfloat16 tables: the ranks bit-equal, the llk at the checks and the
+   factors held against the one-device fits within stated limits, the
+   launch counters; then every rank, on its fitted state, holds the ring
+   phi sums (K13a, the real ring), the train metric (K13c), K3's pad-row
+   form and the step (K13b) against their plain versions and times them,
+   and splits an iteration by part (K1 per ring offset, the host-staged
+   ring, K2, K3's pad-row form, the colsum exchange; host_pack of the
+   sharded layouts); (b) on the NCCL mesh of 3j (a) (one rank on most
+   machines, where the ring is K1 over the sub-tiles with no exchange:
+   ``HPF`` takes the engine only over two or more ranks, so it is called
+   directly) the same parts from the ELL fit's state, and the step against
+   the one-device ELL step; (c) each rank's half of the ring phi sums (two
+   ranks, every rank in this process, the ring's shards handed in) and
+   K3's pad-row form (both tab dtypes) against their plain versions on
+   phase 2's data set, float32 and float64; (d) with two or more cards,
+   (a) over NCCL on every card (``--ts-cards`` runs (d) alone, with the
+   one-device fits it is held against);
 4. agreement and determinism at a small size, full batch and alternating
    SVI with val-llk, the COO engine in full batch and SVI, the ELL engine
    with bfloat16 tables: two card fits are bit-identical, and the card
@@ -177,6 +197,14 @@ REPLACES = {
     "ell_phi_sums_bf16": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu", "hpfrec_tpu/ops/ell.py:447"),
     "table_update_bf16": ("hpfrec_tpu_torch/csrc/table_update.cu", "hpfrec_tpu/ops/ell.py:804"),
     "table_derive_bf16": ("hpfrec_tpu_torch/csrc/table_update.cu", "hpfrec_tpu/ops/ell.py:752"),
+    "table_update_pad": ("hpfrec_tpu_torch/csrc/table_update.cu",
+                         "hpfrec_tpu/parallel/table_sharded.py:432"),
+    "ring_table_sums": ("hpfrec_tpu_torch/parallel/table_sharded.py",
+                        "hpfrec_tpu/parallel/table_sharded.py:309"),
+    "table_sharded_step": ("hpfrec_tpu_torch/parallel/table_sharded.py",
+                           "hpfrec_tpu/parallel/table_sharded.py:357"),
+    "table_sharded_llk_parts": ("hpfrec_tpu_torch/parallel/table_sharded.py",
+                                "hpfrec_tpu/parallel/table_sharded.py:566"),
 }
 STATE_NAMES = ("Theta", "Beta", "Gamma_shp", "Gamma_rte", "Lambda_shp", "Lambda_rte", "k_rte",
                "t_rte")
@@ -941,14 +969,16 @@ def random_state(nU, nI, dtype, device, seed):
 def kernel_counters():
     """name -> (wrapper, the attribute that counts its launches): every
     kernel wrapper, and the data-parallel exchanges (K12), which count the
-    collectives they issue.  The bfloat16-table forms of K1 and K3 count
-    in their wrappers' .launches_bf16."""
+    collectives they issue, and the table-sharded engine (K13), which counts
+    its calls.  The bfloat16-table forms of K1 and K3 count in their
+    wrappers' .launches_bf16, K3's pad-row forms in .launches_pad(_bf16)."""
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as E
     from hpfrec_tpu_torch.ops import metrics as M
     from hpfrec_tpu_torch.ops import svi as S
     from hpfrec_tpu_torch.ops import topk as T
     from hpfrec_tpu_torch.parallel import engine as P
+    from hpfrec_tpu_torch.parallel import table_sharded as TS
 
     wrappers = {"ell_phi_sums": E.bucket_phi_sums, "segment_table_sums": E.segment_table_sums,
                 "table_update": C.side_update, "table_derive": C.side_derive,
@@ -961,11 +991,17 @@ def kernel_counters():
                 "sharded_ell_phi_sums": P.sharded_ell_phi_sums,
                 "sharded_svi_phi_sums": P.sharded_svi_phi_sums,
                 "sharded_coo_phi_sums": P.sharded_coo_phi_sums,
-                "gather_partials": P.gather_partials}
+                "gather_partials": P.gather_partials, "colsum_finish": C.colsum_finish,
+                "ring_table_sums": TS.ring_table_sums,
+                "table_sharded_step": TS.table_sharded_step,
+                "table_sharded_llk_parts": TS.table_sharded_llk_parts,
+                "cross_rank_colsum": TS.cross_rank_colsum}
     counters = {name: (w, "launches") for name, w in wrappers.items()}
     counters.update({"ell_phi_sums_bf16": (E.bucket_phi_sums, "launches_bf16"),
                      "table_update_bf16": (C.side_update, "launches_bf16"),
-                     "table_derive_bf16": (C.side_derive, "launches_bf16")})
+                     "table_derive_bf16": (C.side_derive, "launches_bf16"),
+                     "table_update_pad": (C.side_update, "launches_pad"),
+                     "table_update_pad_bf16": (C.side_update, "launches_pad_bf16")})
     return counters
 
 
@@ -983,14 +1019,24 @@ def read_counters(counters):
 
 def recording_hpf():
     """``HPF`` that records the llk of every convergence check in
-    ``llk_trace``."""
+    ``llk_trace`` (and with ``keep_engine`` a table-sharded fit's engine
+    and last state in ``engine_``)."""
     from hpfrec_tpu_torch import HPF
 
     class RecordingHPF(HPF):
+        keep_engine = False
+
         def _evaluate_criterion(self, *args, **kwargs):
             out = super()._evaluate_criterion(*args, **kwargs)
             self.llk_trace.append(self._last_llk)
             return out
+
+        def _final_eval(self, state, colsums):
+            # a table-sharded fit's engine and its last padded state, which
+            # the fit lets go of when it returns (phase 3k times them)
+            if self.keep_engine:
+                self.engine_ = (self._table_shard, state)
+            return super()._final_eval(state, colsums)
 
     return RecordingHPF
 
@@ -1012,6 +1058,11 @@ DP_FITS = {
                            random_seed=1, use_float=False), "all"),
               ("svi", dict(k=K, stop_crit="val-llk", check_every=2, maxiter=6, random_seed=1,
                            use_float=False, **SMALL_BATCHES), "train")],
+    # phase 3k (a): phases 3 and 3h's fits on the table-sharded engine
+    "ts": [("ts", dict(k=K, stop_crit="train-llk", check_every=5, maxiter=10, random_seed=1,
+                       shard_tables=True), "all"),
+           ("ts_bf16", dict(k=K, stop_crit="train-llk", check_every=5, maxiter=10,
+                            random_seed=1, shard_tables=True, gather_dtype="bfloat16"), "all")],
 }
 DP_PARTIAL_FIT_USERS = {"msd": 100_000, "small": 2_600}
 # the kernels and exchanges each data-parallel fit must launch
@@ -1023,6 +1074,12 @@ DP_REQUIRED = {
     "svi": ("sharded_svi_phi_sums", "batch_phi_sums", "svi_update", "epoch_gather",
             "table_derive", "gather_partials", "coo_llk"),
     "partial_fit": ("sharded_svi_phi_sums", "batch_phi_sums", "svi_update", "table_derive"),
+    "ts": ("table_sharded_step", "ring_table_sums", "cross_rank_colsum", "colsum_finish",
+           "table_sharded_llk_parts", "ell_phi_sums", "segment_table_sums", "table_update_pad",
+           "table_derive", "ell_llk", "gather_partials"),
+    "ts_bf16": ("table_sharded_step", "ring_table_sums", "cross_rank_colsum", "colsum_finish",
+                "table_sharded_llk_parts", "ell_phi_sums_bf16", "segment_table_sums",
+                "table_update_pad_bf16", "table_derive_bf16", "ell_llk", "gather_partials"),
 }
 # a data-parallel fit against the one-device fit on the same card.  On one
 # rank every exchange hands back its input, so every fit (ELL, COO, SVI,
@@ -1054,7 +1111,8 @@ REPLACES.update({
 
 
 def dp_fit_names(task):
-    return [name for name, _, _ in DP_FITS[task]] + ["partial_fit"]
+    names = [name for name, _, _ in DP_FITS[task]]
+    return names + ["partial_fit"] if "svi" in names else names
 
 
 def array_digests(m):
@@ -1092,7 +1150,8 @@ def load_triplets(path):
 
 def dp_fits(task, data, mesh, device, counters, save=None):
     """The task's fits (``DP_FITS``) on ``mesh`` (None: one device), then a
-    ``partial_fit`` of a user batch on the SVI model.  Returns ({fit name:
+    ``partial_fit`` of a user batch on the SVI model, if the task has one.
+    The float32-table table-sharded fit keeps its engine (``recording_hpf``).  Returns ({fit name:
     fit_summary}, {fit name: model}); ``save(name, model)``, if given, is
     called after each fit."""
     RecordingHPF = recording_hpf()
@@ -1100,6 +1159,7 @@ def dp_fits(task, data, mesh, device, counters, save=None):
     for name, kw, which in DP_FITS[task]:
         m = RecordingHPF(device=device, mesh=mesh, verbose=False, **kw)
         m.llk_trace = []
+        m.keep_engine = name == "ts"
         reset_counters(counters)
         if which == "train":
             m.fit(data["train"], val_set=data["val"])
@@ -1109,6 +1169,8 @@ def dp_fits(task, data, mesh, device, counters, save=None):
         models[name] = m
         if save is not None:
             save(name, m)
+    if "svi" not in models:
+        return out, models
     train = data["train"]
     pick = np.zeros(train.shape[0], dtype=bool)
     pick[np.random.default_rng(12).choice(train.shape[0], DP_PARTIAL_FIT_USERS[task],
@@ -1286,7 +1348,7 @@ def dp_rank_main(cfg_path):
     if os.path.isdir(os.path.join(cfg["data"], "train")):
         data.update(train=load_triplets(os.path.join(cfg["data"], "train")),
                     val=load_triplets(os.path.join(cfg["data"], "val")))
-    else:
+    elif any(which == "train" for _, _, which in DP_FITS[cfg["task"]]):
         data["train"], data["val"] = holdout(data["all"], 0.01, seed=5)
 
     def save(name, m):
@@ -1298,12 +1360,19 @@ def dp_rank_main(cfg_path):
     t0 = time.perf_counter()
     results, models = dp_fits(cfg["task"], data, mesh, mesh.device, counters, save)
     results["fits_s"] = time.perf_counter() - t0
-    for name, kernels in DP_REQUIRED.items():
-        missing = [k for k in kernels if results[name]["launches"][k] <= 0]
+    for name in dp_fit_names(cfg["task"]):
+        missing = [k for k in DP_REQUIRED[name] if results[name]["launches"][k] <= 0]
         if missing:
             raise AssertionError(f"rank {mesh.rank}, {name} fit: never launched {missing}")
+    if "ts" in models:  # the float32-table fit: its split, its parts against plain
+        engine, state = models["ts"].engine_
+        del models["ts"].engine_
+        results["split"] = ts_split(mesh, engine, state, reps=3)
+        results["ts_cases"] = ts_cases(mesh, engine, engine.carry_init(state), reps=3)
+        del engine, state
     if cfg["suite"]:
         results["exchanges"] = dp_exchange_suite(mesh, data, models["ell"], reps=5)
+        results["ts_step"] = ts_step_suite(mesh, data, models["ell"], reps=3)
     results["device"] = torch.cuda.get_device_name(mesh.device)
     with open(os.path.join(cfg["out"], "rank%d.json" % cfg["rank"]), "w") as f:
         json.dump(results, f)
@@ -1314,7 +1383,8 @@ def dp_rank_main(cfg_path):
 def spawn_ranks(task, world, backend, devices, data_dir, save=(), suite=False):
     """Run ``world`` ranks of a data-parallel mesh (this script with
     ``--dp-rank``), each on its device of ``devices``, rendezvous through a
-    file.  Waits for every rank within ``DP_TIMEOUT_S``; a rank that fails
+    file; ``suite`` runs the exchange suite and the table-sharded step
+    suite after the fits.  Waits for every rank within ``DP_TIMEOUT_S``; a rank that fails
     ends the others and fails the run.  Returns (the ranks' results, the
     run's directory, its wall seconds)."""
     run = tempfile.mkdtemp(prefix="hpf_dp_")
@@ -1457,6 +1527,7 @@ def phase_3j(data_root, refs, small, counters, real):
     launches_dp = {k: sum(r0[f]["launches"][k] for f in dp_fit_names("msd"))
                    for k in counters}
     print("[3j] launch counters, the mesh's fits (rank 0):", json.dumps(launches_dp))
+    ts_step = r0["ts_step"]
     shutil.rmtree(run)
     torch.cuda.empty_cache()
 
@@ -1485,7 +1556,451 @@ def phase_3j(data_root, refs, small, counters, real):
               "on every card, ranks bit-equal" % n_cards)
     else:
         print("[3j] (c) NCCL over two or more cards: skipped, this machine has one card")
-    return launches_dp, launches_dp_gloo
+    return launches_dp, launches_dp_gloo, ts_step
+
+
+# -- 3k. the table-sharded engine ---------------------------------------------------
+# The table-sharded fit (float32, 10 iterations) against phase 3's
+# one-device fit, max relative difference of the llk at the checks and of
+# Theta and Beta: every sum the same but for the order of the cross-rank
+# colsums and of the sub-tiled segments, so the two fits part by float32
+# rounding that ten iterations grow.  Measured on an H100, two gloo ranks
+# on one card: llk 2.7e-9, Theta 2.8e-5, Beta 4.0e-5; the limits are ~10x
+# that (a fixed run is deterministic; another rank count sums in another
+# order)
+TS_LIMITS = dict(llk=3e-8, factors=4e-4)
+# the same fit with bfloat16 exp tables (``gather_dtype='bfloat16'``, the
+# ring carrying bfloat16 shards) against phase 3h's one-device bfloat16 fit:
+# where a float32 difference straddles a bfloat16 rounding boundary a table
+# entry moves by a whole bfloat16 step, and the smallest factors part by
+# percents while the llk agrees (phase 4's AGREE_BF16 describes the same).
+# Measured on an H100, two gloo ranks on one card: llk 9.6e-9, Theta
+# 5.2e-2, Beta 7.9e-2; the llk limit is ~10x that, the factors' ~6x (they
+# are bounded by the bfloat16 steps, not by the sums' order)
+TS_BF16_LIMITS = dict(llk=1e-7, factors=5e-1)
+# the fits of a table-sharded mesh (DP_FITS["ts"]) and the limits each is
+# held to against its one-device fit
+TS_FITS = {"ts": TS_LIMITS, "ts_bf16": TS_BF16_LIMITS}
+# K3's pad-row form against its plain version: the padding rows exactly
+# (rate +inf, scaler 0, mean and tab +0.0), the real rows as ``compare``
+# holds them (``bf16_tab_check`` for a bfloat16 tab)
+
+
+def pad_check(n_real):
+    def check(name, got, ref, dtype_name):
+        import torch
+
+        shp, rte, tab, scaler, _ = got
+        if not (torch.isinf(rte[n_real:]).all() and not scaler[n_real:].any()):
+            raise AssertionError(f"{name}: a padding row's rate is finite or its scaler not 0")
+        for zero in (shp[n_real:] / rte[n_real:], tab[n_real:]):
+            if zero.any() or torch.signbit(zero).any():
+                raise AssertionError(f"{name}: a padding row's mean or tab is not +0.0")
+        real = [g[:n_real] for g in got[:4]] + [got[4]]
+        want = [r[:n_real] for r in ref[:4]] + [ref[4]]
+        return (bf16_tab_check if tab.dtype == torch.bfloat16 else compare)(name, real, want,
+                                                                         dtype_name)
+    return check
+
+
+def ts_plain_ring_sums(mesh, t_self, t_other, share, shards=None):
+    """The plain version of K13a: the same ring, the plain K1 per bucket
+    and the plain K2."""
+    import torch
+
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.parallel import table_sharded as TS
+
+    seg = [None] * len(share.ell.buckets)
+    for o, buf in enumerate(shards if shards is not None else TS.ring(mesh, t_other)):
+        for j in share.by_offset[o]:
+            b = share.ell.buckets[j]
+            seg[j] = E._bucket_phi_sums_plain(t_self, buf, b.rows, b.cols, b.vals, b.col_off)
+    return E._segment_table_sums_plain(torch.cat(seg), share.ell)
+
+
+def ts_work(share, t_self, t_other_shard, world):
+    """(HBM bytes, link bytes, operations, intermediate bytes) of one side's
+    K13a as a function: the rank's layout slots and index arrays, its own
+    rows of the table and each opposite shard read once, its (per, k) sums
+    written; 4k flops a real slot (K1); (W - 1) opposite shards over the
+    link.  The segment sums that K1 writes and K2 reads back are an
+    intermediate of the composition: their round trip is the fourth
+    figure, outside the bound."""
+    k = t_self.shape[1]
+    acc = 8 if t_self.dtype.itemsize == 8 else 4  # K1's accumulation dtype
+    lay = sum(nbytes(b.rows, b.cols, b.vals) for b in share.ell.buckets)
+    nnz = sum(int((b.vals != 0).sum()) for b in share.ell.buckets)
+    hbm = (lay + nbytes(share.ell.inv_perm, share.ell.split_seg_pos, share.ell.split_indptr)
+           + nbytes(t_self) + world * nbytes(t_other_shard) + share.ell.n_rows * k * acc)
+    return (hbm, (world - 1) * nbytes(t_other_shard), nnz * 4 * k,
+            2 * share.ell.n_segs * k * acc)
+
+
+def ts_bound(hbm, link, ops):
+    """Least time (ms): the larger of HBM bytes at 3.35 TB/s, link bytes at
+    NVLink's rate each way, and float32 operations at 67 TFLOP/s."""
+    t = {"bytes": hbm / PEAK_BYTES * 1e3, "link": link / PEAK_LINK * 1e3,
+         "operations": ops / PEAK_OPS["float32"] * 1e3}
+    by = max(t, key=t.get)
+    return t[by], "bytes" if by == "link" else by
+
+
+def ts_cases(mesh, ts, carry, reps):
+    """The table-sharded engine's parts on one rank of ``mesh``, from
+    ``carry`` (float32 tables) on the rank's rows of the engine ``ts``:
+    K13a (both sides' ring phi sums), K13c (one train check), K3's pad-row
+    form (both sides' updates) and K13b (one step), each against its plain
+    version (the same ring and composition with the plain K1, K2, K3 and
+    K4; raises beyond ``compare``'s float32 tolerance, or where a padding
+    row is not inert) and timed with CUDA events beside its bound (HBM,
+    link and operations; ``inter_bytes``: the intermediates' round trip,
+    outside the bound).  Every rank runs the same collectives in the same
+    order."""
+    import torch
+
+    from hpfrec_tpu_torch.models.state import Hyperparams
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops import metrics as M
+    from hpfrec_tpu_torch.parallel import table_sharded as TS
+
+    W, hp, f32 = mesh.world_size, Hyperparams(k=K), torch.float32
+    st = carry.state
+    sides = ((carry.t_tab, carry.b_tab, ts.u), (carry.b_tab, carry.t_tab, ts.i))
+    su, si = (TS.ring_table_sums(mesh, a, b, sh, f32) for a, b, sh in sides)
+    upd = ((su, st.k_rte, carry.beta_colsum, hp.a, hp.k_shp, hp.add_k_rte, None, ts.u.n_real),
+           (si, st.t_rte, carry.theta_colsum, hp.c, hp.t_shp, hp.add_t_rte, None, ts.i.n_real))
+    Theta, Beta = st.G_shp / st.G_rte, st.L_shp / st.L_rte
+
+    def llk_plain():
+        parts = []
+        for o, buf in enumerate(TS.ring(mesh, Beta)):
+            parts += [M._bucket_llk_plain(Theta, buf, b.rows, b.cols, b.vals, b.col_off, False)
+                      for b in (ts.u.ell.buckets[j] for j in ts.u.by_offset[o])]
+        return torch.cat(parts).sum(0)
+
+    def step_plain():
+        sums = [ts_plain_ring_sums(mesh, a, b, sh) for a, b, sh in sides]
+        G = C._side_update_plain(sums[0], *upd[0][1:])
+        cs = TS.all_gather_rows(mesh, G[4]).sum(0, keepdim=True)
+        L = C._side_update_plain(sums[1], st.t_rte, cs, hp.c, hp.t_shp, hp.add_t_rte, None,
+                                 ts.i.n_real)
+        return list(G[:4]) + list(L[:4])
+
+    def step():  # shp, rte, tab, scaler of each side, as step_plain gives them
+        c = TS.table_sharded_step(mesh, carry, ts.u, ts.i, hp)
+        s_ = c.state
+        return [s_.G_shp, s_.G_rte, c.t_tab, s_.k_rte, s_.L_shp, s_.L_rte, c.b_tab, s_.t_rte]
+
+    def step_check(name, got, ref, dn):  # the real rows (padding rows' rates are +inf)
+        return max((compare(name, [g[:n] for g in got[i:i + 4]], [r[:n] for r in ref[i:i + 4]],
+                            dn) for i, n in ((0, ts.u.n_real), (4, ts.i.n_real))),
+                   key=lambda e: e[0])
+
+    w_a = [x + y for x, y in zip(ts_work(ts.u, carry.t_tab, carry.b_tab, W),
+                                 ts_work(ts.i, carry.b_tab, carry.t_tab, W))]
+    tabs = nbytes(st.G_shp) + nbytes(st.L_shp)
+    elems = st.G_shp.numel() + st.L_shp.numel()
+    nnz_u = sum(int((b.vals != 0).sum()) for b in ts.u.ell.buckets)
+    work = {
+        "ring_table_sums": w_a,
+        # Theta's rows, every Beta shard, the user layout; a dot (2k) and ~6
+        # operations a slot
+        "table_sharded_llk_parts": (nbytes(Theta) + W * nbytes(Beta)
+                                    + sum(nbytes(b.rows, b.cols, b.vals) for b in ts.u.ell.buckets),
+                                    (W - 1) * nbytes(Beta), nnz_u * (2 * K + 6), 0),
+        # sums in; shp, rte, tab out (K3's row)
+        "table_update_pad": (4 * tabs, 0, 35 * elems, 0),
+        # K13a's reads, then shp, rte and tab written: the sums between K13a
+        # and K3 are an intermediate, like the segments
+        "table_sharded_step": (w_a[0] + 2 * tabs, w_a[1], w_a[2] + 35 * elems,
+                               w_a[3] + 2 * tabs),
+    }
+    cases = {
+        "ring_table_sums": (lambda: [TS.ring_table_sums(mesh, a, b, sh, f32) for a, b, sh in sides],
+                            lambda: [ts_plain_ring_sums(mesh, a, b, sh) for a, b, sh in sides]),
+        "table_sharded_llk_parts": (
+            lambda: TS.table_sharded_llk_parts(mesh, Theta, Beta, ts.u, False).sum(0),
+            llk_plain),
+        "table_update_pad": (lambda: [C.side_update(*u) for u in upd],
+                             lambda: [C._side_update_plain(*u) for u in upd]),
+        "table_sharded_step": (step, step_plain),
+    }
+    out = {}
+    for name, (kern, plain) in cases.items():
+        got, ref = kern(), plain()
+        if name == "table_update_pad":
+            err = max((pad_check(u[7])(name, g, r, "float32") for u, g, r in zip(upd, got, ref)),
+                      key=lambda e: e[0])
+        elif name == "table_sharded_step":
+            err = step_check(name, got, ref, "float32")
+        else:
+            err = compare(name, got, ref, "float32")
+        hbm, link, ops, inter = work[name]
+        b_ms, b_by = ts_bound(hbm, link, ops)
+        out[name] = dict(ms=cuda_ms(kern, reps), plain_ms=cuda_ms(plain, reps), bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None, max_abs_err=err[0], max_rel_err=err[1],
+                         bytes=int(hbm), link_bytes=int(link), ops=int(ops),
+                         inter_bytes=int(inter))
+    return out
+
+
+def ts_step_suite(mesh, data, model, reps):
+    """Phase 3k (b), in the NCCL rank(s) of 3j (a): the table-sharded engine
+    built and called directly on that mesh (one rank on most machines: the
+    ring is K1 over the sub-tiles, with no exchange, and ``HPF`` never takes
+    the engine there) at the MillionSong shape, from the ELL fit's state:
+    ``ts_cases``, and the step against the one-device ELL step from the same
+    state, timed beside it."""
+    from hpfrec_tpu_torch.models.state import Hyperparams, state_from_numpy
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.parallel import table_sharded as TS
+    from hpfrec_tpu_torch.utils.data import build_csr, process_data
+
+    dev, W = mesh.device, mesh.world_size
+    pdata = process_data(data["all"], "train-llk", False, np.float32, sort_by_user=True)
+    nU, nI = pdata.nusers, pdata.nitems
+    t0 = time.perf_counter()
+    plan = TS.prepare_table_sharded(*build_csr(pdata.ix_u, pdata.ix_i, pdata.y, nU, nI),
+                                    *build_csr(pdata.ix_i, pdata.ix_u, pdata.y, nI, nU),
+                                    nU, nI, K, W, 4, dtype=np.float32)
+    host_pack_s = time.perf_counter() - t0
+    ts = TS.TableSharded(mesh, plan, nU, nI, dev)
+    host = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
+                             model.Lambda_rte, model.k_rte, model.t_rte], "cpu")
+    hp = Hyperparams(k=K)
+    carry = ts.carry_init(ts.shard_state(host))
+    out = ts_cases(mesh, ts, carry, reps)
+    lay_u, lay_i = (E.to_device(h, dev) for h in E.build_layouts(pdata, np.float32))
+    one = C._carry_init(type(host)(*[a.to(dev) for a in host]))
+    got = [a.to(dev) for a in
+           ts.real_state(TS.table_sharded_step(mesh, carry, ts.u, ts.i, hp).state)]
+    ref = list(E.cavi_step_ell_carried(one, lay_u, lay_i, hp).state)
+    vs_one = compare("table-sharded step vs one device", got, ref, "float32")
+    out["table_sharded_step"].update(
+        one_device_ms=cuda_ms(lambda: E.cavi_step_ell_carried(one, lay_u, lay_i, hp), reps),
+        vs_one_device=list(vs_one), host_pack_s=host_pack_s, world=W,
+        n_sub=[plan.plan_u[2], plan.plan_i[2]], buckets=[len(ts.u.ell.buckets),
+                                                         len(ts.i.ell.buckets)])
+    return out
+
+
+def ts_split(mesh, engine, state, reps):
+    """Phase 3k (a), in each rank: one iteration of the table-sharded fit
+    split by part, from its last state (CUDA events, ms, both sides): K1 on
+    the buckets of each ring offset, a whole ring pass of each side's
+    table with nothing computed (on gloo with CUDA tables: staged through
+    the host), K2, K3's pad-row form, one cross-rank colsum (three an
+    iteration), and the whole step.  Every rank runs the same collectives
+    in the same order."""
+    import torch
+
+    from hpfrec_tpu_torch.models.state import Hyperparams
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.parallel import table_sharded as TS
+
+    hp = Hyperparams(k=K)
+    carry = engine.carry_init(state)
+    st = carry.state
+    sides = ((carry.t_tab, carry.b_tab, engine.u), (carry.b_tab, carry.t_tab, engine.i))
+    segs = [torch.empty((sh.ell.n_segs, K), dtype=torch.float32, device=a.device)
+            for a, _, sh in sides]
+
+    def k1(o):
+        for (a, b, sh), seg in zip(sides, segs):
+            for j in sh.by_offset[o]:
+                bk = sh.ell.buckets[j]
+                E.bucket_phi_sums(a, b, bk.rows, bk.cols, bk.vals, bk.col_off,
+                                  seg[bk.start:bk.start + bk.rows.shape[0]])
+
+    def ring_pass():
+        for a, b, _ in sides:
+            for _ in TS.ring(mesh, b):
+                pass
+
+    for o in range(mesh.world_size):
+        k1(o)
+    su, si = (E.segment_table_sums(seg, sh.ell) for seg, (_, _, sh) in zip(segs, sides))
+    out = {"k1_offset_%d" % o: cuda_ms(lambda o=o: k1(o), reps) for o in range(mesh.world_size)}
+    out.update(
+        ring_pass=cuda_ms(ring_pass, reps),
+        k2=cuda_ms(lambda: [E.segment_table_sums(seg, sh.ell) for seg, (_, _, sh)
+                            in zip(segs, sides)], reps),
+        k3_pad=cuda_ms(lambda: (
+            C.side_update(su, st.k_rte, carry.beta_colsum, hp.a, hp.k_shp, hp.add_k_rte, None,
+                          engine.u.n_real),
+            C.side_update(si, st.t_rte, carry.theta_colsum, hp.c, hp.t_shp, hp.add_t_rte, None,
+                          engine.i.n_real)), reps),
+        colsum_exchange=cuda_ms(lambda: TS.cross_rank_colsum(mesh, carry.beta_colsum), reps),
+        step=cuda_ms(lambda: TS.table_sharded_step(mesh, carry, engine.u, engine.i, hp), reps),
+        shard_bytes=[nbytes(carry.t_tab), nbytes(carry.b_tab)],
+        real_rows=[engine.u.n_real, engine.i.n_real])
+    return out
+
+
+def ts_cases_report(tag, cases):
+    """Print the engine's parts of one rank against their plain versions
+    (``ts_cases``)."""
+    for name, r in cases.items():
+        print("[%s] %-24s max abs %.3e  max rel %.3e  kernel %.4f ms  plain %.4f ms  bound "
+              "%.4f ms (%s; %d HBM bytes, %d link bytes, %d ops; intermediates %d bytes)"
+              % (tag, name, r["max_abs_err"], r["max_rel_err"], r["ms"], r["plain_ms"],
+                 r["bound_ms"], r["bound_by"], r["bytes"], r["link_bytes"], r["ops"],
+                 r["inter_bytes"]))
+
+
+def ts_fit_report(tag, results, run, wall, refs):
+    """A table-sharded mesh's fits (``spawn_ranks`` of the "ts" task)
+    against their one-device fits ``refs`` (fit name -> ``fit_reference``):
+    the ranks bit-equal, the llk at the checks and Theta, Beta within
+    ``TS_FITS``' limits, the bfloat16-table fit on bfloat16 kernels only;
+    prints each fit, each rank's iteration split and its parts against
+    their plain versions (``ts_cases``, which raised on a rank that
+    failed); raises beyond the limits.  Returns rank 0's launch counts,
+    summed over the fits."""
+    check_ranks_equal("ts", results)
+    r0 = results[0]
+    print("[%s] %d ranks (%s), MillionSong shape, float32 state, shard_tables=True: the ranks "
+          "ran %.1f s (their fits %.1f s); the ranks hold bit-equal arrays"
+          % (tag, len(results), r0["device"], wall, r0["fits_s"]))
+    for name, lim in TS_FITS.items():
+        res, ref = r0[name], refs[name]
+        llk, ref_llk = np.array(res["llk"]), np.array(ref["llk"])
+        if res["niter"] != ref["niter"] or llk.shape != ref_llk.shape:
+            raise AssertionError(f"{tag} {name}: {res['niter']} iterations against "
+                                 f"{ref['niter']}")
+        dev_llk = float(np.abs(llk / ref_llk - 1).max())
+        dev_f = {a: float(np.abs(np.load(os.path.join(run, "%s_%s.npy" % (name, a))) / ref[a]
+                                 - 1).max()) for a in ("Theta", "Beta")}
+        print("[%s] %s fit phases (s): %s; %.4f s/iteration (one device: %.4f); llk at checks "
+              "%s against %s: max rel %.3e (limit %g); Theta, Beta max rel %.3e, %.3e (limit %g)"
+              % (tag, name, json.dumps({k: round(v, 3) for k, v in res["phases"].items()}),
+                 dp_s_per_it(res), ref["s_per_it"], res["llk"], ref["llk"], dev_llk, lim["llk"],
+                 dev_f["Theta"], dev_f["Beta"], lim["factors"]))
+        if dev_llk > lim["llk"] or max(dev_f.values()) > lim["factors"]:
+            raise AssertionError(f"{tag}: the {name} fit is off its one-device fit: llk "
+                                 f"{dev_llk:.3e}, factors {dev_f}")
+    bf = r0["ts_bf16"]["launches"]
+    if bf["ell_phi_sums"] or bf["table_update_pad"] or bf["table_derive"]:
+        raise AssertionError(f"{tag}: the bfloat16-table fit ran a state-dtype table kernel: {bf}")
+    for r, res in enumerate(results):
+        print("[%s] rank %d, one iteration by part (ms): %s" % (tag, r, json.dumps(res["split"])))
+        ts_cases_report("%s, rank %d" % (tag, r), res["ts_cases"])
+    launches = {k: sum(r0[f]["launches"][k] for f in TS_FITS) for k in r0["ts"]["launches"]}
+    print("[%s] launch counters (rank 0, both fits): %s" % (tag, json.dumps(launches)))
+    return launches
+
+
+def ts_cards(data_dir, refs, n_cards):
+    """Phase 3k (d), with two or more cards: (a)'s fits on an NCCL mesh of
+    every card (the ring's ``batch_isend_irecv`` over NVLink), held and
+    reported as (a)'s.  Returns rank 0's launch counts."""
+    results, run, wall = spawn_ranks("ts", n_cards, "nccl",
+                                     ["cuda:%d" % r for r in range(n_cards)], data_dir,
+                                     save=tuple(TS_FITS))
+    launches = ts_fit_report("3k (d), NCCL over %d cards" % n_cards, results, run, wall, refs)
+    shutil.rmtree(run)
+    return launches
+
+
+def phase_3k(data_root, refs, real, ts_step, small):
+    """Phase 3k: (a) the table-sharded fits of the MillionSong shape
+    (float32 and bfloat16 tables) on two gloo ranks of the one card, held
+    against phases 3 and 3h's fits (``refs``), every rank's engine parts
+    against their plain versions on its fitted state, whose rank-0 figures
+    go into ``real``; (b) the engine's parts on the NCCL mesh of 3j, from
+    ``ts_step`` (3j's rank 0); (c) each rank's half of K13a and K3's
+    pad-row form against their plain versions on phase 2's data set
+    (``small``); (d) with two or more cards, (a) over NCCL on every card.
+    Returns the launch counts of (a)'s rank 0 and of (d)'s (None on one
+    card)."""
+    import torch
+
+    msd = os.path.join(data_root, "msd")
+    results, run, wall = spawn_ranks("ts", 2, "gloo", ["cuda:0", "cuda:0"], msd,
+                                     save=tuple(TS_FITS))
+    launches_ts = ts_fit_report("3k (a), gloo on one card", results, run, wall, refs)
+    real.update(results[0]["ts_cases"])
+    shutil.rmtree(run)
+    st = ts_step["table_sharded_step"]
+    print("[3k (b)] the engine on the NCCL mesh of 3j (%d rank(s)), MillionSong shape, from "
+          "the ELL fit's state (host_pack of the sharded layouts %.3f s; sub-tiles a shard %s, "
+          "buckets %s):" % (st["world"], st["host_pack_s"], st["n_sub"], st["buckets"]))
+    ts_cases_report("3k (b)", ts_step)
+    print("[3k (b)] one step: %.4f ms on the engine, %.4f ms on one device (phase 3's ELL "
+          "step); the states after it: max abs %.3e, max rel %.3e"
+          % (st["ms"], st["one_device_ms"], *st["vs_one_device"]))
+    ts_halves_check(small, torch.device("cuda"))
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print("[3k (d)] NCCL over two or more cards: skipped, this machine has one card")
+        return launches_ts, None
+    return launches_ts, ts_cards(msd, refs, n_cards)
+
+
+def ts_halves_check(small, dev):
+    """Phase 3k (c): every rank's half of K13a (two ranks, in this process,
+    the ring's shards handed in) against its plain version and, reassembled,
+    against the one-device E-step; K3's pad-row form (both tab dtypes) on
+    rank 0's users against its plain version; float32 and float64, on
+    ``small`` (phase 2's data set) from a random state."""
+    import torch
+
+    from hpfrec_tpu_torch.models.state import Hyperparams
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.parallel import table_sharded as TS
+    from hpfrec_tpu_torch.utils.data import build_csr, process_data
+
+    hp = Hyperparams(k=K)
+    for dtype in (np.float32, np.float64):
+        name = np.dtype(dtype).name
+        pdata = process_data(small, "train-llk", False, dtype, sort_by_user=True)
+        nU, nI = pdata.nusers, pdata.nitems
+        csr_u = build_csr(pdata.ix_u, pdata.ix_i, pdata.y, nU, nI)
+        csr_i = build_csr(pdata.ix_i, pdata.ix_u, pdata.y, nI, nU)
+        plan = TS.prepare_table_sharded(*csr_u, *csr_i, nU, nI, K, 2, dtype().itemsize,
+                                        dtype=dtype)
+        st = random_state(nU, nI, dtype, "cpu", 11)
+        full = TS.permute_state(TS.pad_state(st, plan.plan_u[0], plan.plan_i[0]), plan.perm_u,
+                                plan.perm_i)
+        t_pad = C._side_derive_plain(full.G_shp, full.G_rte)[0].to(dev)
+        b_pad = C._side_derive_plain(full.L_shp, full.L_rte)[0].to(dev)
+        slot = [torch.from_numpy(np.argsort(p, kind="stable")[:n]).to(dev)
+                for p, n in ((plan.perm_u, nU), (plan.perm_i, nI))]
+        one = {}
+        for side, (se, perm, n, mine, opp, csr) in enumerate(
+                ((plan.se_u, plan.perm_u, nU, t_pad, b_pad, csr_u),
+                 (plan.se_i, plan.perm_i, nI, b_pad, t_pad, csr_i))):
+            per, per_opp = se.rows_per_dev, se.per_opp
+            got_all = []
+            for d in range(2):
+                share = TS.rank_share(se, d, dev, perm, n)
+                shards = [opp[e * per_opp:(e + 1) * per_opp] for e in ((d - o) % 2 for o in (0, 1))]
+                rows = mine[d * per:(d + 1) * per]
+                got = TS.ring_table_sums(None, rows, None, share, shards=shards)
+                one["ring_table_sums side %d rank %d" % (side, d)] = compare(
+                    "ring_table_sums", got, ts_plain_ring_sums(None, rows, None, share, shards),
+                    name)
+                got_all.append(got)
+                if side == 0 and d == 0:  # K3's pad-row form on rank 0's users
+                    u0 = (got, full.k_rte[:per].to(dev),
+                          torch.full((1, K), 30.0, dtype=got.dtype, device=dev), hp.a, hp.k_shp,
+                          hp.add_k_rte)
+                    for tab_dtype in (None, torch.bfloat16):
+                        u = (*u0, tab_dtype, share.n_real)
+                        one["table_update_pad %s tab" % ("bfloat16" if tab_dtype else "state")] = (
+                            pad_check(share.n_real)("table_update_pad", C.side_update(*u),
+                                                    C._side_update_plain(*u), name))
+            # the halves reassembled against the one-device E-step
+            whole = E.ell_phi_sums(mine[slot[side]], opp[slot[1 - side]],
+                                   E.to_device(E.build_ell(*csr, n, dtype=dtype), dev))
+            one["reassembled side %d vs one device" % side] = compare(
+                "reassembled", torch.cat(got_all)[slot[side]], whole, name)
+        print("[3k] (c) %s, phase 2's data set, two ranks in this process (max abs, max rel): %s"
+              % (name, "; ".join("%s %.3e %.3e" % (k, *v) for k, v in one.items())))
 
 
 def main():
@@ -1972,6 +2487,7 @@ def main():
         raise AssertionError(f"the bfloat16 fit ran a state-dtype table kernel: {launches_bf16}")
     fitted = state_from_numpy([bf.Gamma_shp, bf.Gamma_rte, bf.Lambda_shp, bf.Lambda_rte,
                                bf.k_rte, bf.t_rte], dev)
+    bf_ref = fit_reference(bf, bf.fit_stats_.phases["iterations"] / (bf.niter + 1))
     del bf
     print("[3h] bfloat16-table kernel checks at the fit's shapes (float32 state, fitted; times "
           "per iteration, both sides)")
@@ -2028,9 +2544,15 @@ def main():
 
         # -- 3j. data parallel ----------------------------------------------------
         stamp("phase 3j")
-        launches_dp, launches_dp_gloo = phase_3j(
+        launches_dp, launches_dp_gloo, ts_step = phase_3j(
             data_root, dict(ell=ell_ref, coo=coo_ref, svi=svi_ref),
             {"all": coo_small, "train": train_small, "val": val_small}, counters, real)
+        torch.cuda.empty_cache()
+
+        # -- 3k. the table-sharded engine -------------------------------------------
+        stamp("phase 3k")
+        launches_ts, launches_ts_cards = phase_3k(data_root, dict(ts=ell_ref, ts_bf16=bf_ref),
+                                                  real, ts_step, coo_small)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2095,7 +2617,10 @@ def main():
              "svi_train": launches_train, "svi_diffnorm": launches_dn,
              "svi_maxiter_val": launches_mv, "serving": launches_serving,
              "online": launches_online, "coo": launches_coo, "bf16": launches_bf16,
-             "resume": launches_resume, "dp": launches_dp, "dp_gloo": launches_dp_gloo}
+             "resume": launches_resume, "dp": launches_dp, "dp_gloo": launches_dp_gloo,
+             "ts": launches_ts}
+    if launches_ts_cards is not None:
+        paths["ts_cards"] = launches_ts_cards
     for name, r in real.items():
         src, rep = REPLACES[name]
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -2112,7 +2637,50 @@ def main():
     return 0
 
 
+def ts_cards_main():
+    """``--ts-cards``: phase 3k (d) alone, for a machine with two or more
+    cards: the kernels built, phase 3's data, the one-device fits of phases
+    3 and 3h on card 0 that (d) is held against, then (d).  Exits non-zero
+    with fewer than two cards or on a failed check."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --ts-cards: needs two or more CUDA cards", file=sys.stderr)
+        return 1
+    from hpfrec_tpu_torch import _cuda
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print("[1] cards (nvidia-smi name, power.limit):", smi.replace("\n", "; "))
+    t0 = time.perf_counter()
+    _cuda.load()
+    print("[1] kernels built/loaded in %.1f s" % (time.perf_counter() - t0))
+    coo = powerlaw_coo(**MILLIONSONG, seed=0)
+    refs = {}
+    for name, kw in (("ts", {}), ("ts_bf16", dict(gather_dtype="bfloat16"))):
+        m = recording_hpf()(k=K, stop_crit="train-llk", check_every=5, maxiter=10, random_seed=1,
+                            device="cuda:0", verbose=False, **kw)
+        m.llk_trace = []
+        m.fit(coo)
+        refs[name] = fit_reference(m, m.fit_stats_.phases["iterations"] / (m.niter + 1))
+        del m
+    torch.cuda.empty_cache()
+    data_root = tempfile.mkdtemp(prefix="hpf_ts_cards_")
+    try:
+        save_triplets(os.path.join(data_root, "all"), coo)
+        del coo
+        ts_cards(data_root, refs, torch.cuda.device_count())
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
         sys.exit(dp_rank_main(sys.argv[2]))
+    if sys.argv[1:] == ["--ts-cards"]:
+        sys.exit(ts_cards_main())
     sys.exit(main())

@@ -33,12 +33,12 @@ _SIGNATURES = {
     # seg, inv_perm, split_indptr, split_seg_pos, out, n_rows, k, P
     "segment_table_sums": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
     # sums, scaler_old, colsum_other, prior, scaler_shape, add_scaler,
-    # shp, rte, tab, scaler_new, partials, n, k, nblocks
-    "table_update": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I32, _I32],
+    # shp, rte, tab, scaler_new, partials, n, n_real, k, nblocks
+    "table_update": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32],
     # shp, rte, tab, partials, n, k, nblocks
     "table_derive": [_P, _P, _P, _P, _I64, _I32, _I32],
     # the same two with a bfloat16 tab
-    "table_update_bf16": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I32, _I32],
+    "table_update_bf16": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32],
     "table_derive_bf16": [_P, _P, _P, _P, _I64, _I32, _I32],
     # partials, colsum, nblocks, k
     "colsum_finish": [_P, _P, _I32, _I32],

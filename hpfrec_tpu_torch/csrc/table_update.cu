@@ -4,7 +4,8 @@
 // math of hpfrec_tpu/ops/ell.py:cavi_step_ell_carried (ell.py:795-812) and
 // with _carry_init (ell.py:743).  Per row r of one side:
 //   update form:  shp = prior + sums[r];  rte = scaler_shape / scaler_old[r]
-//                 + colsum_other;  scaler_new[r] = add_scaler + rowsum(mean)
+//                 + colsum_other;  scaler_new[r] = add_scaler + rowsum(mean),
+//                 or 0 for r >= n_real (the pad-row form below)
 //   derive form:  shp, rte given
 //   both:         mean = shp / rte;  tab = exp(digamma(shp) - log(rte) -
 //                 rowmax), a non-finite rowmax set to 0 (cavi.py:61-68);
@@ -14,6 +15,16 @@
 // bfloat16 (narrow() in common.cuh: float64 rounds through float32, as the
 // frameworks' conversions do); shp, rte, the scaler and the colsums stay in
 // the state dtype.
+//
+// Pad-row form (the table-sharded engine, replacing the row-masked scaler
+// update of hpfrec_tpu/parallel/table_sharded.py:432-433): a rank's table
+// rows at or past n_real are padding, the tail of its rows, and write
+// scaler 0.  A pad row enters with shp 1, rte +inf and scaler 0, so its
+// next rate is scaler_shape / 0 = +inf, its mean shp / inf = +0.0 and its
+// tab exp(-inf - 0) = +0.0 (the non-finite rowmax set to 0): it adds
+// exactly nothing to any colsum or phi sum, and writing scaler 0 keeps
+// that true for the next iteration.  This needs IEEE division and logf
+// (no --use_fast_math).  n_real = n is the plain update form.
 //
 // What bounds it on the card: one streaming pass over the side's tables
 // (read sums or shp+rte, write shp, rte and tab: 16-20 bytes per element
@@ -39,7 +50,8 @@ __global__ void __launch_bounds__(kThreads)
     table_kernel(const T* __restrict__ a_in, const T* __restrict__ b_in,
                  const T* __restrict__ colsum_other, T prior, T scaler_shape, T add_scaler,
                  T* __restrict__ shp_out, T* __restrict__ rte_out, TabT* __restrict__ tab_out,
-                 T* __restrict__ scaler_out, T* __restrict__ partials, int64_t n, int k) {
+                 T* __restrict__ scaler_out, T* __restrict__ partials, int64_t n,
+                 int64_t n_real, int k) {
   __shared__ T red[kWarpsPerBlock][kWarp * KPL];
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
@@ -92,7 +104,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (UPDATE) {
       rowsum = warp_sum(rowsum);
-      if (lane == 0) scaler_out[r] = add_scaler + rowsum;
+      if (lane == 0) scaler_out[r] = r < n_real ? add_scaler + rowsum : T(0);
     }
   }
 
@@ -122,12 +134,12 @@ __global__ void colsum_finish_kernel(const T* __restrict__ partials, T* __restri
 template <int KPL, typename T, typename TabT>
 cudaError_t launch_update(const T* sums, const T* scaler_old, const T* colsum_other, double prior,
                           double scaler_shape, double add_scaler, T* shp, T* rte, TabT* tab,
-                          T* scaler_new, T* partials, int64_t n, int k, int nblocks,
-                          cudaStream_t stream) {
-  if (nblocks <= 0) return cudaErrorInvalidValue;
+                          T* scaler_new, T* partials, int64_t n, int64_t n_real, int k,
+                          int nblocks, cudaStream_t stream) {
+  if (nblocks <= 0 || n_real < 0 || n_real > n) return cudaErrorInvalidValue;
   table_kernel<KPL, true, T, TabT><<<nblocks, kThreads, 0, stream>>>(
       sums, scaler_old, colsum_other, (T)prior, (T)scaler_shape, (T)add_scaler, shp, rte, tab,
-      scaler_new, partials, n, k);
+      scaler_new, partials, n, n_real, k);
   return cudaGetLastError();
 }
 
@@ -136,7 +148,7 @@ cudaError_t launch_derive(const T* shp, const T* rte, TabT* tab, T* partials, in
                           int nblocks, cudaStream_t stream) {
   if (nblocks <= 0) return cudaErrorInvalidValue;
   table_kernel<KPL, false, T, TabT><<<nblocks, kThreads, 0, stream>>>(
-      shp, rte, nullptr, T(0), T(0), T(0), nullptr, nullptr, tab, nullptr, partials, n, k);
+      shp, rte, nullptr, T(0), T(0), T(0), nullptr, nullptr, tab, nullptr, partials, n, n, k);
   return cudaGetLastError();
 }
 
@@ -154,19 +166,19 @@ extern "C" {
 int hpf_table_update_f32(const float* sums, const float* scaler_old, const float* colsum_other,
                          double prior, double scaler_shape, double add_scaler, float* shp,
                          float* rte, float* tab, float* scaler_new, float* partials, int64_t n,
-                         int32_t k, int32_t nblocks, void* stream) {
+                         int64_t n_real, int32_t k, int32_t nblocks, void* stream) {
   HPF_DISPATCH_KPL(k, hpf::launch_update, sums, scaler_old, colsum_other, prior, scaler_shape,
-                   add_scaler, shp, rte, tab, scaler_new, partials, n, k, nblocks,
+                   add_scaler, shp, rte, tab, scaler_new, partials, n, n_real, k, nblocks,
                    (cudaStream_t)stream);
 }
 
 int hpf_table_update_f64(const double* sums, const double* scaler_old,
                          const double* colsum_other, double prior, double scaler_shape,
                          double add_scaler, double* shp, double* rte, double* tab,
-                         double* scaler_new, double* partials, int64_t n, int32_t k,
-                         int32_t nblocks, void* stream) {
+                         double* scaler_new, double* partials, int64_t n, int64_t n_real,
+                         int32_t k, int32_t nblocks, void* stream) {
   HPF_DISPATCH_KPL(k, hpf::launch_update, sums, scaler_old, colsum_other, prior, scaler_shape,
-                   add_scaler, shp, rte, tab, scaler_new, partials, n, k, nblocks,
+                   add_scaler, shp, rte, tab, scaler_new, partials, n, n_real, k, nblocks,
                    (cudaStream_t)stream);
 }
 
@@ -186,20 +198,20 @@ int hpf_table_derive_f64(const double* shp, const double* rte, double* tab, doub
 int hpf_table_update_bf16_f32(const float* sums, const float* scaler_old,
                               const float* colsum_other, double prior, double scaler_shape,
                               double add_scaler, float* shp, float* rte, __nv_bfloat16* tab,
-                              float* scaler_new, float* partials, int64_t n, int32_t k,
-                              int32_t nblocks, void* stream) {
+                              float* scaler_new, float* partials, int64_t n, int64_t n_real,
+                              int32_t k, int32_t nblocks, void* stream) {
   HPF_DISPATCH_KPL(k, hpf::launch_update, sums, scaler_old, colsum_other, prior, scaler_shape,
-                   add_scaler, shp, rte, tab, scaler_new, partials, n, k, nblocks,
+                   add_scaler, shp, rte, tab, scaler_new, partials, n, n_real, k, nblocks,
                    (cudaStream_t)stream);
 }
 
 int hpf_table_update_bf16_f64(const double* sums, const double* scaler_old,
                               const double* colsum_other, double prior, double scaler_shape,
                               double add_scaler, double* shp, double* rte, __nv_bfloat16* tab,
-                              double* scaler_new, double* partials, int64_t n, int32_t k,
-                              int32_t nblocks, void* stream) {
+                              double* scaler_new, double* partials, int64_t n, int64_t n_real,
+                              int32_t k, int32_t nblocks, void* stream) {
   HPF_DISPATCH_KPL(k, hpf::launch_update, sums, scaler_old, colsum_other, prior, scaler_shape,
-                   add_scaler, shp, rte, tab, scaler_new, partials, n, k, nblocks,
+                   add_scaler, shp, rte, tab, scaler_new, partials, n, n_real, k, nblocks,
                    (cudaStream_t)stream);
 }
 

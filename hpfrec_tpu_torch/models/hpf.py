@@ -29,11 +29,11 @@ parallel: every rank runs the same script on the same data, takes its
 share of the nonzeros through the kernels, and meets the other ranks in
 a collective (``parallel/engine.py``, K12); every rank ends with the same
 fitted attributes.  ``mesh=None`` is one device, where JAX's means all
-local devices.  The table-sharded engine (``shard_tables=True`` on a
-full-batch ELL fit over more than one rank) is not ported yet and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.  Fixed (seed,
-dtype, device, mesh size) gives bit-identical runs: no kernel uses
-atomics.
+local devices.  With ``shard_tables=True`` a full-batch ELL fit over more
+than one rank runs the table-sharded engine (``parallel/table_sharded.py``,
+K13): each rank holds a block of rows of both factor tables, and the
+opposite exp table travels around a ring.  Fixed (seed, dtype, device,
+mesh size) gives bit-identical runs: no kernel uses atomics.
 """
 
 from __future__ import annotations
@@ -77,12 +77,6 @@ def _host_to_device(a, device) -> torch.Tensor:
     return t.to(device, copy=True)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to hpfrec_tpu_torch yet "
-        f"(ROADMAP.md, Queue 1 item {item}); use hpfrec_tpu for it")
-
-
 class HPF:
     """Hierarchical Poisson Factorization, fit by full-batch CAVI or
     mini-batch SVI on one PyTorch device.
@@ -103,8 +97,9 @@ class HPF:
         calls ``fit`` / ``partial_fit`` with the same data; checkpoints,
         ``save_folder`` and ``profile_dir`` are written by rank 0.
 
-    Not ported yet (raises ``NotImplementedError``): ``shard_tables=True``
-    on a full-batch ELL fit over more than one rank.  ``gather_dtype``
+    ``shard_tables=True`` on a full-batch ELL fit over more than one rank
+    shards both factor tables over the ranks (``parallel/table_sharded.py``);
+    every rank still ends with the whole fitted state.  ``gather_dtype``
     ``'auto'`` and ``'float32'`` both mean the
     state dtype (JAX's ``'auto'`` picks bfloat16 above a TPU threshold);
     ``'bfloat16'`` stores the ELL engine's exp tables in bfloat16.
@@ -431,14 +426,15 @@ class HPF:
         self._own("Theta", G_shp / G_rte)
         self._own("Beta", L_shp / L_rte)
         self._beta_dev_cache = self._beta_colsum_cache = None
+        self._dev_state_cache = None
         if self.keep_all_objs:
             for name, arr in zip(self._STATE_ATTRS,
                                  (G_shp, G_rte, L_shp, L_rte, k_rte, t_rte)):
                 self._own(name, arr)
-            self._dev_state_cache = (self._state_fingerprint(), state, self._state_refs())
+            # a table-sharded fit's state comes back on the host: not cached
+            if state.G_shp.device.type == self._torch_device().type:
+                self._dev_state_cache = (self._state_fingerprint(), state, self._state_refs())
             self._freeze_owned(self._STATE_ATTRS)
-        else:
-            self._dev_state_cache = None
 
     def _state_from_host(self) -> VariationalState:
         """The device state from the host attributes, from the cache when
@@ -486,10 +482,6 @@ class HPF:
                 "(users_per_batch/items_per_batch): only the full-batch ELL "
                 "engine has a table-sharded variant; SVI shards each batch's "
                 "phi sums over the mesh instead.")
-        elif self.shard_tables and self.engine == "ell" and self._n_ranks > 1:
-            # JAX hpf.py:925 takes its table-sharded engine here
-            raise _not_ported("The table-sharded engine (shard_tables=True on a "
-                              "full-batch ELL fit over more than one rank)", "11")
         dev = self._torch_device()
 
         from .. import _native
@@ -554,6 +546,7 @@ class HPF:
         self._nnz = nnz
         self._metric_ell = None
         self._metric_coo = None
+        self._table_shard = None
         self._val = None
         if val_arrays is not None:
             with stats.phase("valset"):
@@ -572,7 +565,9 @@ class HPF:
         end_tm = (time.time() - st_time) / 60.0
         with stats.phase("metric_checks"):
             self._final_eval(state, colsums)
-        self._metric_ell = self._metric_coo = self._val = None  # per-fit device buffers
+            state = self._real_state(state)
+        # per-fit device buffers
+        self._metric_ell = self._metric_coo = self._val = self._table_shard = None
         stats.stop(self.niter + 1)
         if self.verbose:
             self._print_final_msg(self.niter + 1, self._last_llk, self._last_rmse, end_tm)
@@ -604,6 +599,33 @@ class HPF:
     @property
     def _n_ranks(self) -> int:
         return 1 if self.mesh is None else self.mesh.world_size
+
+    @property
+    def _table_sharded(self) -> bool:
+        """Whether a full-batch fit takes the table-sharded engine (JAX
+        ``hpf.py:925``): ``shard_tables=True``, the ELL engine, more than one
+        rank."""
+        return self.shard_tables and self.engine == "ell" and self._n_ranks > 1
+
+    def _real_state(self, state):
+        """The fit's whole state, real rows in their original order, from
+        what the loop holds: the same state, or in a table-sharded fit the
+        rank's padded rows, gathered from every rank onto the host one array
+        at a time."""
+        return state if self._table_shard is None else self._table_shard.real_state(state)
+
+    def _real_factors(self, state):
+        """(Theta, Beta) on the device, real rows in their original order:
+        in a table-sharded fit gathered from every rank (a validation check
+        then holds both whole tables on every device, as a one-device fit
+        does)."""
+        Theta = state.G_shp / state.G_rte
+        Beta = state.L_shp / state.L_rte
+        ts = self._table_shard
+        if ts is None:
+            return Theta, Beta
+        Theta = ts.gather_rows(Theta, True)
+        return Theta, ts.gather_rows(Beta, False)
 
     @property
     def _shard(self):
@@ -693,6 +715,7 @@ class HPF:
         if iters_done % self.checkpoint_every == 0:
             from ..utils import io as io_utils
 
+            state = self._real_state(state)  # JAX hpf.py:888-892: real rows only
             extra = {}
             if last_crit is not None:
                 extra["last_crit"] = float(last_crit)
@@ -712,19 +735,40 @@ class HPF:
         """Full-batch CAVI on the ELL engine (K1-K3; bfloat16 exp tables
         with ``gather_dtype='bfloat16'``) or the blocked-COO engine (K7c,
         K3); with a mesh, on the rank's share of the layouts or of the
-        stream (K12a, K12c).  Returns the final state and a function giving
-        its mean colsums (for the train metric)."""
+        stream (K12a, K12c), or with ``shard_tables=True`` on the rank's
+        rows of both tables (K13, ``parallel/table_sharded.py``).  Returns
+        the final state (table-sharded: the rank's padded rows, which
+        ``_real_state`` gathers) and a function giving its mean colsums (for
+        the train metric)."""
         from ..ops.cavi import _carry_init, coo_stream, run_cavi_block_coo
         from ..ops.ell import (build_layouts, gather_table_dtype, run_cavi_block_ell,
                                to_device)
 
-        coo = None
+        coo = ts = None
         gd = None
         if self.engine == "coo":
             with stats.phase("host_pack"):
                 coo = coo_stream(pdata, dev, self.block_size, self._shard)
             self._metric_coo = coo.data
             self._load_kernels(dev, stats)
+        elif self._table_sharded:
+            from ..parallel.table_sharded import TableSharded, prepare_table_sharded
+
+            gd = gather_table_dtype(self.gather_dtype)
+            g_item = 2 if gd is not None else np.dtype(self._dtype).itemsize
+            with stats.phase("host_pack"):
+                csr_u = data_utils.build_csr(pdata.ix_u, pdata.ix_i, pdata.y, self.nusers,
+                                             self.nitems)
+                csr_i = data_utils.build_csr(pdata.ix_i, pdata.ix_u, pdata.y, self.nitems,
+                                             self.nusers)
+                plan = prepare_table_sharded(*csr_u, *csr_i, self.nusers, self.nitems, self.k,
+                                             self._n_ranks, g_item, dtype=self._dtype)
+                del csr_u, csr_i
+            self._load_kernels(dev, stats)
+            with stats.phase("transfer"):
+                ts = self._table_shard = TableSharded(self.mesh, plan, self.nusers,
+                                                      self.nitems, dev)
+                del plan
         else:
             gd = gather_table_dtype(self.gather_dtype)
             with stats.phase("host_pack"):
@@ -735,7 +779,8 @@ class HPF:
                 lay_i = to_device(ell_i, dev, self._shard)
             self._metric_ell = lay_u
         with stats.phase("transfer"):
-            state = VariationalState(*[a.to(dev) for a in state])
+            state = (ts.shard_state(state) if ts is not None
+                     else VariationalState(*[a.to(dev) for a in state]))
 
         self._last_llk = 0.0
         self._last_rmse = 0.0
@@ -751,12 +796,14 @@ class HPF:
         chunk = self.check_every if self.check_every > 0 else self.maxiter
         ex = self._exchanges()
         with stats.phase("iterations"):
-            carry = _carry_init(state, gd)
+            carry = ts.carry_init(state, gd) if ts is not None else _carry_init(state, gd)
         while iters_done < self.maxiter:
             n = min(chunk, self.maxiter - iters_done)
             with stats.phase("iterations"):
                 if coo is not None:
                     carry = run_cavi_block_coo(carry, coo, n, hp, ex.coo)
+                elif ts is not None:
+                    carry = ts.run(carry, n, hp, gd)
                 else:
                     carry = run_cavi_block_ell(carry, lay_u, lay_i, n, hp, gd, ex.ell)
             iters_done += n
@@ -898,19 +945,30 @@ class HPF:
     def _criterion_metric(self, state, colsums, use_val=True):
         """(llk, rmse, name) of one check: over the validation set when
         there is one (and ``use_val``), else the train metric on the
-        user-side ELL layout, or on the blocked-COO training stream, with
-        the colsums that ``colsums()`` gives."""
-        from ..ops.metrics import ell_train_llk_rmse, train_llk_rmse, val_llk_rmse
+        user-side ELL layout, or on the blocked-COO training stream, or in a
+        table-sharded fit on the rank's users with Beta on the ring (K13c),
+        with the colsums that ``colsums()`` gives.  A table-sharded fit's
+        validation check reads the real rows in their original order
+        (gathered: JAX reads its padded, permuted rows there instead)."""
+        from ..ops.metrics import (_train_llk, ell_train_llk_rmse, train_llk_rmse,
+                                   val_llk_rmse)
 
-        Theta = state.G_shp / state.G_rte
-        Beta = state.L_shp / state.L_rte
+        ts = self._table_shard
         gather = self._exchanges().partials
         if use_val and self._val is not None:
+            Theta, Beta = self._real_factors(state)
             llk, rmse = val_llk_rmse(Theta, Beta, self._val.data, self._val.nnz,
                                      self.full_llk, gather)
             return llk, rmse, "val"
+        Theta = state.G_shp / state.G_rte
+        Beta = state.L_shp / state.L_rte
         theta_colsum, beta_colsum = colsums()
-        if self._metric_ell is not None:
+        if ts is not None:
+            from ..parallel.table_sharded import table_sharded_llk_parts
+
+            parts = table_sharded_llk_parts(ts.mesh, Theta, Beta, ts.u, self.full_llk)
+            llk, rmse = _train_llk(gather(parts), self._nnz, theta_colsum, beta_colsum)
+        elif self._metric_ell is not None:
             llk, rmse = ell_train_llk_rmse(Theta, Beta, self._metric_ell, self._nnz,
                                            theta_colsum, beta_colsum, self.full_llk, gather)
         else:
@@ -925,7 +983,8 @@ class HPF:
 
         if self.stop_crit == 'diff-norm':
             Theta = state.G_shp / state.G_rte
-            norm = theta_diff_norm(Theta, Theta_prev)
+            norm = theta_diff_norm(Theta, Theta_prev, None if self._table_shard is None
+                                   else self._exchanges().partials)
             self._nan_sentinel(norm, it)
             if self.verbose:
                 print("Iteration %d | Norm(Theta_{%d} - Theta_{%d}): %.5f"
@@ -976,8 +1035,7 @@ class HPF:
         if not self.verbose:
             return
         if self._val is not None:
-            Theta = state.G_shp / state.G_rte
-            Beta = state.L_shp / state.L_rte
+            Theta, Beta = self._real_factors(state)
             parts = self._exchanges().partials(
                 llk_rmse_sums(Theta, Beta, self._val.data, self.full_llk)).cpu().numpy()
             dev = Theta.device

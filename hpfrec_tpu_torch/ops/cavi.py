@@ -19,7 +19,11 @@ scaler ``t_rte``)::
 version below for CPU tensors; with ``tab_dtype=torch.bfloat16`` (the
 ``gather_dtype='bfloat16'`` option of the ELL engine) they store ``tab``
 in bfloat16 (launches counted in ``.launches_bf16``, the others in
-``.launches``).  The SVI batches (``ops/svi.py``) derive both sides' tables
+``.launches``).  ``side_update``'s pad-row form (``n_real``, for the
+table-sharded engine) writes ``scaler = 0`` on a rank's padding rows,
+which keeps them inert (``csrc/table_update.cu`` says how), and
+``colsum_finish`` adds the ranks' (1, k) colsums in one fixed order.  The
+SVI batches (``ops/svi.py``) derive both sides' tables
 with ``side_derive`` before every batch.
 
 ``cavi_step_carried`` is one iteration given its phi sums: the user side
@@ -96,12 +100,14 @@ def exp_elog_tables(shp, rte):
 
 
 def _side_update_plain(sums, scaler_old, colsum_other, prior, scaler_shape,
-                       add_scaler, tab_dtype=None):
+                       add_scaler, tab_dtype=None, n_real=None):
     shp = prior + sums
     rte = scaler_shape / scaler_old + colsum_other
     mean = shp / rte
     tab = exp_elog_tables(shp, rte)
     scaler = add_scaler + mean.sum(dim=1, keepdim=True)
+    if n_real is not None:
+        scaler[n_real:] = 0
     return (shp, rte, tab if tab_dtype is None else tab.to(tab_dtype), scaler,
             mean.sum(dim=0, keepdim=True))
 
@@ -135,16 +141,20 @@ def _finish_colsum(partials, nblocks, k):
 
 
 def side_update(sums, scaler_old, colsum_other, prior: float,
-                scaler_shape: float, add_scaler: float, tab_dtype=None):
+                scaler_shape: float, add_scaler: float, tab_dtype=None, n_real=None):
     """K3 update form.  Returns ``(shp, rte, tab, scaler, colsum)`` with
     shapes (n, k) x 3, (n, 1), (1, k); ``tab`` in ``tab_dtype`` (None: the
-    state dtype)."""
+    state dtype).  ``n_real`` (an int in [0, n]) selects the pad-row form:
+    rows ``n_real`` and after write ``scaler = 0`` (launches counted in
+    ``.launches_pad`` / ``.launches_pad_bf16``)."""
+    n, k = sums.shape
+    if n_real is not None and not 0 <= n_real <= n:
+        raise ValueError("side_update: n_real=%s outside [0, %d]" % (n_real, n))
     if not sums.is_cuda:
         return _side_update_plain(sums, scaler_old, colsum_other, prior,
-                                  scaler_shape, add_scaler, tab_dtype)
+                                  scaler_shape, add_scaler, tab_dtype, n_real)
     from .. import _cuda
 
-    n, k = sums.shape
     _cuda.check(sums, scaler_old, colsum_other, dtype=sums.dtype)
     if scaler_old.shape != (n, 1) or colsum_other.shape != (1, k):
         raise ValueError("side_update: shape mismatch")
@@ -156,15 +166,16 @@ def side_update(sums, scaler_old, colsum_other, prior: float,
     partials = torch.empty((nblocks, k), dtype=sums.dtype, device=sums.device)
     _cuda.launch(name, sums.dtype, k, sums, scaler_old, colsum_other,
                  float(prior), float(scaler_shape), float(add_scaler),
-                 shp, rte, tab, scaler, partials, n, k, nblocks)
-    if tab_dtype is None:
-        side_update.launches += 1
-    else:
-        side_update.launches_bf16 += 1
+                 shp, rte, tab, scaler, partials, n, n if n_real is None else n_real, k,
+                 nblocks)
+    counter = "launches" + ("" if n_real is None else "_pad") + (
+        "" if tab_dtype is None else "_bf16")
+    setattr(side_update, counter, getattr(side_update, counter) + 1)
     return shp, rte, tab, scaler, _finish_colsum(partials, nblocks, k)
 
 
 side_update.launches = side_update.launches_bf16 = 0
+side_update.launches_pad = side_update.launches_pad_bf16 = 0
 
 
 def side_derive(shp, rte, tab_dtype=None):
@@ -193,6 +204,24 @@ def side_derive(shp, rte, tab_dtype=None):
 side_derive.launches = side_derive.launches_bf16 = 0
 
 
+def colsum_finish(partials):
+    """``partials.sum(0)`` as (1, k), added in one fixed order: K3's
+    finishing pass, which the table-sharded engine runs over the (W, k)
+    colsums of its W ranks, so that every rank gets the same bits."""
+    if not partials.is_cuda:
+        return partials.sum(dim=0, keepdim=True)
+    from .. import _cuda
+
+    nblocks, k = partials.shape
+    _cuda.check(partials, dtype=partials.dtype)
+    out = _finish_colsum(partials, nblocks, k)
+    colsum_finish.launches += 1
+    return out
+
+
+colsum_finish.launches = 0
+
+
 # ---- the carried iteration ---------------------------------------------
 
 class Carry(NamedTuple):
@@ -216,17 +245,27 @@ def _carry_init(state, gather_dtype=None) -> Carry:
     return Carry(state, t_tab, b_tab, theta_colsum, beta_colsum)
 
 
-def cavi_step_carried(carry: Carry, su, si, hp, gather_dtype=None) -> Carry:
+def cavi_step_carried(carry: Carry, su, si, hp, gather_dtype=None, colsum=None,
+                      n_real=(None, None)) -> Carry:
     """The table math of one CAVI iteration (reference
     ``cython_loops.pxi:227-259``) given both sides' phi sums of the
     carried tables: the user side is updated first with the carried
     colsum(Beta) and the old k_rte, then the item side with colsum of the
-    new Theta and the old t_rte (K3's update form, twice)."""
+    new Theta and the old t_rte (K3's update form, twice).
+
+    The table-sharded engine holds a rank's rows of each table: it passes
+    ``colsum``, which turns the rank's (1, k) colsum into the colsum over
+    every rank, and ``n_real`` (users, items), the rank's real rows, for
+    K3's pad-row form."""
     state = carry.state
+    colsum = colsum or (lambda c: c)
     G_shp, G_rte, t_new, k_rte, theta_colsum = side_update(
-        su, state.k_rte, carry.beta_colsum, hp.a, hp.k_shp, hp.add_k_rte, gather_dtype)
+        su, state.k_rte, carry.beta_colsum, hp.a, hp.k_shp, hp.add_k_rte, gather_dtype,
+        n_real[0])
+    theta_colsum = colsum(theta_colsum)
     L_shp, L_rte, b_new, t_rte, beta_colsum = side_update(
-        si, state.t_rte, theta_colsum, hp.c, hp.t_shp, hp.add_t_rte, gather_dtype)
+        si, state.t_rte, theta_colsum, hp.c, hp.t_shp, hp.add_t_rte, gather_dtype, n_real[1])
+    beta_colsum = colsum(beta_colsum)
     return Carry(VariationalState(G_shp, G_rte, L_shp, L_rte, k_rte, t_rte),
                  t_new, b_new, theta_colsum, beta_colsum)
 

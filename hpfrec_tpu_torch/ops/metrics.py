@@ -243,23 +243,31 @@ def _theta_diff_norm_plain(Theta, Theta_prev) -> float:
     return float(torch.sqrt(torch.sum(d * d)))
 
 
-def theta_diff_norm(Theta, Theta_prev) -> float:
+def theta_diff_norm(Theta, Theta_prev, gather=None) -> float:
     """K11: Frobenius norm of the Theta delta (diff-norm stopping
     criterion, reference ``pxi:59``); the squared sum is rounded to the
     state dtype before the square root, as the JAX function takes it in
-    that dtype."""
+    that dtype.  In a table-sharded fit ``Theta`` holds the rank's rows and
+    ``gather`` (K12d) brings every rank's float64 partials of the squared
+    sum."""
     if not Theta.is_cuda:
-        return _theta_diff_norm_plain(Theta, Theta_prev)
-    from .. import _cuda
+        if gather is None:
+            return _theta_diff_norm_plain(Theta, Theta_prev)
+        d = Theta - Theta_prev
+        partials = torch.sum(d * d).to(torch.float64).reshape(1)
+    else:
+        from .. import _cuda
 
-    _cuda.check(Theta, Theta_prev, dtype=Theta.dtype)
-    if Theta_prev.shape != Theta.shape:
-        raise ValueError("theta_diff_norm: shape mismatch")
-    n = Theta.numel()
-    nblocks = _reduce_blocks(n, 256)
-    partials = torch.empty(nblocks, dtype=torch.float64, device=Theta.device)
-    _cuda.launch("theta_diff", Theta.dtype, None, Theta, Theta_prev, partials, n, nblocks)
-    theta_diff_norm.launches += 1
+        _cuda.check(Theta, Theta_prev, dtype=Theta.dtype)
+        if Theta_prev.shape != Theta.shape:
+            raise ValueError("theta_diff_norm: shape mismatch")
+        n = Theta.numel()
+        nblocks = _reduce_blocks(n, 256)
+        partials = torch.empty(nblocks, dtype=torch.float64, device=Theta.device)
+        _cuda.launch("theta_diff", Theta.dtype, None, Theta, Theta_prev, partials, n, nblocks)
+        theta_diff_norm.launches += 1
+    if gather is not None:
+        partials = gather(partials)
     total = partials.cpu().numpy().sum()
     return float(np.sqrt(_np_dtype(Theta)(total)))
 

@@ -211,22 +211,34 @@ OFF_SLICE = ["shard_tables", "mesh"]
 
 
 @pytest.mark.parametrize("option", OFF_SLICE)
-def test_off_slice_options_raise(option):
-    """A ``mesh`` that is not a ``parallel.Mesh`` is a TypeError; the
-    table-sharded engine (a full-batch ELL fit with ``shard_tables=True``
-    over more than one rank) is not ported and raises, naming its ROADMAP
-    item, before any collective: a stub two-rank mesh with no process
-    group serves."""
+def test_off_slice_options_raise(option, monkeypatch):
+    """A ``mesh`` that is not a ``parallel.Mesh`` is a TypeError; a
+    full-batch ELL fit with ``shard_tables=True`` over more than one rank
+    takes the table-sharded engine (JAX ``hpf.py:925``) with the sharded
+    layouts of every rank, and no collective before it: a stub two-rank
+    mesh with no process group reaches it (a stand-in engine raises
+    there)."""
     from hpfrec_tpu_torch import HPF
-    from hpfrec_tpu_torch.parallel import Mesh
+    from hpfrec_tpu_torch.parallel import Mesh, table_sharded
 
     if option == "mesh":
         with pytest.raises(TypeError, match="parallel.Mesh"):
             HPF(mesh=object())
         return
+
+    class Reached(Exception):
+        pass
+
+    def engine(mesh, plan, n_users, n_items, device):
+        assert (mesh.world_size, n_users, n_items, device) == (2, 20, 15, torch.device("cpu"))
+        assert plan.se_u.inv_perm.shape[0] == plan.se_i.inv_perm.shape[0] == 2
+        raise Reached
+
+    monkeypatch.setattr(table_sharded, "TableSharded", engine)
     stub = Mesh(group=None, world_size=2, rank=0, device=torch.device("cpu"))
-    m = HPF(k=3, maxiter=2, check_every=2, verbose=False, shard_tables=True, mesh=stub)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 11"):
+    m = HPF(k=3, maxiter=2, check_every=2, verbose=False, shard_tables=True, mesh=stub,
+            random_seed=1, reindex=False)
+    with pytest.raises(Reached):
         m.fit(_df(nU=20, nI=15, nnz=100))
 
 

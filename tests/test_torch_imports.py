@@ -38,11 +38,13 @@ def test_no_jax_or_hpfrec_tpu_import(path):
 
 
 @pytest.mark.parametrize("module", ["hpfrec_tpu_torch.compat", "hpfrec_tpu_torch.utils.io",
-                                    "hpfrec_tpu_torch.parallel.distributed"])
+                                    "hpfrec_tpu_torch.parallel.distributed",
+                                    "hpfrec_tpu_torch.parallel.table_sharded"])
 def test_module_loads_neither_jax_nor_the_jax_package(module):
     """Importing the module and calling it (a checkpoint round trip, a
-    batch gather, a single-process ``initialize`` and an exchange) in a
-    fresh interpreter loads no jax and no hpfrec_tpu module."""
+    batch gather, a single-process ``initialize`` and an exchange, the
+    sharded layouts of two ranks and a rank's share of them) in a fresh
+    interpreter loads no jax and no hpfrec_tpu module."""
     import subprocess
     import sys
 
@@ -65,6 +67,11 @@ def test_module_loads_neither_jax_nor_the_jax_package(module):
         "        warnings.simplefilter('ignore')\n"
         "        mesh = m.initialize(device='cpu')\n"
         "    assert engine.all_gather_rows(mesh, torch.ones(2, 3)).shape == (2, 3)\n"
+        "elif hasattr(m, 'prepare_table_sharded'):\n"
+        "    ip, ind, dat = np.array([0, 1, 3]), np.array([0, 1, 2], np.int32), np.ones(3)\n"
+        "    ipt, indt = np.array([0, 1, 2, 3]), np.array([0, 1, 1], np.int32)\n"
+        "    plan = m.prepare_table_sharded(ip, ind, dat, ipt, indt, dat, 2, 3, 2, 2, 4)\n"
+        "    assert m.rank_share(plan.se_u, 1, 'cpu', plan.perm_u, 2).n_real == 1\n"
         "else:\n"
         "    m.get_unique_items_batch(np.array([0]), np.array([0, 2]), np.array([1, 0]), 1)\n"
         "bad = [n for n in set(sys.modules) - before\n"

@@ -3,7 +3,7 @@ on the card, in float32 and float64, on small layouts that cover split
 rows, tiled (column-offset) buckets and zero-degree rows, SVI batches
 whose rows span many of K7's 256-slot chunks on both sides, the whole-stream
 phi sums of the blocked-COO engine (K7c), the bfloat16-table forms of K1
-and K3, top-n ranking
+and K3, K3's pad-row form (the table-sharded engine's), top-n ranking
 (K6) with ties, fully masked rows and every size class of n, the fold-in
 loop (K10) and the pair reductions (K11).
 
@@ -443,6 +443,42 @@ def test_table_update_bf16_kernel_vs_plain(cuda, dtype, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tab_dtype", [None, torch.bfloat16], ids=["state", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [8, 50, 256])
+def test_table_update_pad_rows_kernel_vs_plain(cuda, dtype, tab_dtype, k):
+    """K3's pad-row form (``n_real``) against its plain twin.  The real
+    rows equal the update form's on those rows bit for bit; the padding
+    rows (entering with sums 0 and scaler 0, as the table-sharded engine
+    keeps them) write rate +inf, scaler 0, and a tab and mean of exactly
+    +0.0 (``k_shp / 0``, ``logf(inf)`` and the non-finite rowmax guard)."""
+    from hpfrec_tpu_torch.ops import cavi as C
+
+    n, n_real = 5000, 4993
+    sums = _tables(n, k, dtype, cuda, 4) * 30
+    scaler = _tables(n, 1, dtype, cuda, 5) + 1
+    colsum = _tables(1, k, dtype, cuda, 6) * 100
+    sums[n_real:], scaler[n_real:] = 0, 0
+    args = (0.3, 0.3 + k * 0.3, 0.3, tab_dtype)
+    got = C.side_update(sums, scaler, colsum, *args, n_real=n_real)
+    ref = C._side_update_plain(sums, scaler, colsum, *args, n_real)
+    real = C.side_update(sums[:n_real], scaler[:n_real], colsum, *args)
+    for i in (0, 1, 2, 3):
+        assert torch.equal(got[i][:n_real], real[i])
+    torch.testing.assert_close(got[4], real[4], **TOL[dtype])
+    for i in (0, 1, 3, 4):
+        torch.testing.assert_close(got[i], ref[i], **TOL[dtype])
+    if tab_dtype is None:
+        torch.testing.assert_close(got[2], ref[2], **TOL[dtype])
+    else:
+        torch.testing.assert_close(got[2].float(), ref[2].float(), rtol=2.0 ** -7, atol=0)
+    shp, rte, tab, scaler_new, _ = got
+    assert torch.isinf(rte[n_real:]).all() and not scaler_new[n_real:].any()
+    for zero in (shp[n_real:] / rte[n_real:], tab[n_real:]):
+        assert not zero.any() and not torch.signbit(zero).any()
+
+
+@pytest.mark.gpu
 def test_table_bf16_store_rounds_float64_through_float32(cuda):
     """An exp-table entry just above a bfloat16 midpoint: one direct
     float64 rounding would give 0.5 + 2^-8, the store gives 0.5."""
@@ -469,8 +505,10 @@ def test_launch_counters_stay_zero_on_cpu():
                 C.side_derive, M.bucket_llk_parts, M.llk_rmse_sums,
                 S.build_epoch_buffers, S.batch_phi_sums, S.build_row_mask, S.svi_update,
                 T.topn_rows, S.user_factors_loop, M.predict_pairs, M.theta_diff_norm,
-                M.rowsum_dot_rows, C.coo_phi_sums]
-    counts = lambda: [(w.launches, getattr(w, "launches_bf16", 0)) for w in wrappers]  # noqa: E731
+                M.rowsum_dot_rows, C.coo_phi_sums, C.colsum_finish]
+    counts = lambda: [(w.launches, getattr(w, "launches_bf16", 0),  # noqa: E731
+                       getattr(w, "launches_pad", 0), getattr(w, "launches_pad_bf16", 0))
+                      for w in wrappers]
     before = counts()
     y, iu, ii = _counts(40, 30, 300, seed=3)
     lay = _layout(y, iu, ii, 40, 30, np.float32, "cpu")
@@ -481,6 +519,9 @@ def test_launch_counters_stay_zero_on_cpu():
     C.side_derive(t, t + 1)
     C.side_derive(t, t + 1, torch.bfloat16)
     C.side_update(su, t[:, :1], b[:1], 0.3, 1.8, 0.3, torch.bfloat16)
+    C.side_update(su, t[:, :1], b[:1], 0.3, 1.8, 0.3, None, 30)
+    C.side_update(su, t[:, :1], b[:1], 0.3, 1.8, 0.3, torch.bfloat16, 30)
+    C.colsum_finish(t[:3])
     E.ell_phi_sums(t.bfloat16(), b.bfloat16(), lay, torch.float64)
     C.coo_phi_sums(t[:, :5], b, _coo(40, 30, 300, torch.float32, "cpu", seed=3)[1])
     M.ell_llk_rmse_sums(t, b, lay)

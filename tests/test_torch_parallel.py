@@ -264,16 +264,19 @@ rank, init, out, mode, dtype = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.a
 mesh = distributed.initialize(init, num_processes=2, process_id=rank,
                               initialization_timeout=60, device="cpu")
 assert (mesh.world_size, mesh.rank, mesh.backend, mesh.device.type) == (2, rank, "gloo", "cpu")
-import test_torch_parallel as T
+import importlib
+T = importlib.import_module({module!r})
 np.savez(out % rank, **T._port_fit(mode, np.dtype(dtype).type, mesh))
 import torch.distributed as dist
 dist.destroy_process_group()
 """
 
 
-def _two_ranks(tmp_path, mode, dtype):
+def _two_ranks(tmp_path, mode, dtype, module="test_torch_parallel"):
+    """Two gloo CPU ranks, each a process running ``module._port_fit(mode,
+    dtype, mesh)``; returns each rank's arrays."""
     worker = tmp_path / "worker.py"
-    worker.write_text(WORKER.format(tests=TESTS, repo=REPO))
+    worker.write_text(WORKER.format(tests=TESTS, repo=REPO, module=module))
     env = dict(os.environ, OMP_NUM_THREADS="2")
     out = str(tmp_path / "out_%d.npz")
     procs = [subprocess.Popen([sys.executable, str(worker), str(r),
