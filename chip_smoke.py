@@ -26,12 +26,15 @@ non-zero, with no result line):
    counters of each fit and of ``eval_llk``, each from its own run; then
    every SVI kernel checked and timed at the fit's shapes (a user batch,
    the item batch that holds the rank-1 item, the validation set), on the
-   fitted state;
+   fitted state, with K7's split by stage at both batches (torch.profiler;
+   its sort alone with CUDA events);
 3c. the other two stopping paths at the same shape, one user epoch each:
    a diff-norm fit (``theta_diff_norm``, K11) and a maxiter fit with the
    validation set and verbose output (its final eval's
    ``rowsum_dot_rows``, K11);
-3d. serving on the SVI fit: ``topN_batch(n=10)`` for 16,384 users (K6),
+3d. serving on the SVI fit: ``topN_batch(n=10)`` for 16,384 users (K6's
+   fused path, one chunk), ``topN_batch(n=2000)`` for 1,024 of them (K6's
+   three-kernel path; its first 10 equal to n=10's),
    ``utils.evaluation.ranking_metrics`` (k=10) over 16,384 held-out
    users, ``predicted_rate_stats`` and ``roc_auc`` over the held-out set
    and ``predict`` of 100,000 pairs (K11); ms per 1,024 users and the
@@ -39,7 +42,9 @@ non-zero, with no result line):
    from a second run under torch.profiler);
 3e. K6, K10 and K11 checked and timed against their plain versions at
    those shapes: one 1,024-user chunk at the full catalog with the fit's
-   seen lists at n = 10 and n = 2,000 (one user with fewer than 2,000
+   seen lists at n = 10 (the fused path, also held bit for bit against the
+   three-kernel path at n = 10 and timed beside it and the library call)
+   and n = 2,000 (the three-kernel path; one user with fewer than 2,000
    unseen items), the fold-in of the heaviest user and of the user nearest
    10 items, 4M pairs, the diff norm and the held-out rowsum correction;
 3f. online updates on the SVI fit (``reindex=False``): ``partial_fit`` of
@@ -54,7 +59,7 @@ non-zero, with no result line):
    same seed, options and data): its llk at the checks beside phase 3's
    ELL fit and the largest relative difference of the factors, s/iteration,
    launch counters (K7c and K5 launch, no ELL kernel does), then K7c
-   checked and timed at the fit's shapes;
+   checked and timed at the fit's shapes, with its split by stage;
 3h. the ELL fit of phase 3 with ``gather_dtype='bfloat16'``: its llk beside
    the float32-table fit's, s/iteration, launch counters, then the
    bfloat16 forms of K1 and K3 checked and timed at the fit's shapes;
@@ -189,6 +194,7 @@ REPLACES = {
     "svi_update": ("hpfrec_tpu_torch/csrc/svi_update.cu", "hpfrec_tpu/ops/svi.py:49"),
     "epoch_gather": ("hpfrec_tpu_torch/csrc/svi_epoch.cu", "hpfrec_tpu/ops/svi.py:153"),
     "topn": ("hpfrec_tpu_torch/csrc/topn.cu", "hpfrec_tpu/ops/topk.py:39"),
+    "topn_large": ("hpfrec_tpu_torch/csrc/topn.cu", "hpfrec_tpu/ops/topk.py:39"),
     "fold_in": ("hpfrec_tpu_torch/csrc/fold_in.cu", "hpfrec_tpu/ops/svi.py:313"),
     "predict_pairs": ("hpfrec_tpu_torch/csrc/pair_ops.cu", "hpfrec_tpu/ops/metrics.py:182"),
     "theta_diff_norm": ("hpfrec_tpu_torch/csrc/pair_ops.cu", "hpfrec_tpu/ops/metrics.py:195"),
@@ -460,6 +466,10 @@ def svi_suite(pdata, val, state, batches, dtype_name, reps, blend_all=(False,), 
         print("  %s batch: %d rows, %d nonzeros, %d distinct other-side rows"
               % ("user" if s["user_side"] else "item (with item 0)", s["r1"] - s["r0"],
                  s["nnz_b"], s["oth_rows"]))
+        print("  K7 split of that batch (torch.profiler, device ms a call): %s; torch.sort of "
+              "its column ids alone %.4f ms (CUDA events)"
+              % (k7_split(lambda a=s["phi_args"]: S.batch_phi_sums(*a), reps),
+                 cuda_ms(lambda c=s["phi_args"][4]: torch.sort(c, stable=True), reps)))
 
     def flat(results):
         return [t for r in results for t in r]
@@ -550,11 +560,14 @@ def coo_suite(pdata, state, dtype_name, reps, label=""):
     # per triplet: y, both ids, the item order (int64) and sorted key, the
     # scale written once; both tables read, both sums written; a dot and two
     # k-wide multiply-adds per triplet
-    work = (coo.nnz * (2 * it + 20) + nbytes(coo.user_bounds)
+    work = (coo.nnz * (2 * it + 20) + nbytes(coo.user_bounds, coo.item_runs)
             + 2 * (nbytes(t_tab) + nbytes(b_tab)), coo.nnz * (6 * k + 2))
     cases = {"coo_phi_sums": (lambda: C.coo_phi_sums(t_tab, b_tab, coo),
                               lambda: phi_sums_tables(t_tab, b_tab, y, iu, ii), work, library)}
-    return run_cases(cases, dtype_name, reps, label)
+    out = run_cases(cases, dtype_name, reps, label)
+    print("  K7c split (torch.profiler, device ms a call): %s"
+          % k7_split(lambda: C.coo_phi_sums(t_tab, b_tab, coo), reps))
+    return out
 
 
 def bf16_tab_check(name, got, ref, dtype_name):
@@ -693,9 +706,11 @@ def serving_suite(model, users, seen_lists, n_list, histories, pairs, val_pairs,
     the chunk's last row gets a synthetic list that leaves 1,000 items
     unseen) at each n of ``n_list``; K10 on each (items, counts) of
     ``histories``; K11 predict_pairs on ``pairs``, rowsum_dot_rows on
-    ``val_pairs``, theta_diff_norm on Theta and a perturbed copy.  Returns
-    ({name: dict} of the first n and the other kernels, {name: dict} of the
-    other n)."""
+    ``val_pairs``, theta_diff_norm on Theta and a perturbed copy.  An n up
+    to the fused path's cap is also run on the three-kernel path, which
+    must give the same bits.  Returns ({name: dict} of the first n on each
+    K6 path ("topn" fused, "topn_large" the three-kernel path) and the
+    other kernels, {name: dict} of the other n)."""
     import torch
 
     from hpfrec_tpu_torch.ops import metrics as M
@@ -733,16 +748,33 @@ def serving_suite(model, users, seen_lists, n_list, histories, pairs, val_pairs,
     # each input read once, each output written once; 2 b nI k flops
     topn_bytes = nbytes(th_rows, Beta, rows, items) + b * 8
     results, extra = {}, {}
-    for j, n in enumerate(n_list):
+    for n in n_list:
         scores = plain_scores()
-        case = {"topn": (lambda n=n: T.topn_rows(th_rows, Beta, rows, items, n),
-                         lambda n=n: (*T._topn_rows_plain(th_rows, Beta, rows, items, n), scores),
-                         (topn_bytes + b * n * 8, 2 * b * nI * k),
-                         lambda n=n: library(n), topn_check)}
+        name = "topn" if n <= T._FUSED_MAX_N else "topn_large"
+        case = {name: (lambda n=n: T.topn_rows(th_rows, Beta, rows, items, n),
+                       lambda n=n: (*T._topn_rows_plain(th_rows, Beta, rows, items, n), scores),
+                       (topn_bytes + b * n * 8, 2 * b * nI * k),
+                       lambda n=n: library(n), topn_check)}
         r = run_cases(case, dtype_name, reps, label + ", %d users, n=%d" % (b, n))
-        (results if j == 0 else extra).update(
-            {("topn" if j == 0 else "topn n=%d" % n): r["topn"]})
         del scores
+        if n <= T._FUSED_MAX_N:
+            # the fused path against the three-kernel path at the same n: the
+            # same score sums and the same words, so the same bits
+            three = lambda n=n: T._topn_scored(th_rows, Beta, rows, items, n)  # noqa: E731
+            fused, ref3 = T.topn_rows(th_rows, Beta, rows, items, n), three()
+            torch.cuda.synchronize()
+            if not (torch.equal(fused[0], ref3[0]) and torch.equal(fused[1], ref3[1])):
+                raise AssertionError(f"topn n={n}: the fused path differs from the "
+                                     "three-kernel path")
+            r[name]["three_kernel_ms"] = cuda_ms(three, reps)
+            print("  %-20s %s%s, %d users, n=%d: bit-equal to the three-kernel path, which "
+                  "takes %.4f ms (fused %.4f ms, library %.4f ms)"
+                  % (name, dtype_name, label, b, n, r[name]["three_kernel_ms"], r[name]["ms"],
+                     r[name]["library_ms"]))
+        if name in results:
+            extra["%s n=%d" % (name, n)] = r[name]
+        else:
+            results[name] = r[name]
 
     hp = model._hp()
     cases = {}
@@ -815,6 +847,47 @@ def profiled(fn):
     top = "; ".join("%s x%d %.3f ms" % (key[:48], count, ms)
                     for ms, count, key in sorted(rows, reverse=True)[:4])
     return out, dict(wall_ms=wall, busy_ms=sum(split.values()), top=top, **split)
+
+
+# K7 / K7c's kernels and the wrapper's sort, by the words in their names
+K7_STAGES = (("sort", ("RadixSort",)), ("run bounds", ("run_bounds",)),
+             ("local chunk pass", ("phi_chunk_kernel<", ", true,")),
+             ("other chunk pass", ("phi_chunk_kernel<", ", false,")),
+             ("group passes", ("phi_group_kernel",)), ("local finish", ("phi_local_finish",)),
+             ("other finish", ("phi_other_finish",)))
+
+
+def kernel_split(fn, reps):
+    """Device ms per call of ``fn`` by kernel name, from ``reps`` (>= 3) calls
+    under torch.profiler after one warm-up call: [(ms, name)], largest
+    first.  A name's ms is its mean launch time times its launches a call
+    (its captured launches over ``reps``, rounded): the profiler has been
+    seen to drop a launch of a name in a window, and a total over ``reps``
+    would then read low."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(ev.self_device_time_total / 1e3 / ev.count * max(1, round(ev.count / reps)),
+             ev.key) for ev in prof.key_averages()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA") and ev.count]
+    return sorted(rows, reverse=True)
+
+
+def k7_split(fn, reps):
+    """K7's (or K7c's) device ms per call by stage (``K7_STAGES``; fills and
+    copies under "other"), as one printable string."""
+    split = {}
+    for ms, key in kernel_split(fn, reps):
+        stage = next((name for name, words in K7_STAGES if all(w in key for w in words)),
+                     "other")
+        split[stage] = split.get(stage, 0.0) + ms
+    return ", ".join("%s %.4f" % kv for kv in sorted(split.items(), key=lambda kv: -kv[1]))
 
 
 def user_histories(coo, rows):
@@ -971,7 +1044,9 @@ def kernel_counters():
     kernel wrapper, and the data-parallel exchanges (K12), which count the
     collectives they issue, and the table-sharded engine (K13), which counts
     its calls.  The bfloat16-table forms of K1 and K3 count in their
-    wrappers' .launches_bf16, K3's pad-row forms in .launches_pad(_bf16)."""
+    wrappers' .launches_bf16, K3's pad-row forms in .launches_pad(_bf16),
+    K6's three-kernel path (n above the fused path's cap) in
+    .launches_large."""
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as E
     from hpfrec_tpu_torch.ops import metrics as M
@@ -1001,7 +1076,8 @@ def kernel_counters():
                      "table_update_bf16": (C.side_update, "launches_bf16"),
                      "table_derive_bf16": (C.side_derive, "launches_bf16"),
                      "table_update_pad": (C.side_update, "launches_pad"),
-                     "table_update_pad_bf16": (C.side_update, "launches_pad_bf16")})
+                     "table_update_pad_bf16": (C.side_update, "launches_pad_bf16"),
+                     "topn_large": (T.topn_rows, "launches_large")})
     return counters
 
 
@@ -2239,6 +2315,7 @@ def main():
     val_users = rng.choice(np.unique(val.row), SERVE_USERS, replace=False)
     pu, pi = rng.integers(0, model.nusers, 100_000), rng.integers(0, model.nitems, 100_000)
     calls = {"topN_batch": lambda: model.topN_batch(serve_users, n=10),
+             "topN_batch n=2000": lambda: model.topN_batch(serve_users[:1024], n=2000),
              "ranking_metrics": lambda: EV.ranking_metrics(model, val, k=10, users=val_users),
              "predicted_rate_stats": lambda: EV.predicted_rate_stats(model, val),
              "roc_auc": lambda: EV.roc_auc(model, val),
@@ -2275,7 +2352,10 @@ def main():
         raise AssertionError("predict of 100,000 pairs: not finite and non-negative")
     np.testing.assert_allclose(pred[:50], np.einsum("ij,ij->i", model.Theta[pu[:50]],
                                                     model.Beta[pi[:50]]), rtol=1e-5)
-    for kernel in ("topn", "predict_pairs"):
+    big = serving["topN_batch n=2000"][0]
+    if big.shape != (1024, 2000) or not np.array_equal(big[:, :10], rec[:1024]):
+        raise AssertionError("topN_batch n=2000: wrong shape, or its first 10 are not n=10's")
+    for kernel in ("topn", "topn_large", "predict_pairs"):
         if launches_serving[kernel] <= 0:
             raise AssertionError(f"{kernel} never launched on the serving path")
 

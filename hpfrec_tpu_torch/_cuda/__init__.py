@@ -49,13 +49,15 @@ _SIGNATURES = {
     # y, cols, indptr, perm, offsets, e_y, e_row, e_col, nnz, n_rows
     "epoch_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64],
     # t_loc, t_oth, y, rows, cols, bounds, base, seg_rows, nq, skeys, order,
-    # scale, head_l, tail_l, head_o, tail_o, s_loc, s_oth, omask, n, n_oth, k
-    "batch_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _I64, _I64, _I32],
+    # runs, scale, head_l, tail_l, gsum_l, head_o, tail_o, gsum_o, s_loc,
+    # s_oth, omask, n, n_oth, k
+    "batch_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32],
     # t_tab, b_tab, y, ix_u, ix_i, user_bounds, n_users, item_keys,
-    # item_order, scale, head_u, tail_u, head_i, tail_i, su, si, n, n_items, k
+    # item_order, item_runs, scale, head_u, tail_u, gsum_u, head_i, tail_i,
+    # gsum_i, su, si, n, n_items, k
     "coo_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I64, _I64, _I32],
+                     _P, _P, _P, _I64, _I64, _I32],
     # shp_in, rte_in, sums, mask, scaler_in, colsum, prior, scaler_shape,
     # add_scaler, step, mult, blend_all, global, shp_out, rte_out,
     # scaler_out, partials, n, k, nblocks
@@ -69,6 +71,8 @@ _SIGNATURES = {
     "rowsum_dot": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
     # theta_rows, beta, scores, b, nI, k
     "topn_score": [_P, _P, _P, _I32, _I64, _I32],
+    # theta_rows, beta, mask (or NULL), W, cand, b, nI, k, n, range_w, R
+    "topn_fused": [_P, _P, _P, _I64, _P, _I32, _I64, _I32, _I32, _I64, _I32],
     # y, elogb, beta_colsum, theta0, g_shp0, g_rte0, k_rte0, a, k_shp,
     # add_k_rte, maxiter, stop_thr, P, k, theta, g_shp, g_rte, phi, n_iter
     "fold_in": [_P, _P, _P, _P, _P, _P, _D, _D, _D, _D, _I32, _D, _I64, _I32, _P, _P, _P,
@@ -85,6 +89,10 @@ _UNTYPED = {
     "topn_mask": [_P, _P, _P, _I64, _I32, _I64],
     # scores, vals, idx, cand (or NULL), b, nI, n, P
     "topn_select": [_P, _P, _P, _P, _I32, _I64, _I32, _I32],
+    # mask, rows, items, npairs, b, nI, W
+    "topn_bitmask": [_P, _P, _P, _I64, _I32, _I64, _I64],
+    # cand, vals, idx, b, m, n
+    "topn_merge": [_P, _P, _P, _I32, _I32, _I32],
 }
 
 _lib = None

@@ -29,27 +29,34 @@
 //   multiplied by its row factor and stored (the only writer of that row).
 //   A run cut by a chunk edge leaves its partial in head[chunk] (the
 //   chunk's first run) or tail[chunk] (its last run).
-// - A finish pass (one warp per key) adds a cut run's partials in chunk
-//   order: tail or head of its first chunk, heads of the middle chunks,
-//   head of its last chunk.  So a row of any length -- the rank-1 item of a
-//   Zipf side holds ~2.9M of an item epoch's slots -- is spread over many
-//   warps, and no warp walks more than kChunk slots.
+// - A finish pass (one warp per key) adds a cut run's partials in a fixed
+//   two-level order.  Groups of kGroup chunks that lie inside one run are
+//   first added, chunk by chunk, by a warp each (phi_group_kernel) into a
+//   second-level partial; the finish then adds the run's first partial,
+//   the heads of the chunks outside such groups and the groups' partials,
+//   in stream order.  So a row of any length -- the rank-1 item of a Zipf
+//   side holds ~2.9M of an item epoch's slots, ~11,300 chunks -- is spread
+//   over many warps, and its finish adds ~kGroup + chunks / kGroup partials
+//   one after another, not one a chunk.  The order depends only on the
+//   run's bounds, kChunk and kGroup: a batch gives the same bits every run.
 // - Local side: the batch stream is already grouped; the local pass also
 //   writes scale_s.  Its finish pass takes each batch row's bounds from the
 //   epoch offsets.
 // - Other side: the wrapper sorts the batch's col ids (a stable sort of
-//   int keys: it moves indices, adds no floats).  The other pass walks the
-//   sorted order and reuses scale_s; its finish pass runs one warp per
-//   other-side row, finds the row's run by binary search in the sorted
-//   keys, writes zeros and omask = 0 where there is none.
+//   int keys: it moves indices, adds no floats).  One coalesced pass over
+//   the sorted keys writes each present key's run bounds into a zeroed
+//   (n_oth, 2) array; the other pass walks the sorted order and reuses
+//   scale_s; its finish pass runs one warp per other-side row, reads the
+//   row's run from that array (no search), writes zeros and omask = 0
+//   where the run is empty.
 //
 // K7c — the same sums over a whole fit's training stream, the blocked-COO
 // engine's E-step: replaces hpfrec_tpu/ops/cavi.py:phi_segment_sums
 // (cavi.py:92-113, driven by cavi_step and run_cavi_block, :116-177).
 // Local side = users over the user-sorted stream, other side = items; the
-// wrapper hands over the user run bounds and the item-side order and
-// sorted keys, built once per fit (no per-call sort), and no mask is
-// written.  Only the nnz real triplets are walked: a padded tail (index 0,
+// wrapper hands over the user run bounds and the item-side order, sorted
+// keys and run bounds, built once per fit (no per-call sort or bounds
+// pass), and no mask is written.  Only the nnz real triplets are walked: a padded tail (index 0,
 // y = 0) would give user 0 a second run, and with one writer per run that
 // second, all-zero run would overwrite user 0's sum.
 #include "common.cuh"
@@ -57,6 +64,7 @@
 namespace hpf {
 
 constexpr int kChunk = 256;
+constexpr int kGroup = 64;  // chunks per second-level partial (ops/svi.py _PHI_GROUP)
 constexpr int kPhiUnroll = 4;
 
 // One chunk of a key-grouped stream.  LOCAL: position j is triplet j,
@@ -165,11 +173,57 @@ __global__ void __launch_bounds__(kThreads)
   emit(run_start, c1);
 }
 
-// Sum of a run [lo, hi) cut by chunk edges, from the chunk partials, in
-// chunk order.
+// Second-level partials: one warp per group q of kGroup consecutive chunks
+// adds their heads in chunk order into gsum[q], where the slot before the
+// group and the slot after it hold the same key.  Keys are grouped (each
+// key's slots contiguous), so then every chunk of the group lies inside
+// one run and its head is the whole chunk's sum.
+template <int KPL, typename T>
+__global__ void __launch_bounds__(kThreads)
+    phi_group_kernel(const int32_t* __restrict__ keys, const T* __restrict__ head,
+                     T* __restrict__ gsum, int64_t n, int64_t ngroups, int k) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t q = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (q >= ngroups) return;
+  const int64_t c0 = q * kGroup * kChunk, c1 = (q + 1) * kGroup * kChunk;
+  if (c0 == 0 || c1 >= n || keys[c0 - 1] != keys[c1]) return;
+  T sum[KPL];
+#pragma unroll
+  for (int p = 0; p < KPL; ++p) sum[p] = T(0);
+  const T* h = head + q * kGroup * k;
+  for (int j = 0; j < kGroup; j += 4) {
+    T v[4][KPL];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int p = 0; p < KPL; ++p) {
+        const int c = lane + kWarp * p;
+        v[u][p] = c < k ? h[(int64_t)(j + u) * k + c] : T(0);
+      }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int p = 0; p < KPL; ++p) sum[p] += v[u][p];
+  }
+#pragma unroll
+  for (int p = 0; p < KPL; ++p) {
+    const int c = lane + kWarp * p;
+    if (c < k) gsum[q * k + c] = sum[p];
+  }
+}
+
+// Sum of a run [lo, hi) cut by chunk edges, from the chunk partials, in a
+// fixed order: the first chunk's partial, then, chunk by chunk, the head of
+// each later chunk, except that a group of kGroup chunks that starts at a
+// multiple of kGroup and ends before the run's last chunk adds as its one
+// second-level partial (phi_group_kernel wrote it: the slots around such a
+// group belong to this run).  The order depends only on (lo, hi, kChunk,
+// kGroup), and the longest run costs ~kGroup + chunks / kGroup dependent
+// adds.
 template <int KPL, typename T>
 __device__ __forceinline__ void add_cut_run(const T* __restrict__ head, const T* __restrict__ tail,
-                                            int64_t lo, int64_t hi, int lane, int k, T* sum) {
+                                            const T* __restrict__ gsum, int64_t lo, int64_t hi,
+                                            int lane, int k, T* sum) {
   const int64_t j0 = lo / kChunk, j1 = (hi - 1) / kChunk;
   const T* first = (lo == j0 * kChunk ? head : tail) + j0 * k;
 #pragma unroll
@@ -177,8 +231,15 @@ __device__ __forceinline__ void add_cut_run(const T* __restrict__ head, const T*
     const int c = lane + kWarp * q;
     sum[q] = c < k ? first[c] : T(0);
   }
-  for (int64_t j = j0 + 1; j <= j1; ++j) {
-    const T* h = head + j * k;
+  for (int64_t j = j0 + 1; j <= j1;) {
+    const T* h;
+    if (j % kGroup == 0 && j + kGroup <= j1) {
+      h = gsum + (j / kGroup) * k;
+      j += kGroup;
+    } else {
+      h = head + j * k;
+      ++j;
+    }
 #pragma unroll
     for (int q = 0; q < KPL; ++q) {
       const int c = lane + kWarp * q;
@@ -195,14 +256,15 @@ __global__ void __launch_bounds__(kThreads)
     phi_local_finish_kernel(const T* __restrict__ t_loc, const int32_t* __restrict__ bounds,
                             int64_t base, const int32_t* __restrict__ seg_rows,
                             const T* __restrict__ head, const T* __restrict__ tail,
-                            T* __restrict__ s_loc, int64_t nq, int k) {
+                            const T* __restrict__ gsum, T* __restrict__ s_loc, int64_t nq,
+                            int k) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int64_t q = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (q >= nq) return;
   const int64_t lo = bounds[q] - base, hi = bounds[q + 1] - base;
   if (hi <= lo || lo / kChunk == (hi - 1) / kChunk) return;
   T sum[KPL];
-  add_cut_run<KPL, T>(head, tail, lo, hi, lane, k, sum);
+  add_cut_run<KPL, T>(head, tail, gsum, lo, hi, lane, k, sum);
   const int64_t r = seg_rows != nullptr ? seg_rows[q] : q;  // K7c: row q itself
   const T* f = t_loc + r * k;
   T* dst = s_loc + r * k;
@@ -213,29 +275,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Run bounds of the sorted other-side keys, one thread a position: the
+// position that starts key c's run writes runs[c].x, the one that ends it
+// runs[c].y.  runs arrives zeroed, so an absent key reads the empty [0, 0).
+__global__ void run_bounds_kernel(const int32_t* __restrict__ skeys, int2* __restrict__ runs,
+                                  int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n; j += stride) {
+    const int32_t key = skeys[j];
+    if (j == 0 || skeys[j - 1] != key) runs[key].x = (int32_t)j;
+    if (j == n - 1 || skeys[j + 1] != key) runs[key].y = (int32_t)(j + 1);
+  }
+}
+
 // Other finish: one warp per other-side row c; its run in the sorted keys
-// is [lower_bound(c), upper_bound(c)).
+// is runs[c] (empty where c has no slot).
 template <int KPL, typename T>
 __global__ void __launch_bounds__(kThreads)
-    phi_other_finish_kernel(const T* __restrict__ t_oth, const int32_t* __restrict__ skeys,
-                            int64_t n, const T* __restrict__ head, const T* __restrict__ tail,
-                            T* __restrict__ s_oth, uint8_t* __restrict__ omask, int64_t n_oth,
-                            int k) {
+    phi_other_finish_kernel(const T* __restrict__ t_oth, const int2* __restrict__ runs,
+                            const T* __restrict__ head, const T* __restrict__ tail,
+                            const T* __restrict__ gsum, T* __restrict__ s_oth,
+                            uint8_t* __restrict__ omask, int64_t n_oth, int k) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (r >= n_oth) return;
-  int64_t a = 0, b = n;  // lower bound: first position with skeys >= r
-  while (a < b) {
-    const int64_t m = (a + b) >> 1;
-    if (skeys[m] < r) a = m + 1; else b = m;
-  }
-  const int64_t lo = a;
-  b = n;  // upper bound: first position with skeys > r
-  while (a < b) {
-    const int64_t m = (a + b) >> 1;
-    if (skeys[m] <= r) a = m + 1; else b = m;
-  }
-  const int64_t hi = a;
+  const int2 run = runs[r];
+  const int64_t lo = run.x, hi = run.y;
   if (omask != nullptr && lane == 0) omask[r] = hi > lo ? 1 : 0;
   T* dst = s_oth + r * k;
   if (hi <= lo) {
@@ -248,7 +313,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (lo / kChunk == (hi - 1) / kChunk) return;
   T sum[KPL];
-  add_cut_run<KPL, T>(head, tail, lo, hi, lane, k, sum);
+  add_cut_run<KPL, T>(head, tail, gsum, lo, hi, lane, k, sum);
   const T* f = t_oth + r * k;
 #pragma unroll
   for (int q = 0; q < KPL; ++q) {
@@ -265,29 +330,41 @@ template <int KPL, typename T>
 cudaError_t launch_batch_phi(const T* t_loc, const T* t_oth, const T* y, const int32_t* rows,
                              const int32_t* cols, const int32_t* bounds, int64_t base,
                              const int32_t* seg_rows, int64_t nq, const int32_t* skeys,
-                             const int64_t* order, T* scale, T* head_l, T* tail_l, T* head_o,
-                             T* tail_o, T* s_loc, T* s_oth, uint8_t* omask, int64_t n,
-                             int64_t n_oth, int k, cudaStream_t stream) {
-  if (n < 0 || nq < 0 || n_oth <= 0) return cudaErrorInvalidValue;
+                             const int64_t* order, int2* runs, int make_runs, T* scale,
+                             T* head_l, T* tail_l, T* gsum_l, T* head_o, T* tail_o, T* gsum_o,
+                             T* s_loc, T* s_oth, uint8_t* omask, int64_t n, int64_t n_oth, int k,
+                             cudaStream_t stream) {
+  if (n < 0 || nq < 0 || n_oth <= 0 || n > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int64_t nchunks = (n + kChunk - 1) / kChunk;
+  const int64_t ngroups = (nchunks + kGroup - 1) / kGroup;
+  cudaError_t err;
   if (n > 0) {
     phi_chunk_kernel<KPL, true, T><<<warp_blocks(nchunks), kThreads, 0, stream>>>(
         t_loc, t_oth, y, rows, cols, nullptr, nullptr, scale, s_loc, head_l, tail_l, n, k);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    phi_group_kernel<KPL, T><<<warp_blocks(ngroups), kThreads, 0, stream>>>(
+        rows, head_l, gsum_l, n, ngroups, k);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if (nq > 0) {
       phi_local_finish_kernel<KPL, T><<<warp_blocks(nq), kThreads, 0, stream>>>(
-          t_loc, bounds, base, seg_rows, head_l, tail_l, s_loc, nq, k);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
+          t_loc, bounds, base, seg_rows, head_l, tail_l, gsum_l, s_loc, nq, k);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    if (make_runs) {
+      int64_t blocks = (n + kThreads - 1) / kThreads;
+      if (blocks > 65536) blocks = 65536;
+      run_bounds_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(skeys, runs, n);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     phi_chunk_kernel<KPL, false, T><<<warp_blocks(nchunks), kThreads, 0, stream>>>(
         t_loc, t_oth, y, rows, nullptr, skeys, order, scale, s_oth, head_o, tail_o, n, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    phi_group_kernel<KPL, T><<<warp_blocks(ngroups), kThreads, 0, stream>>>(
+        skeys, head_o, gsum_o, n, ngroups, k);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   phi_other_finish_kernel<KPL, T><<<warp_blocks(n_oth), kThreads, 0, stream>>>(
-      t_oth, skeys, n, head_o, tail_o, s_oth, omask, n_oth, k);
+      t_oth, runs, head_o, tail_o, gsum_o, s_oth, omask, n_oth, k);
   return cudaGetLastError();
 }
 
@@ -295,56 +372,62 @@ cudaError_t launch_batch_phi(const T* t_loc, const T* t_oth, const T* y, const i
 
 extern "C" {
 
+// K7: runs (n_oth, 2) int32 must arrive zeroed; the kernels write each
+// present other-side key's run bounds there.
 int hpf_batch_phi_sums_f32(const float* t_loc, const float* t_oth, const float* y,
                            const int32_t* rows, const int32_t* cols, const int32_t* bounds,
                            int64_t base, const int32_t* seg_rows, int64_t nq,
-                           const int32_t* skeys, const int64_t* order, float* scale,
-                           float* head_l, float* tail_l, float* head_o, float* tail_o,
-                           float* s_loc, float* s_oth, uint8_t* omask, int64_t n, int64_t n_oth,
-                           int32_t k, void* stream) {
+                           const int32_t* skeys, const int64_t* order, int32_t* runs,
+                           float* scale, float* head_l, float* tail_l, float* gsum_l,
+                           float* head_o, float* tail_o, float* gsum_o, float* s_loc,
+                           float* s_oth, uint8_t* omask, int64_t n, int64_t n_oth, int32_t k,
+                           void* stream) {
   HPF_DISPATCH_KPL(k, hpf::launch_batch_phi, t_loc, t_oth, y, rows, cols, bounds, base, seg_rows,
-                   nq, skeys, order, scale, head_l, tail_l, head_o, tail_o, s_loc, s_oth, omask,
-                   n, n_oth, k, (cudaStream_t)stream);
+                   nq, skeys, order, (int2*)runs, 1, scale, head_l, tail_l, gsum_l, head_o,
+                   tail_o, gsum_o, s_loc, s_oth, omask, n, n_oth, k, (cudaStream_t)stream);
 }
 
 int hpf_batch_phi_sums_f64(const double* t_loc, const double* t_oth, const double* y,
                            const int32_t* rows, const int32_t* cols, const int32_t* bounds,
                            int64_t base, const int32_t* seg_rows, int64_t nq,
-                           const int32_t* skeys, const int64_t* order, double* scale,
-                           double* head_l, double* tail_l, double* head_o, double* tail_o,
-                           double* s_loc, double* s_oth, uint8_t* omask, int64_t n,
-                           int64_t n_oth, int32_t k, void* stream) {
+                           const int32_t* skeys, const int64_t* order, int32_t* runs,
+                           double* scale, double* head_l, double* tail_l, double* gsum_l,
+                           double* head_o, double* tail_o, double* gsum_o, double* s_loc,
+                           double* s_oth, uint8_t* omask, int64_t n, int64_t n_oth, int32_t k,
+                           void* stream) {
   HPF_DISPATCH_KPL(k, hpf::launch_batch_phi, t_loc, t_oth, y, rows, cols, bounds, base, seg_rows,
-                   nq, skeys, order, scale, head_l, tail_l, head_o, tail_o, s_loc, s_oth, omask,
-                   n, n_oth, k, (cudaStream_t)stream);
+                   nq, skeys, order, (int2*)runs, 1, scale, head_l, tail_l, gsum_l, head_o,
+                   tail_o, gsum_o, s_loc, s_oth, omask, n, n_oth, k, (cudaStream_t)stream);
 }
 
 // K7c: t_tab (n_users, k), b_tab (n_items, k); the stream y / ix_u / ix_i
 // (n,) sorted by user, user_bounds (n_users + 1,) its user runs, item_keys
-// (n,) the sorted item ids and item_order (n,) the stable order that sorts
-// them; su must arrive zeroed, si is written in full.
+// (n,) the sorted item ids, item_order (n,) the stable order that sorts
+// them and item_runs (n_items, 2) each item's run in that order; su must
+// arrive zeroed, si is written in full.
 int hpf_coo_phi_sums_f32(const float* t_tab, const float* b_tab, const float* y,
                          const int32_t* ix_u, const int32_t* ix_i, const int32_t* user_bounds,
                          int64_t n_users, const int32_t* item_keys, const int64_t* item_order,
-                         float* scale, float* head_u, float* tail_u, float* head_i,
-                         float* tail_i, float* su, float* si, int64_t n, int64_t n_items,
-                         int32_t k, void* stream) {
+                         const int32_t* item_runs, float* scale, float* head_u, float* tail_u,
+                         float* gsum_u, float* head_i, float* tail_i, float* gsum_i, float* su,
+                         float* si, int64_t n, int64_t n_items, int32_t k, void* stream) {
   HPF_DISPATCH_KPL(k, hpf::launch_batch_phi, t_tab, b_tab, y, ix_u, ix_i, user_bounds, 0,
-                   (const int32_t*)nullptr, n_users, item_keys, item_order, scale, head_u,
-                   tail_u, head_i, tail_i, su, si, (uint8_t*)nullptr, n, n_items, k,
-                   (cudaStream_t)stream);
+                   (const int32_t*)nullptr, n_users, item_keys, item_order, (int2*)item_runs, 0,
+                   scale, head_u, tail_u, gsum_u, head_i, tail_i, gsum_i, su, si,
+                   (uint8_t*)nullptr, n, n_items, k, (cudaStream_t)stream);
 }
 
 int hpf_coo_phi_sums_f64(const double* t_tab, const double* b_tab, const double* y,
                          const int32_t* ix_u, const int32_t* ix_i, const int32_t* user_bounds,
                          int64_t n_users, const int32_t* item_keys, const int64_t* item_order,
-                         double* scale, double* head_u, double* tail_u, double* head_i,
-                         double* tail_i, double* su, double* si, int64_t n, int64_t n_items,
+                         const int32_t* item_runs, double* scale, double* head_u,
+                         double* tail_u, double* gsum_u, double* head_i, double* tail_i,
+                         double* gsum_i, double* su, double* si, int64_t n, int64_t n_items,
                          int32_t k, void* stream) {
   HPF_DISPATCH_KPL(k, hpf::launch_batch_phi, t_tab, b_tab, y, ix_u, ix_i, user_bounds, 0,
-                   (const int32_t*)nullptr, n_users, item_keys, item_order, scale, head_u,
-                   tail_u, head_i, tail_i, su, si, (uint8_t*)nullptr, n, n_items, k,
-                   (cudaStream_t)stream);
+                   (const int32_t*)nullptr, n_users, item_keys, item_order, (int2*)item_runs, 0,
+                   scale, head_u, tail_u, gsum_u, head_i, tail_i, gsum_i, su, si,
+                   (uint8_t*)nullptr, n, n_items, k, (cudaStream_t)stream);
 }
 
 }  // extern "C"

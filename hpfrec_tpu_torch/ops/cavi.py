@@ -283,6 +283,7 @@ class CooStream(NamedTuple):
     user_bounds: torch.Tensor  # (nU + 1,) int32
     item_order: torch.Tensor  # (nnz,) int64: stable sort of ix_i
     item_keys: torch.Tensor  # (nnz,) int32: ix_i in that order
+    item_runs: torch.Tensor  # (nI, 2) int32: each item's [start, end) in it
 
     def flat(self):
         """``(y, ix_u, ix_i)`` of the real triplets, (nnz,) each."""
@@ -317,9 +318,11 @@ def coo_stream(pdata, device, block_size=None, shard=(0, 1)) -> CooStream:
     data, _ = device_blocked_coo(y, ix_u, ix_i, device, block_size)
     indptr_i, order, _ = build_csr(ix_i, np.arange(nnz, dtype=np.int32), y, pdata.nitems, nnz)
     keys = np.repeat(np.arange(pdata.nitems, dtype=np.int32), np.diff(indptr_i))
+    runs = np.column_stack([indptr_i[:-1], indptr_i[1:]])
     return CooStream(data=data, nnz=nnz, user_bounds=_upload(bounds, np.int32, device),
                      item_order=_upload(order, np.int64, device),
-                     item_keys=_upload(keys, np.int32, device))
+                     item_keys=_upload(keys, np.int32, device),
+                     item_runs=_upload(runs, np.int32, device))
 
 
 def coo_phi_sums(t_tab, b_tab, coo: CooStream):
@@ -331,26 +334,24 @@ def coo_phi_sums(t_tab, b_tab, coo: CooStream):
 
         return phi_sums_tables(t_tab, b_tab, y, iu, ii)
     from .. import _cuda
-    from .svi import _PHI_CHUNK
+    from .svi import phi_scratch
 
     n = coo.nnz
     n_users, k = t_tab.shape
     n_items = b_tab.shape[0]
     _cuda.check(t_tab, b_tab, y, dtype=t_tab.dtype)
-    _cuda.check(iu, ii, coo.user_bounds, coo.item_keys, dtype=torch.int32)
+    _cuda.check(iu, ii, coo.user_bounds, coo.item_keys, coo.item_runs, dtype=torch.int32)
     _cuda.check(coo.item_order, dtype=torch.int64)
     if (b_tab.shape[1] != k or coo.user_bounds.shape != (n_users + 1,)
-            or coo.item_keys.shape != (n,) or coo.item_order.shape != (n,)):
+            or coo.item_keys.shape != (n,) or coo.item_order.shape != (n,)
+            or coo.item_runs.shape != (n_items, 2)):
         raise ValueError("coo_phi_sums: shape mismatch")
-    nchunks = max(1, -(-n // _PHI_CHUNK))
-    scale = torch.empty_like(y)
-    head_u, tail_u, head_i, tail_i = (
-        torch.empty((nchunks, k), dtype=y.dtype, device=y.device) for _ in range(4))
+    scale, users, items = phi_scratch(n, k, y.dtype, y.device)
     su = torch.zeros_like(t_tab)
     si = torch.empty_like(b_tab)
     _cuda.launch("coo_phi_sums", y.dtype, k, t_tab, b_tab, y, iu, ii, coo.user_bounds,
-                 n_users, coo.item_keys, coo.item_order, scale, head_u, tail_u, head_i,
-                 tail_i, su, si, n, n_items, k)
+                 n_users, coo.item_keys, coo.item_order, coo.item_runs, scale, *users,
+                 *items, su, si, n, n_items, k)
     coo_phi_sums.launches += 1
     return su, si
 

@@ -40,8 +40,20 @@ from ..models.state import Hyperparams, VariationalState
 from .cavi import _colsum_blocks, _finish_colsum, _phi_block, side_derive
 from .ell import _INT32_MAX, _upload
 
-# Slots per warp chunk of K7 (csrc/svi_phi_sums.cu kChunk).
+# Slots per warp chunk of K7 (csrc/svi_phi_sums.cu kChunk), and chunks per
+# second-level partial of a long run (kGroup).
 _PHI_CHUNK = 256
+_PHI_GROUP = 64
+
+
+def phi_scratch(n: int, k: int, dtype, device):
+    """K7's and K7c's per-call scratch for a stream of ``n`` slots: the
+    scale, and per side the chunk heads, tails and group partials."""
+    nchunks = max(1, -(-n // _PHI_CHUNK))
+    ngroups = -(-nchunks // _PHI_GROUP)
+    side = lambda: [torch.empty((m, k), dtype=dtype, device=device)  # noqa: E731
+                    for m in (nchunks, nchunks, ngroups)]
+    return torch.empty(n, dtype=dtype, device=device), side(), side()
 
 
 @dataclass
@@ -164,16 +176,14 @@ def batch_phi_sums(t_loc, t_oth, y, rows, cols, bounds, base: int, seg_rows):
             or bounds.shape != (nq + 1,)):
         raise ValueError("batch_phi_sums: shape mismatch")
     skeys, order = torch.sort(cols, stable=True)
-    nchunks = max(1, -(-n // _PHI_CHUNK))
-    scale = torch.empty_like(y)
-    head_l, tail_l, head_o, tail_o = (
-        torch.empty((nchunks, k), dtype=y.dtype, device=y.device) for _ in range(4))
+    runs = torch.zeros((n_oth, 2), dtype=torch.int32, device=y.device)
+    scale, loc, oth = phi_scratch(n, k, y.dtype, y.device)
     s_loc = torch.zeros_like(t_loc)
     s_oth = torch.empty_like(t_oth)
     omask = torch.empty((n_oth, 1), dtype=torch.bool, device=y.device)
     _cuda.launch("batch_phi_sums", y.dtype, k, t_loc, t_oth, y, rows, cols, bounds,
-                 int(base), seg_rows, nq, skeys, order, scale, head_l, tail_l, head_o,
-                 tail_o, s_loc, s_oth, omask, n, n_oth, k)
+                 int(base), seg_rows, nq, skeys, order, runs, scale, *loc, *oth,
+                 s_loc, s_oth, omask, n, n_oth, k)
     batch_phi_sums.launches += 1
     return s_loc, s_oth, omask
 

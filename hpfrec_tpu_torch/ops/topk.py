@@ -8,12 +8,13 @@ the n best items of each user are selected on the device:
   summed in the state dtype and rounded to float32 (the JAX function's
   ``preferred_element_type=float32``), ``-inf`` at the given (row, item)
   pairs, and the n largest scores per row in ``lax.top_k``'s order (score
-  descending, then index ascending).  Its plain version below does the
-  same with a matrix product and a stable sort.
+  descending, then index ascending).  Up to n = ``_FUSED_MAX_N`` one
+  kernel scores and selects without a score buffer; a larger n writes the
+  scores and selects from them.  Its plain version below does the same
+  with a matrix product and a stable sort.
 - ``topn_batch``: the host's ragged pair list of the seen items, chunks of
-  users whose (b, nI) score buffer and select scratch stay within
-  ``_CHUNK_BYTES``, and the host backfill for users with fewer than n
-  unseen items.
+  users whose device buffers stay within ``_CHUNK_BYTES``, and the host
+  backfill for users with fewer than n unseen items.
 
 Chunking is the port's own: the JAX function pads the batch to a power of
 two and scores it whole.  The results are the same.
@@ -24,12 +25,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# Device bytes of one chunk of users (scores and select scratch): 1,024
-# users at 376,768 items and n <= 4,096.
+# Device bytes of one chunk of users: 16,384 users at 376,768 items on the
+# fused path (n <= _FUSED_MAX_N; bitmask and candidates), 1,024 on the
+# three-kernel path at n <= 4,096 (scores and select scratch).
 _CHUNK_BYTES = 2 << 30
-# Candidates that K6's select sorts in shared memory (csrc/topn.cu kSmemCand);
-# a larger n sorts in a global scratch row.
+# Candidates that K6's select and merge sort in shared memory
+# (csrc/topn.cu kSmemCand); a larger n sorts in a global scratch row.
 _SMEM_CAND = 4096
+# The fused path (csrc/topn.cu kFuseMaxN, kFuseBM, kFuseBN): the largest n,
+# users per block, items per tile.
+_FUSED_MAX_N = 128
+_FUSED_BM = 64
+_FUSED_BN = 128
+# Blocks of the fused kernel to aim for on each SM: one wave of the two that
+# fit.  More ranges fill the card at a small chunk, but each range pays for
+# filling its users' lists anew (scripts/split_k6_k7.py on an H100 80GB HBM3
+# at 700 W: a 1,024-user chunk at n = 10 takes 2.66 ms with 16 ranges, 256
+# blocks; 3.94 ms with 17, whose 272 blocks spill into a second wave; 3.45
+# ms with 8 and 2.87 ms with 33)
+_FUSED_BLOCKS_PER_SM = 2
 
 
 def _next_pow2(x: int) -> int:
@@ -46,6 +60,22 @@ def _topn_rows_plain(Theta_rows, Beta, mask_rows, mask_items, n):
     return vals[:, :n], idx[:, :n].to(torch.int32)
 
 
+def _item_ranges(b: int, nI: int, n: int, sms: int):
+    """``(range_w, R)``: the fused kernel's item ranges, ``R`` ranges of
+    ``range_w`` items (a multiple of the tile; the last one shorter), as
+    many as keep the chunk's user tiles times ``R`` blocks within one wave
+    of ``_FUSED_BLOCKS_PER_SM`` blocks an SM (a second, partial wave would
+    take as long as the first), at least one, at most one a tile and at
+    most ``_SMEM_CAND // n`` (the merge sorts a row's ``R * n`` candidates
+    in shared memory)."""
+    tiles = -(-nI // _FUSED_BN)
+    user_tiles = -(-b // _FUSED_BM)
+    want = _FUSED_BLOCKS_PER_SM * sms // user_tiles
+    R = max(1, min(tiles, want, _SMEM_CAND // n))
+    per = -(-tiles // R)
+    return per * _FUSED_BN, -(-tiles // per)
+
+
 def topn_rows(Theta_rows, Beta, mask_rows, mask_items, n: int):
     """K6 on one chunk: ``(vals (b, n) float32, idx (b, n) int32)``, the n
     best items of each row of ``Theta_rows`` (b, k) against ``Beta`` (nI,
@@ -53,22 +83,76 @@ def topn_rows(Theta_rows, Beta, mask_rows, mask_items, n: int):
     mask_items[j])`` (int32; both None for no exclusion).  A pair outside
     the (b, nI) scores is dropped, as the JAX scatter's ``mode='drop'``
     drops its padding (a negative id too, which JAX's indexing would
-    wrap).  ``1 <= n <= nI``."""
+    wrap).  ``1 <= n <= nI``.
+
+    On the card, n up to ``_FUSED_MAX_N`` runs the fused path (score and
+    select in one kernel, no score buffer; launches in ``.launches``), a
+    larger n the three-kernel path (scores, mask, select; launches in
+    ``.launches_large``).  Both give the same bits."""
     if not Theta_rows.is_cuda:
         return _topn_rows_plain(Theta_rows, Beta, mask_rows, mask_items, n)
+    if n <= _FUSED_MAX_N:
+        return _topn_fused(Theta_rows, Beta, mask_rows, mask_items, n)
+    return _topn_scored(Theta_rows, Beta, mask_rows, mask_items, n)
+
+
+topn_rows.launches = topn_rows.launches_large = 0
+
+
+def _check(Theta_rows, Beta, mask_rows, mask_items, n):
     from .. import _cuda
 
+    k = Theta_rows.shape[1]
+    _cuda.check(Theta_rows, Beta, dtype=Theta_rows.dtype)
+    if Beta.shape[1] != k or not 1 <= n <= Beta.shape[0]:
+        raise ValueError("topn_rows: shape mismatch or n outside 1..nI")
+    masked = mask_rows is not None and mask_rows.shape[0] > 0
+    if masked:
+        _cuda.check(mask_rows, mask_items, dtype=torch.int32)
+    return _cuda, masked
+
+
+def _topn_fused(Theta_rows, Beta, mask_rows, mask_items, n: int):
+    """K6's fused path (CUDA tensors, ``n <= _FUSED_MAX_N``): the chunk's
+    seen pairs as a (b, ceil(nI / 32)) bitmask, then one kernel that
+    scores tiles in registers and keeps each item range's n best (key,
+    ~index) words, then a merge of each row's ``R * n`` candidates."""
+    _cuda, masked = _check(Theta_rows, Beta, mask_rows, mask_items, n)
+    if n > _FUSED_MAX_N:
+        raise ValueError("topn_rows: the fused path takes n <= %d" % _FUSED_MAX_N)
+    b, k = Theta_rows.shape
+    nI = Beta.shape[0]
+    dev = Theta_rows.device
+    W = -(-nI // 32)
+    mask = None
+    if masked:
+        mask = torch.zeros((b, W), dtype=torch.int32, device=dev)
+        _cuda.launch("topn_bitmask", None, None, mask, mask_rows, mask_items,
+                     mask_rows.shape[0], b, nI, W)
+    range_w, R = _item_ranges(b, nI, n, torch.cuda.get_device_properties(dev)
+                              .multi_processor_count)
+    cand = torch.empty((b, R * n), dtype=torch.int64, device=dev)
+    _cuda.launch("topn_fused", Theta_rows.dtype, k, Theta_rows, Beta, mask, W, cand, b, nI,
+                 k, n, range_w, R)
+    vals = torch.empty((b, n), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, n), dtype=torch.int32, device=dev)
+    _cuda.launch("topn_merge", None, None, cand, vals, idx, b, R * n, n)
+    topn_rows.launches += 1
+    return vals, idx
+
+
+def _topn_scored(Theta_rows, Beta, mask_rows, mask_items, n: int):
+    """K6's three-kernel path (CUDA tensors, any n): the (b, nI) float32
+    scores, ``-inf`` at the seen pairs, then a radix select and sort per
+    row."""
+    _cuda, masked = _check(Theta_rows, Beta, mask_rows, mask_items, n)
     b, k = Theta_rows.shape
     nI = Beta.shape[0]
     dt = Theta_rows.dtype
-    _cuda.check(Theta_rows, Beta, dtype=dt)
-    if Beta.shape[1] != k or not 1 <= n <= nI:
-        raise ValueError("topn_rows: shape mismatch or n outside 1..nI")
     dev = Theta_rows.device
     scores = torch.empty((b, nI), dtype=torch.float32, device=dev)
     _cuda.launch("topn_score", dt, k, Theta_rows, Beta, scores, b, nI, k)
-    if mask_rows is not None and mask_rows.shape[0]:
-        _cuda.check(mask_rows, mask_items, dtype=torch.int32)
+    if masked:
         _cuda.launch("topn_mask", None, None, scores, mask_rows, mask_items,
                      mask_rows.shape[0], b, nI)
     P = _next_pow2(n)
@@ -77,19 +161,21 @@ def topn_rows(Theta_rows, Beta, mask_rows, mask_items, n: int):
     vals = torch.empty((b, n), dtype=torch.float32, device=dev)
     idx = torch.empty((b, n), dtype=torch.int32, device=dev)
     _cuda.launch("topn_select", None, None, scores, vals, idx, cand, b, nI, n, P)
-    topn_rows.launches += 1
+    topn_rows.launches_large += 1
     return vals, idx
 
 
-topn_rows.launches = 0
-
-
 def _chunk_rows(b: int, nI: int, n: int) -> int:
-    """Users per chunk: the largest power of two whose (rows, nI) float32
-    scores, and the select's global candidate rows where n needs them,
-    fit ``_CHUNK_BYTES``, at most ``b``."""
-    P = _next_pow2(n)
-    row_bytes = 4 * max(nI, 1) + (8 * P if P > _SMEM_CAND else 0)
+    """Users per chunk: the largest power of two, at most ``b``, whose
+    device buffers fit ``_CHUNK_BYTES``.  A row costs, on the fused path
+    (``n <= _FUSED_MAX_N``), its bitmask words and at most ``_SMEM_CAND``
+    candidate words; on the three-kernel path its float32 scores and,
+    where n needs them, the select's global candidate words."""
+    if n <= _FUSED_MAX_N:
+        row_bytes = 4 * -(-max(nI, 1) // 32) + 8 * _SMEM_CAND
+    else:
+        P = _next_pow2(n)
+        row_bytes = 4 * max(nI, 1) + (8 * P if P > _SMEM_CAND else 0)
     fit = max(1, _CHUNK_BYTES // row_bytes)
     return min(b, 1 << (fit.bit_length() - 1))
 

@@ -1,11 +1,14 @@
 """Each CUDA kernel of hpfrec_tpu_torch against its plain PyTorch version
 on the card, in float32 and float64, on small layouts that cover split
 rows, tiled (column-offset) buckets and zero-degree rows, SVI batches
-whose rows span many of K7's 256-slot chunks on both sides, the whole-stream
-phi sums of the blocked-COO engine (K7c), the bfloat16-table forms of K1
-and K3, K3's pad-row form (the table-sharded engine's), top-n ranking
-(K6) with ties, fully masked rows and every size class of n, the fold-in
-loop (K10) and the pair reductions (K11).
+whose rows span many of K7's 256-slot chunks on both sides (runs past two
+groups of 64 chunks, an other-side id holding most slots, other-side rows
+with none), the whole-stream phi sums of the blocked-COO engine (K7c), the
+bfloat16-table forms of K1 and K3, K3's pad-row form (the table-sharded
+engine's), top-n ranking (K6) with ties (across the fused path's item
+ranges too), fully masked rows, rows with fewer unseen items than n and
+every size class of n on both paths, the fused path bit-equal to the
+three-kernel path, the fold-in loop (K10) and the pair reductions (K11).
 
 The ``gpu`` tests skip without a CUDA device; the card runs them with
 ``python -m pytest tests/test_torch_kernels.py -q --noconftest``
@@ -212,7 +215,7 @@ def test_coo_llk_kernel_vs_plain(cuda, dtype, full_llk, k):
     assert torch.equal(M.llk_rmse_sums(th, be, data, full_llk), got)
 
 
-def _csr_side(n_rows, n_cols, degrees, hot, seed):
+def _csr_side(n_rows, n_cols, degrees, hot, seed, hot_share=0.4):
     """CSR arrays with the given row degrees; a share of each row's slots
     goes to the other-side id ``hot`` (duplicates within a row)."""
     rng = np.random.default_rng(seed)
@@ -220,7 +223,7 @@ def _csr_side(n_rows, n_cols, degrees, hot, seed):
     np.cumsum(degrees, out=indptr[1:])
     nnz = int(indptr[-1])
     cols = rng.integers(0, n_cols, nnz).astype(np.int32)
-    cols[rng.random(nnz) < 0.4] = hot
+    cols[rng.random(nnz) < hot_share] = hot
     y = (rng.poisson(2.0, nnz) + 1).astype(np.float64)
     return indptr, cols, y
 
@@ -247,16 +250,16 @@ def test_epoch_gather_kernel_vs_plain(cuda, dtype):
         assert torch.equal(g, r)
 
 
-def _batch(n_loc, n_oth, dtype, device, seed, long_row=1500):
+def _batch(n_loc, n_oth, dtype, device, seed, long_row=1500, hot_share=0.4):
     """One batch of an epoch: 35 of n_loc local rows, one of them with
-    ``long_row`` slots, 40% of all slots on other-side id 3."""
+    ``long_row`` slots, ``hot_share`` of all slots on other-side id 3."""
     from hpfrec_tpu_torch.ops import svi as S
 
     rng = np.random.default_rng(seed)
     degrees = rng.integers(0, 25, n_loc)
     degrees[4] = long_row
     degrees[6] = 0
-    indptr, cols, y = _csr_side(n_loc, n_oth, degrees, 3, seed + 1)
+    indptr, cols, y = _csr_side(n_loc, n_oth, degrees, 3, seed + 1, hot_share)
     npdt = np.float32 if dtype == torch.float32 else np.float64
     side = S.epoch_side(indptr, cols, y, npdt, device)
     rest = rng.permutation(n_loc)
@@ -273,12 +276,13 @@ def _batch(n_loc, n_oth, dtype, device, seed, long_row=1500):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("long_row", [1500, 256, 0])
+@pytest.mark.parametrize("long_row", [1500, 256, 0, 40_000])
 @pytest.mark.parametrize("k", [8, 50, 200])
 def test_batch_phi_sums_kernel_vs_plain(cuda, dtype, long_row, k):
     """K7 on a batch with a local row over many chunks (or exactly one, or
-    none), an other-side id that takes 40% of the slots, duplicates, and a
-    zero-degree batch row; deterministic."""
+    none, or more than two groups of 64 chunks, whose sum goes through the
+    second-level partials), an other-side id that takes 40% of the slots,
+    duplicates, and a zero-degree batch row; deterministic."""
     from hpfrec_tpu_torch.ops import svi as S
 
     n_loc, n_oth = 60, 45
@@ -291,6 +295,34 @@ def test_batch_phi_sums_kernel_vs_plain(cuda, dtype, long_row, k):
     torch.testing.assert_close(got[0], ref[0], **TOL[dtype])
     torch.testing.assert_close(got[1], ref[1], **TOL[dtype])
     assert torch.equal(got[2], ref[2])
+    again = S.batch_phi_sums(t_loc, t_oth, y, rows, cols, bounds, base, seg_rows)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [8, 50])
+def test_batch_phi_sums_long_runs_and_absent_rows(cuda, dtype, k):
+    """K7 where one other-side id holds 90% of the slots (~160 chunks: its
+    run's sum goes through second-level partials, as does the 40,000-slot
+    local row's) and most other-side rows have no slot (zero sums, mask
+    0); repeats bit-identical."""
+    from hpfrec_tpu_torch.ops import svi as S
+
+    n_loc, n_oth = 60, 30_000
+    y, rows, cols, bounds, base, seg_rows = _batch(n_loc, n_oth, dtype, cuda, 9, 40_000,
+                                                   hot_share=0.9)
+    hot = int((cols == 3).sum())
+    assert hot > 2 * 64 * 256 and int(torch.unique(cols).numel()) < n_oth // 2
+    t_loc = _tables(n_loc, k, dtype, cuda, 6)
+    t_oth = _tables(n_oth, k, dtype, cuda, 7)
+    got = S.batch_phi_sums(t_loc, t_oth, y, rows, cols, bounds, base, seg_rows)
+    ref = S._batch_phi_sums_plain(t_loc, t_oth, y, rows, cols)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], **TOL[dtype])
+    torch.testing.assert_close(got[1], ref[1], **TOL[dtype])
+    assert torch.equal(got[2], ref[2])
+    assert not bool(got[1][~got[2][:, 0]].any())
     again = S.batch_phi_sums(t_loc, t_oth, y, rows, cols, bounds, base, seg_rows)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
 
@@ -365,15 +397,19 @@ def _coo(nU, nI, nnz, dtype, device, seed, block_size=None):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("k", [8, 50, 200])
-def test_coo_phi_sums_kernel_vs_plain(cuda, dtype, k):
+@pytest.mark.parametrize("nU,nnz,longest", [(5000, 40_000, 10 * 256),
+                                            (60_000, 400_000, 2 * 64 * 256)])
+def test_coo_phi_sums_kernel_vs_plain(cuda, dtype, k, nU, nnz, longest):
     """K7c over a whole stream with a padded tail, users without triplets
-    and an item whose run crosses many chunks; deterministic."""
+    and an item whose run crosses many chunks (in the larger stream more
+    than two groups of 64, whose sum goes through the second-level
+    partials); deterministic."""
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops.svi import phi_sums_tables
 
-    pdata, coo = _coo(5000, 150, 40000, dtype, cuda, seed=21, block_size=1000)
+    pdata, coo = _coo(nU, 150, nnz, dtype, cuda, seed=21, block_size=1000)
     assert coo.data.y.numel() > coo.nnz and int(pdata.ix_u[0]) == 0
-    assert np.bincount(pdata.ix_i).max() > 10 * 256
+    assert np.bincount(pdata.ix_i).max() > longest
     t = _tables(pdata.nusers + 2, k, dtype, cuda, 1)  # two users with no triplets
     b = _tables(pdata.nitems, k, dtype, cuda, 2)
     coo = coo._replace(user_bounds=torch.cat([coo.user_bounds, coo.user_bounds[-1:].repeat(2)]))
@@ -507,7 +543,8 @@ def test_launch_counters_stay_zero_on_cpu():
                 T.topn_rows, S.user_factors_loop, M.predict_pairs, M.theta_diff_norm,
                 M.rowsum_dot_rows, C.coo_phi_sums, C.colsum_finish]
     counts = lambda: [(w.launches, getattr(w, "launches_bf16", 0),  # noqa: E731
-                       getattr(w, "launches_pad", 0), getattr(w, "launches_pad_bf16", 0))
+                       getattr(w, "launches_pad", 0), getattr(w, "launches_pad_bf16", 0),
+                       getattr(w, "launches_large", 0))
                       for w in wrappers]
     before = counts()
     y, iu, ii = _counts(40, 30, 300, seed=3)
@@ -533,6 +570,7 @@ def test_launch_counters_stay_zero_on_cpu():
     S.svi_update(st, s_loc, s_oth, lmask, omask, 0.5, 2.0, Hyperparams(k=5), True, False,
                  C.side_derive(b, b + 1)[1])
     T.topn_batch(t.numpy(), b, np.arange(10), 3)
+    T.topn_rows(t[:4], b, None, None, 30)
     S.user_factors_loop(b[:4, 0], b[:4], b[0], t[0], t[0] + 1, t[1] + 2, 1.3,
                         Hyperparams(k=5), 5, 1e-3)
     pairs = torch.arange(20, dtype=torch.int32)
@@ -573,6 +611,10 @@ TOPN_CASES = [  # dtype, b, nI, k, n, masked
     (torch.float32, 3, 6000, 20, 5000, True),  # n > 4096: global-memory sort
     (torch.float64, 3, 777, 50, 777, True),    # n = nI
     (torch.float32, 130, 1000, 256, 16, True),
+    (torch.float32, 70, 3001, 50, 128, True),  # the fused path's largest n
+    (torch.float32, 70, 3001, 50, 129, True),  # the three-kernel path's smallest
+    (torch.float64, 65, 3001, 50, 128, True),
+    (torch.float32, 1, 130, 3, 1, True),
 ]
 
 
@@ -596,6 +638,67 @@ def test_topn_kernel_vs_plain(cuda, dtype, b, nI, k, n, masked):
         assert torch.equal(got[1][0].cpu(), torch.arange(n, dtype=torch.int32))
     again = T.topn_rows(th, be, rows, items, n)
     assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
+def _topn_edge_case(dtype, device, b=70, nI=3001, k=20):
+    """Integer tables where Beta's rows 0, 700, 1500 and 2999 (in different
+    item ranges of the fused path) are equal and score highest, unseen by
+    every row but row 0, which has no unseen item; row 1 has six (0-4 and
+    nI - 1), fewer than most n tested."""
+    th, be = _int_tables(b, nI, k, dtype, device, 12)
+    top = [0, 700, 1500, 2999]
+    be[top] = 9
+    rows, items = _seen_pairs(b, nI, 30, device, 13, full_row=0)
+    keep = (rows == 0) | ((rows != 1) & ~torch.isin(items, torch.tensor(top, device=device)))
+    few = torch.arange(5, nI - 1, dtype=torch.int32, device=device)
+    rows = torch.cat([rows[keep], torch.ones_like(few)])
+    items = torch.cat([items[keep], few])
+    return th, be, rows, items
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 10, 128, 129])
+def test_topn_fused_edges(cuda, dtype, n):
+    """K6 at n = 1, 10, the fused path's cap and the cap + 1 (the
+    three-kernel path), b and nI off the tiles: ties across item ranges in
+    lax.top_k's order (the lowest index first), a row with fewer than n
+    unseen items (its -inf slots hold the lowest seen indices), a fully
+    masked row; equal to the plain version and to itself on a rerun."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    th, be, rows, items = _topn_edge_case(dtype, cuda)
+    got = T.topn_rows(th, be, rows, items, n)
+    ref = T._topn_rows_plain(th, be, rows, items, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+    top = got[1][2:, :min(n, 4)].cpu()
+    assert bool((top == torch.tensor([0, 700, 1500, 2999][:min(n, 4)],
+                                     dtype=torch.int32)).all())
+    assert int(torch.isfinite(got[0][1]).sum()) == min(n, 6)
+    again = T.topn_rows(th, be, rows, items, n)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 10, 128])
+@pytest.mark.parametrize("b,nI", [(200, 5000), (1, 700), (129, 64)])
+def test_topn_fused_bit_equal_to_three_kernel_path(cuda, dtype, n, b, nI):
+    """On random tables (float32 sums that round differently in another
+    order) the fused path's indices and values are the three-kernel
+    path's bit for bit: the same score sums, the same words."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    n = min(n, nI)
+    rng = np.random.default_rng(n + b)
+    th = torch.from_numpy(rng.random((b, 50))).to(cuda, dtype)
+    be = torch.from_numpy(rng.random((nI, 50))).to(cuda, dtype)
+    rows, items = _seen_pairs(b, nI, min(100, nI // 3), cuda, 6)
+    for mr, mi in ((rows, items), (None, None)):
+        fused = T.topn_rows(th, be, mr, mi, n)
+        three = T._topn_scored(th, be, mr, mi, n)
+        assert torch.equal(fused[0], three[0]) and torch.equal(fused[1], three[1])
 
 
 @pytest.mark.gpu

@@ -1,7 +1,10 @@
 """Batch serving of hpfrec_tpu_torch against hpfrec_tpu on the same inputs:
 ``topN_batch`` and ``ops.topk.topn_batch`` (K6's plain version, the host
 pair list and backfill), ``predict`` above 65,536 pairs (K11), the
-serving cache of ``Beta``, and ``utils.evaluation``.
+serving cache of ``Beta``, and ``utils.evaluation``; and, in numpy, the
+selection K6's fused path makes (each item range's n best (key, ~index)
+words, then their merge) against ``lax.top_k``, its item ranges and its
+chunk sizes.
 
 Top-n indices must be equal.  Where the two packages rank float32 tables,
 both get the JAX fit's arrays: the scores then differ only in the order in
@@ -215,19 +218,107 @@ def test_topn_mask_drops_pairs_outside_the_scores():
     assert bool(torch.isinf(got[0][1, -1])) and int(got[1][1, -1]) == 7
 
 
-@pytest.mark.parametrize("n,chunk", [(10, 1024), (2000, 1024), (20_000, 1024),
+@pytest.mark.parametrize("n,chunk", [(10, 16_384), (2000, 1024), (20_000, 1024),
                                      (376_768, 256)])
 def test_chunk_rows_counts_candidate_scratch(n, chunk):
-    """Users per K6 chunk at the MillionSong catalog: the (rows, nI) float32
-    scores and, for n above the shared-memory sort, the select's global
-    candidate rows stay within the chunk budget."""
+    """Users per K6 chunk at the MillionSong catalog: on the fused path
+    (n <= 128) the rows' seen-item bitmask words and at most 4,096
+    candidate words each, so the whole 16,384-user batch is one chunk; on
+    the three-kernel path the (rows, nI) float32 scores and, for n above
+    the shared-memory sort, the select's global candidate rows; either
+    within the chunk budget."""
     from hpfrec_tpu_torch.ops import topk as T
 
     nI = 376_768
     rows = T._chunk_rows(16_384, nI, n)
     P = T._next_pow2(n)
     assert rows == chunk
-    assert rows * (4 * nI + (8 * P if P > T._SMEM_CAND else 0)) <= T._CHUNK_BYTES
+    if n <= T._FUSED_MAX_N:
+        row_bytes = 4 * -(-nI // 32) + 8 * T._SMEM_CAND
+    else:
+        row_bytes = 4 * nI + (8 * P if P > T._SMEM_CAND else 0)
+    assert rows * row_bytes <= T._CHUNK_BYTES
+
+
+def _words(scores):
+    """K6's (key, ~index) words of float32 scores: the key maps a float to
+    uint32 in its order (-inf lowest), so the words' descending order is
+    lax.top_k's (score descending, then index ascending)."""
+    u = scores.astype(np.float32).view(np.uint32).astype(np.uint64)
+    key = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    idx = np.arange(scores.shape[1], dtype=np.uint64)
+    return (key << np.uint64(32)) | (~idx & np.uint64(0xFFFFFFFF))
+
+
+def _range_top_n(scores, n, edges):
+    """The fused K6 path's selection in numpy: each item range's n best
+    words (0 words where a range holds fewer than n items), then the n
+    best of their union, decoded to (values, indices)."""
+    w = _words(scores)
+    cand = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        part = np.sort(w[:, lo:hi], axis=1)[:, ::-1][:, :n]
+        cand.append(np.pad(part, ((0, 0), (0, n - part.shape[1]))))
+    top = np.sort(np.concatenate(cand, axis=1), axis=1)[:, ::-1][:, :n]
+    key = (top >> np.uint64(32)).astype(np.uint32)
+    u = np.where(key & 0x80000000, key & 0x7FFFFFFF, ~key).astype(np.uint32)
+    idx = (np.uint64(0xFFFFFFFF) - (top & np.uint64(0xFFFFFFFF))).astype(np.int32)
+    return u.view(np.float32), idx
+
+
+@pytest.mark.parametrize("kind", ["random", "tied", "masked"])
+@pytest.mark.parametrize("n,edges", [(5, "uneven"), (64, "uneven"), (300, "uneven"),
+                                     (10, "kernel"), (128, "kernel")])
+def test_range_top_n_merge_equals_lax_top_k(kind, n, edges):
+    """Per-range top n followed by a merge of (key, ~index) words gives
+    lax.top_k's indices and values: the words are distinct and totally
+    ordered, so the global n best lie in the union of each range's n best,
+    ties and -inf included.  Ranges of uneven width (one of a single item),
+    n below, at and above a range's width (up to n = nI), and the fused
+    kernel's own partition (``_item_ranges``)."""
+    import jax
+
+    from hpfrec_tpu_torch.ops import topk as T
+
+    b, nI = 12, 300
+    rng = np.random.default_rng(n)
+    if kind == "tied":
+        scores = rng.integers(0, 4, (b, nI)).astype(np.float32)
+    else:
+        scores = rng.random((b, nI)).astype(np.float32)
+    if kind == "masked":
+        scores[rng.random((b, nI)) < 0.3] = -np.inf
+        scores[0] = -np.inf
+        scores[1, 4:] = -np.inf  # fewer finite scores than most n
+    if edges == "uneven":
+        edges = [0, 7, 64, 65, 200, nI]
+    else:
+        range_w, R = T._item_ranges(b, nI, n, 132)
+        edges = [min(r * range_w, nI) for r in range(R + 1)]
+    vals, idx = jax.lax.top_k(scores, n)
+    got_v, got_i = _range_top_n(scores, n, edges)
+    np.testing.assert_array_equal(got_i, np.asarray(idx))
+    np.testing.assert_array_equal(got_v, np.asarray(vals))
+
+
+@pytest.mark.parametrize("b,nI,n,sms,R", [(1024, 376_768, 10, 132, 16),
+                                          (16_384, 376_768, 10, 132, 1),
+                                          (1024, 376_768, 128, 132, 16),
+                                          (1024, 376_768, 128, 400, 32),
+                                          (3, 100, 7, 132, 1), (70, 3001, 1, 132, 24),
+                                          (1, 130, 1, 132, 2)])
+def test_item_ranges_cover_the_catalog(b, nI, n, sms, R):
+    """The fused K6 path's item ranges: whole tiles, R of them covering the
+    catalog with no empty range, and a row's R * n candidates within the
+    merge's shared-memory sort; at the MillionSong shape a 1,024-user chunk
+    gets 16 ranges (256 blocks: one wave of two an SM of 132)."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    range_w, got = T._item_ranges(b, nI, n, sms)
+    assert got == R
+    assert range_w % T._FUSED_BN == 0 and (R - 1) * range_w < nI <= R * range_w
+    assert R * n <= T._SMEM_CAND
+    assert R == 1 or -(-b // T._FUSED_BM) * R <= T._FUSED_BLOCKS_PER_SM * sms
 
 
 @pytest.mark.parametrize("use_float", [True, False])
