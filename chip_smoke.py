@@ -201,6 +201,9 @@ REPLACES = {
     "rowsum_dot_rows": ("hpfrec_tpu_torch/csrc/pair_ops.cu", "hpfrec_tpu/ops/metrics.py:170"),
     "coo_phi_sums": ("hpfrec_tpu_torch/csrc/svi_phi_sums.cu", "hpfrec_tpu/ops/cavi.py:92"),
     "ell_phi_sums_bf16": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu", "hpfrec_tpu/ops/ell.py:447"),
+    "ell_phi_sums_bucket": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu", "hpfrec_tpu/ops/ell.py:447"),
+    "ell_phi_sums_bucket_bf16": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu",
+                                 "hpfrec_tpu/ops/ell.py:447"),
     "table_update_bf16": ("hpfrec_tpu_torch/csrc/table_update.cu", "hpfrec_tpu/ops/ell.py:804"),
     "table_derive_bf16": ("hpfrec_tpu_torch/csrc/table_update.cu", "hpfrec_tpu/ops/ell.py:752"),
     "table_update_pad": ("hpfrec_tpu_torch/csrc/table_update.cu",
@@ -329,6 +332,32 @@ def run_cases(cases, dtype_name, reps, label=""):
     return out
 
 
+def k1_layout_bytes(*layouts):
+    """The bytes K1 must read of ELL layouts: each segment's row id, every
+    slot's value (a zero marks padding), the column id of each real slot,
+    and its table of the buckets."""
+    from hpfrec_tpu_torch.ops import ell as E
+
+    return sum(nbytes(b.rows, b.vals) + 4 * int((b.vals != 0).sum())
+               for lay in layouts for b in lay.buckets) + sum(
+        nbytes(E._bucket_table(lay)[0]) for lay in layouts)
+
+
+def bucket_by_bucket(t_self, t_other, lay):
+    """K1's segment sums of a layout with one launch a bucket
+    (``bucket_phi_sums``, as the table-sharded engine runs it)."""
+    import torch
+
+    from hpfrec_tpu_torch.ops import ell as E
+
+    seg = torch.empty((lay.n_segs, t_self.shape[1]), dtype=E._acc_dtype(t_self.dtype),
+                      device=t_self.device)
+    for b in lay.buckets:
+        E.bucket_phi_sums(t_self, t_other, b.rows, b.cols, b.vals, b.col_off,
+                          seg[b.start:b.start + b.rows.shape[0]])
+    return seg
+
+
 def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
     """The full-batch kernels against their plain versions on the card, over
     what one iteration runs (both sides; K4: one check).  ``state``: a
@@ -368,9 +397,12 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
     tabs = nbytes(state.G_shp) + nbytes(state.L_shp)
     elems = state.G_shp.numel() + state.L_shp.numel()
     seg_bytes = sum(nbytes(s) for s in segs)
+    k1_lay = k1_layout_bytes(lay_u, lay_i)
     work = {
-        # two exp tables per side, the layouts, the segment sums; 4k flops per slot
-        "ell_phi_sums": (2 * tabs + sum(lay_bytes) + seg_bytes, 2 * nnz * 4 * k),
+        # two exp tables per side, K1's layout bytes, the segment sums; 4k
+        # flops per slot
+        "ell_phi_sums": (2 * tabs + k1_lay + seg_bytes, 2 * nnz * 4 * k),
+        "ell_phi_sums_bucket": (2 * tabs + k1_lay + seg_bytes, 2 * nnz * 4 * k),
         # segment sums and index arrays in, tables out; the split-row adds
         "segment_table_sums": (seg_bytes + sum(nbytes(lay.inv_perm, lay.split_indptr,
                                                       lay.split_seg_pos)
@@ -392,6 +424,9 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
     cases = {
         "ell_phi_sums": (lambda: flat(*(E.all_bucket_sums(*side) for side in sides)),
                          lambda: flat(*(phi_plain(*side) for side in sides)), None),
+        # the same sums a bucket a launch (the table-sharded engine's K13a)
+        "ell_phi_sums_bucket": (lambda: flat(*(bucket_by_bucket(*side) for side in sides)),
+                                lambda: flat(*(phi_plain(*side) for side in sides)), None),
         "segment_table_sums": (
             lambda: flat(*(E.segment_table_sums(seg, side[2]) for seg, side in zip(segs, sides))),
             lambda: flat(*(E._segment_table_sums_plain(seg, side[2])
@@ -406,7 +441,12 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
                                        for b in lay_u.buckets]).sum(0), None),
     }
     cases = {n: (kern, plain, work[n], lib) for n, (kern, plain, lib) in cases.items()}
-    return run_cases(cases, dtype_name, reps)
+    out = run_cases(cases, dtype_name, reps)
+    one = flat(*(E.all_bucket_sums(*side) for side in sides))
+    if not all(torch.equal(a, b) for a, b in zip(one, flat(*(bucket_by_bucket(*side)
+                                                              for side in sides)))):
+        raise AssertionError("K1: one launch a side and one a bucket give other bits")
+    return out
 
 
 def svi_suite(pdata, val, state, batches, dtype_name, reps, blend_all=(False,), label=""):
@@ -557,9 +597,10 @@ def coo_suite(pdata, state, dtype_name, reps, label=""):
         return (torch.zeros_like(t_tab).index_add_(0, iu.long(), phi),
                 torch.zeros_like(b_tab).index_add_(0, ii.long(), phi))
 
-    # per triplet: y, both ids, the item order (int64) and sorted key, the
-    # scale written once; both tables read, both sums written; a dot and two
-    # k-wide multiply-adds per triplet
+    # per triplet: y, both ids, the item-ordered item and user ids and the
+    # triplet's position in item order (int32 each), the scale written
+    # once; both tables read, both sums written; a dot and two k-wide
+    # multiply-adds per triplet
     work = (coo.nnz * (2 * it + 20) + nbytes(coo.user_bounds, coo.item_runs)
             + 2 * (nbytes(t_tab) + nbytes(b_tab)), coo.nnz * (6 * k + 2))
     cases = {"coo_phi_sums": (lambda: C.coo_phi_sums(t_tab, b_tab, coo),
@@ -632,13 +673,14 @@ def bf16_suite(lay_u, lay_i, state, dtype_name, reps, label=""):
 
     it = state.G_shp.element_size()
     nnz = sum(int((b.vals != 0).sum()) for b in lay_u.buckets)
-    lay_bytes = sum(nbytes(b.rows, b.cols, b.vals) for lay in (lay_u, lay_i) for b in lay.buckets)
+    lay_bytes = k1_layout_bytes(lay_u, lay_i)
     seg_bytes = 4 * k * sum(lay.n_segs for lay in (lay_u, lay_i))
     elems = state.G_shp.numel() + state.L_shp.numel()
     tabs16 = 2 * elems
     work = {
         # both bfloat16 tables per side, the layouts, float32 segment sums out
         "ell_phi_sums_bf16": (2 * tabs16 + lay_bytes + seg_bytes, 2 * nnz * 4 * k),
+        "ell_phi_sums_bucket_bf16": (2 * tabs16 + lay_bytes + seg_bytes, 2 * nnz * 4 * k),
         # sums in; shp, rte out in the state dtype, tab out in bfloat16
         "table_update_bf16": (elems * (3 * it + 2), 35 * elems),
         # shp, rte in; tab out in bfloat16
@@ -648,7 +690,10 @@ def bf16_suite(lay_u, lay_i, state, dtype_name, reps, label=""):
     # peak rate are float32's
     k1 = {"ell_phi_sums_bf16": (lambda: flat(*(E.all_bucket_sums(*side) for side in sides)),
                                 lambda: flat(*(phi_plain(*side) for side in sides)),
-                                work["ell_phi_sums_bf16"], None)}
+                                work["ell_phi_sums_bf16"], None),
+          "ell_phi_sums_bucket_bf16": (lambda: flat(*(bucket_by_bucket(*side) for side in sides)),
+                                       lambda: flat(*(phi_plain(*side) for side in sides)),
+                                       work["ell_phi_sums_bucket_bf16"], None)}
     out = run_cases(k1, "float32", reps, label + ", %s state" % dtype_name)
     cases = {
         "table_update_bf16": (lambda: flat(*(C.side_update(*u) for u in upd)),
@@ -850,9 +895,11 @@ def profiled(fn):
 
 
 # K7 / K7c's kernels and the wrapper's sort, by the words in their names
+# (K7c's chunk passes are its own: its user pass is the local one)
 K7_STAGES = (("sort", ("RadixSort",)), ("run bounds", ("run_bounds",)),
              ("local chunk pass", ("phi_chunk_kernel<", ", true,")),
              ("other chunk pass", ("phi_chunk_kernel<", ", false,")),
+             ("local chunk pass", ("coo_user_pass",)), ("other chunk pass", ("coo_item_pass",)),
              ("group passes", ("phi_group_kernel",)), ("local finish", ("phi_local_finish",)),
              ("other finish", ("phi_other_finish",)))
 
@@ -1055,7 +1102,8 @@ def kernel_counters():
     from hpfrec_tpu_torch.parallel import engine as P
     from hpfrec_tpu_torch.parallel import table_sharded as TS
 
-    wrappers = {"ell_phi_sums": E.bucket_phi_sums, "segment_table_sums": E.segment_table_sums,
+    wrappers = {"ell_phi_sums": E.all_bucket_sums, "ell_phi_sums_bucket": E.bucket_phi_sums,
+                "segment_table_sums": E.segment_table_sums,
                 "table_update": C.side_update, "table_derive": C.side_derive,
                 "ell_llk": M.bucket_llk_parts, "coo_llk": M.llk_rmse_sums,
                 "batch_phi_sums": S.batch_phi_sums, "svi_update": S.svi_update,
@@ -1072,7 +1120,8 @@ def kernel_counters():
                 "table_sharded_llk_parts": TS.table_sharded_llk_parts,
                 "cross_rank_colsum": TS.cross_rank_colsum}
     counters = {name: (w, "launches") for name, w in wrappers.items()}
-    counters.update({"ell_phi_sums_bf16": (E.bucket_phi_sums, "launches_bf16"),
+    counters.update({"ell_phi_sums_bf16": (E.all_bucket_sums, "launches_bf16"),
+                     "ell_phi_sums_bucket_bf16": (E.bucket_phi_sums, "launches_bf16"),
                      "table_update_bf16": (C.side_update, "launches_bf16"),
                      "table_derive_bf16": (C.side_derive, "launches_bf16"),
                      "table_update_pad": (C.side_update, "launches_pad"),
@@ -1151,10 +1200,11 @@ DP_REQUIRED = {
             "table_derive", "gather_partials", "coo_llk"),
     "partial_fit": ("sharded_svi_phi_sums", "batch_phi_sums", "svi_update", "table_derive"),
     "ts": ("table_sharded_step", "ring_table_sums", "cross_rank_colsum", "colsum_finish",
-           "table_sharded_llk_parts", "ell_phi_sums", "segment_table_sums", "table_update_pad",
+           "table_sharded_llk_parts", "ell_phi_sums_bucket", "segment_table_sums",
+           "table_update_pad",
            "table_derive", "ell_llk", "gather_partials"),
     "ts_bf16": ("table_sharded_step", "ring_table_sums", "cross_rank_colsum", "colsum_finish",
-                "table_sharded_llk_parts", "ell_phi_sums_bf16", "segment_table_sums",
+                "table_sharded_llk_parts", "ell_phi_sums_bucket_bf16", "segment_table_sums",
                 "table_update_pad_bf16", "table_derive_bf16", "ell_llk", "gather_partials"),
 }
 # a data-parallel fit against the one-device fit on the same card.  On one
@@ -1959,7 +2009,8 @@ def ts_fit_report(tag, results, run, wall, refs):
             raise AssertionError(f"{tag}: the {name} fit is off its one-device fit: llk "
                                  f"{dev_llk:.3e}, factors {dev_f}")
     bf = r0["ts_bf16"]["launches"]
-    if bf["ell_phi_sums"] or bf["table_update_pad"] or bf["table_derive"]:
+    if (bf["ell_phi_sums"] or bf["ell_phi_sums_bucket"] or bf["table_update_pad"]
+            or bf["table_derive"]):
         raise AssertionError(f"{tag}: the bfloat16-table fit ran a state-dtype table kernel: {bf}")
     for r, res in enumerate(results):
         print("[%s] rank %d, one iteration by part (ms): %s" % (tag, r, json.dumps(res["split"])))
@@ -2513,16 +2564,37 @@ def main():
     coo_fit = RecordingHPF(engine="coo", k=K, stop_crit="train-llk", check_every=5, maxiter=10,
                            random_seed=1, device="cuda")
     coo_fit.llk_trace = []
+    # each iteration between CUDA events (the fit runs its blocks through
+    # ops.cavi.run_cavi_block_coo; here one iteration a call)
+    iter_events, coo_block = [], C.run_cavi_block_coo
+
+    def timed_block(carry, stream, niter, hp, phi_sums=C.coo_phi_sums):
+        for _ in range(int(niter)):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            carry = coo_block(carry, stream, 1, hp, phi_sums)
+            ev[1].record()
+            iter_events.append(ev)
+        return carry
+
     reset_counts()
-    coo_fit.fit(coo)
+    C.run_cavi_block_coo = timed_block
+    try:
+        coo_fit.fit(coo)
+    finally:
+        C.run_cavi_block_coo = coo_block
     launches_coo = read_counts()
     fit_line("3g", coo_fit, ell_fit["s_per_it"])
+    print("[3g] each iteration on the card (CUDA events, ms): %s; from the first's start to the "
+          "last's end %.3f ms" % (", ".join("%.3f" % a.elapsed_time(b) for a, b in iter_events),
+                                  iter_events[0][0].elapsed_time(iter_events[-1][1])))
     coo_ref = fit_reference(coo_fit, coo_fit.fit_stats_.phases["iterations"] / (coo_fit.niter + 1))
     against_ell("3g", coo_fit, "COO fit", COO_VS_ELL_LLK)
     print("[3g] launch counters:", json.dumps(launches_coo))
     if min(launches_coo[n] for n in ("coo_phi_sums", "coo_llk", "table_update")) <= 0:
         raise AssertionError(f"a kernel of the COO path never launched: {launches_coo}")
-    if launches_coo["ell_phi_sums"] or launches_coo["ell_phi_sums_bf16"] or launches_coo["ell_llk"]:
+    if any(launches_coo[n] for n in ("ell_phi_sums", "ell_phi_sums_bf16", "ell_phi_sums_bucket",
+                                     "ell_phi_sums_bucket_bf16", "ell_llk")):
         raise AssertionError(f"the COO fit ran an ELL kernel: {launches_coo}")
     lay_u, lay_i, pdata_full, _ = layouts_for(coo, np.float32, dev)
     fitted = state_from_numpy([coo_fit.Gamma_shp, coo_fit.Gamma_rte, coo_fit.Lambda_shp,
@@ -2563,7 +2635,8 @@ def main():
                     "segment_table_sums", "ell_llk")
     if min(launches_bf16[n] for n in bf16_kernels) <= 0:
         raise AssertionError(f"a kernel of the bfloat16 path never launched: {launches_bf16}")
-    if launches_bf16["ell_phi_sums"] or launches_bf16["table_update"]:
+    if (launches_bf16["ell_phi_sums"] or launches_bf16["ell_phi_sums_bucket"]
+            or launches_bf16["table_update"]):
         raise AssertionError(f"the bfloat16 fit ran a state-dtype table kernel: {launches_bf16}")
     fitted = state_from_numpy([bf.Gamma_shp, bf.Gamma_rte, bf.Lambda_shp, bf.Lambda_rte,
                                bf.k_rte, bf.t_rte], dev)

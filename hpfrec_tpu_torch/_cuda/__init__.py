@@ -30,6 +30,10 @@ _SIGNATURES = {
     "ell_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32],
     # the same with bfloat16 tables and float32 out; typed by vals
     "ell_phi_sums_bf16": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32],
+    # t_self, t_other, table, nb, blocks, out, k: every bucket of a side
+    "ell_phi_sums_all": [_P, _P, _P, _I32, _I64, _P, _I32],
+    # the same with bfloat16 tables and float32 out; typed by the vals
+    "ell_phi_sums_all_bf16": [_P, _P, _P, _I32, _I64, _P, _I32],
     # seg, inv_perm, split_indptr, split_seg_pos, out, n_rows, k, P
     "segment_table_sums": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
     # sums, scaler_old, colsum_other, prior, scaler_shape, add_scaler,
@@ -54,9 +58,9 @@ _SIGNATURES = {
     "batch_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32],
     # t_tab, b_tab, y, ix_u, ix_i, user_bounds, n_users, item_keys,
-    # item_order, item_runs, scale, head_u, tail_u, gsum_u, head_i, tail_i,
-    # gsum_i, su, si, n, n_items, k
-    "coo_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # item_users, item_pos, item_runs, scale, head_u, tail_u, gsum_u, head_i,
+    # tail_i, gsum_i, su, si, n, n_items, k
+    "coo_phi_sums": [_P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P, _I64, _I64, _I32],
     # shp_in, rte_in, sums, mask, scaler_in, colsum, prior, scaler_shape,
     # add_scaler, step, mult, blend_all, global, shp_out, rte_out,

@@ -60,6 +60,43 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// The 32-lane sums of G values a lane (G = 4 or 8) at the cost of about one
+// warp_sum: lane l ends with the sum of value l / (32 / G) (so value u's sum
+// is on lanes u * 32 / G ..).  The first log2(G) levels of the butterfly
+// trade halves of the values with the partner lane instead of all of them;
+// every level adds the same pairs as warp_sum adds, so each sum has
+// warp_sum's bits.
+template <int G, typename T>
+__device__ __forceinline__ T transposed_sums(const T (&v)[G], int lane) {
+  static_assert(G == 4 || G == 8, "transposed_sums: G is 4 or 8");
+  T e[G / 2];
+  const bool h16 = lane & 16;
+#pragma unroll
+  for (int i = 0; i < G / 2; ++i) {
+    const T keep = h16 ? v[i + G / 2] : v[i];
+    e[i] = keep + __shfl_xor_sync(0xffffffffu, h16 ? v[i] : v[i + G / 2], 16);
+  }
+  const bool h8 = lane & 8;
+  T r;
+  if constexpr (G == 8) {
+    T f[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const T keep = h8 ? e[i + 2] : e[i];
+      f[i] = keep + __shfl_xor_sync(0xffffffffu, h8 ? e[i] : e[i + 2], 8);
+    }
+    const bool h4 = lane & 4;
+    r = (h4 ? f[1] : f[0]) + __shfl_xor_sync(0xffffffffu, h4 ? f[0] : f[1], 4);
+    r += __shfl_xor_sync(0xffffffffu, r, 2);
+  } else {
+    r = (h8 ? e[1] : e[0]) + __shfl_xor_sync(0xffffffffu, h8 ? e[0] : e[1], 8);
+    r += __shfl_xor_sync(0xffffffffu, r, 4);
+    r += __shfl_xor_sync(0xffffffffu, r, 2);
+  }
+  r += __shfl_xor_sync(0xffffffffu, r, 1);
+  return r;
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_max(T v) {
 #pragma unroll

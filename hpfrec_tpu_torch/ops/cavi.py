@@ -31,9 +31,10 @@ is updated first, then the item side, each producing the next iteration's
 exp table and mean colsum (the ``Carry``).  The ELL engine
 (``ops/ell.py``) gets its phi sums from K1/K2, the blocked-COO engine
 (``engine='coo'``) from **K7c** ``coo_phi_sums``
-(``csrc/svi_phi_sums.cu``): the SVI kernel's segmented reductions over
-the whole user-sorted training stream, with the item-side order built
-once per fit (``coo_stream``).
+(``csrc/svi_phi_sums.cu``): the SVI kernel's segmented reductions and
+finish passes over the whole user-sorted training stream, with chunk
+passes of its own that read an item-ordered copy of the stream built once
+per fit (``coo_stream``).
 """
 
 from __future__ import annotations
@@ -276,14 +277,16 @@ class CooStream(NamedTuple):
     """A fit's training triplets on the device for the blocked-COO engine:
     the padded blocked stream (user-sorted; K5's train metric reads it),
     and for K7c its first ``nnz`` entries with the user run bounds and the
-    item-side order, built once per fit."""
+    item-ordered stream (the stable sort of ``ix_i``), built once per
+    fit."""
 
     data: BlockedCOO
     nnz: int
     user_bounds: torch.Tensor  # (nU + 1,) int32
-    item_order: torch.Tensor  # (nnz,) int64: stable sort of ix_i
-    item_keys: torch.Tensor  # (nnz,) int32: ix_i in that order
-    item_runs: torch.Tensor  # (nI, 2) int32: each item's [start, end) in it
+    item_keys: torch.Tensor  # (nnz,) int32: ix_i in item order
+    item_users: torch.Tensor  # (nnz,) int32: ix_u in item order
+    item_pos: torch.Tensor  # (nnz,) int32: each triplet's position in item order
+    item_runs: torch.Tensor  # (nI, 2) int32: each item's [start, end) in item order
 
     def flat(self):
         """``(y, ix_u, ix_i)`` of the real triplets, (nnz,) each."""
@@ -294,7 +297,10 @@ def coo_stream(pdata, device, block_size=None, shard=(0, 1)) -> CooStream:
     """Upload processed, user-sorted triplets (``utils.data.ProcessedData``)
     for the blocked-COO engine.  The item order is a stable counting sort
     on the host (the CSC build of ``utils.data.build_csr`` over the triplet
-    positions), once per fit.  Counts must fit int32.
+    positions), once per fit; from it the item-ordered user ids
+    (``item_users``) and each triplet's position in that order
+    (``item_pos``: ``item_users[item_pos[j]] == ix_u[j]``).  Counts must
+    fit int32.
 
     ``shard=(rank, n_shards)`` uploads the rank's share of the stream: the
     stream is cut at user boundaries into near-equal shares
@@ -319,9 +325,12 @@ def coo_stream(pdata, device, block_size=None, shard=(0, 1)) -> CooStream:
     indptr_i, order, _ = build_csr(ix_i, np.arange(nnz, dtype=np.int32), y, pdata.nitems, nnz)
     keys = np.repeat(np.arange(pdata.nitems, dtype=np.int32), np.diff(indptr_i))
     runs = np.column_stack([indptr_i[:-1], indptr_i[1:]])
+    pos = np.empty(nnz, dtype=np.int32)
+    pos[order] = np.arange(nnz, dtype=np.int32)
     return CooStream(data=data, nnz=nnz, user_bounds=_upload(bounds, np.int32, device),
-                     item_order=_upload(order, np.int64, device),
                      item_keys=_upload(keys, np.int32, device),
+                     item_users=_upload(ix_u[order], np.int32, device),
+                     item_pos=_upload(pos, np.int32, device),
                      item_runs=_upload(runs, np.int32, device))
 
 
@@ -340,18 +349,18 @@ def coo_phi_sums(t_tab, b_tab, coo: CooStream):
     n_users, k = t_tab.shape
     n_items = b_tab.shape[0]
     _cuda.check(t_tab, b_tab, y, dtype=t_tab.dtype)
-    _cuda.check(iu, ii, coo.user_bounds, coo.item_keys, coo.item_runs, dtype=torch.int32)
-    _cuda.check(coo.item_order, dtype=torch.int64)
+    _cuda.check(iu, ii, coo.user_bounds, coo.item_keys, coo.item_users, coo.item_pos,
+                coo.item_runs, dtype=torch.int32)
     if (b_tab.shape[1] != k or coo.user_bounds.shape != (n_users + 1,)
-            or coo.item_keys.shape != (n,) or coo.item_order.shape != (n,)
-            or coo.item_runs.shape != (n_items, 2)):
+            or coo.item_keys.shape != (n,) or coo.item_users.shape != (n,)
+            or coo.item_pos.shape != (n,) or coo.item_runs.shape != (n_items, 2)):
         raise ValueError("coo_phi_sums: shape mismatch")
     scale, users, items = phi_scratch(n, k, y.dtype, y.device)
     su = torch.zeros_like(t_tab)
     si = torch.empty_like(b_tab)
     _cuda.launch("coo_phi_sums", y.dtype, k, t_tab, b_tab, y, iu, ii, coo.user_bounds,
-                 n_users, coo.item_keys, coo.item_order, coo.item_runs, scale, *users,
-                 *items, su, si, n, n_items, k)
+                 n_users, coo.item_keys, coo.item_users, coo.item_pos, coo.item_runs, scale,
+                 *users, *items, su, si, n, n_items, k)
     coo_phi_sums.launches += 1
     return su, si
 

@@ -10,15 +10,18 @@ merge are fixed constants here.
 
 The device half runs two hand-written CUDA kernels:
 
-- **K1** ``bucket_phi_sums`` (``csrc/ell_phi_sums.cu``): per segment,
+- **K1** ``all_bucket_sums`` (``csrc/ell_phi_sums.cu``): per segment,
   ``sum_j vals[r,j] * t_self[rows[r]] * t_other[off+cols[r,j]] /
-  <t_self[rows[r]], t_other[off+cols[r,j]]>``, one launch per bucket.
+  <t_self[rows[r]], t_other[off+cols[r,j]]>``, every bucket of a side in
+  one launch from a device table of the buckets (``_bucket_table``, built
+  once per layout); ``bucket_phi_sums`` launches one bucket (the
+  table-sharded engine's calls).
 - **K2** ``segment_table_sums`` (``csrc/segment_sums.cu``): segment sums
   to table order, split rows added in a fixed order (no atomics).
 
 Each wrapper takes its plain PyTorch version for CPU tensors, launches the
 kernel for CUDA tensors, and counts its launches in ``.launches`` (K1's
-bfloat16-table form in ``.launches_bf16``).
+bfloat16-table forms in ``.launches_bf16``).
 
 bfloat16 gather tables (``gather_dtype='bfloat16'``): K3 stores the exp
 tables in bfloat16, K1 widens each gathered row to float32 and sums in
@@ -35,7 +38,7 @@ layout (``col_chunk_rows``) runs too.
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -330,6 +333,9 @@ class DeviceEll:
     n_rows: int
     n_segs: int  # segments over all buckets (of this rank's slices)
     n_shards: int = 1
+    # K1's device table of the buckets, built at the first launch
+    # (``_bucket_table``): (key, table, blocks)
+    k1_table: Optional[tuple] = field(default=None, repr=False, compare=False)
 
 
 _INT32_MAX = 2 ** 31 - 1
@@ -463,16 +469,80 @@ def bucket_phi_sums(t_self, t_other, rows, cols, vals, col_off, out):
 bucket_phi_sums.launches = bucket_phi_sums.launches_bf16 = 0
 
 
+def _bucket_table(layout: DeviceEll):
+    """K1's device table of a layout's non-empty buckets, (nb, 9) int64 rows
+    of (rows, cols, vals addresses, first segment, m, col_off, w, warps per
+    segment, first block), the buckets with the longest walk a warp first;
+    and the blocks of all of them.  Built once per layout (cached on it
+    while its buckets' arrays stay the same), checked as ``bucket_phi_sums``
+    checks each bucket."""
+    key = tuple((b.rows.data_ptr(), b.cols.data_ptr(), b.vals.data_ptr(), b.col_off, b.start)
+                for b in layout.buckets)
+    if layout.k1_table is not None and layout.k1_table[0] == key:
+        return layout.k1_table[1], layout.k1_table[2]
+    from .. import _cuda
+
+    entries = []
+    for b in layout.buckets:
+        m, w = b.cols.shape
+        _cuda.check(b.rows, b.cols, dtype=torch.int32)
+        _cuda.check(b.vals, dtype=layout.buckets[0].vals.dtype)
+        if b.rows.shape != (m,) or b.vals.shape != (m, w) or b.start + m > layout.n_segs:
+            raise ValueError("all_bucket_sums: bucket shape mismatch")
+        if m and w:
+            entries.append((-(w // _warps_per_segment(w)), len(entries), b))
+    rows, blocks = [], 0
+    for _, _, b in sorted(entries, key=lambda e: e[:2]):  # longest walk first, then bucket order
+        m, w = b.cols.shape
+        wps = _warps_per_segment(w)
+        rows.append([b.rows.data_ptr(), b.cols.data_ptr(), b.vals.data_ptr(), b.start, m,
+                     b.col_off, w, wps, blocks])
+        blocks += -(-m // (_cuda.WARPS_PER_BLOCK // wps))
+    device = layout.buckets[0].rows.device
+    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 9).to(device)
+    layout.k1_table = (key, table, blocks)
+    return table, blocks
+
+
 def all_bucket_sums(t_self, t_other, layout: DeviceEll):
     """Per-segment phi sums over all buckets, in segment order: (n_segs, k),
-    in K1's accumulation dtype."""
-    seg = torch.empty((layout.n_segs, t_self.shape[1]), dtype=_acc_dtype(t_self.dtype),
-                      device=t_self.device)
-    for b in layout.buckets:
-        m = b.rows.shape[0]
-        bucket_phi_sums(t_self, t_other, b.rows, b.cols, b.vals, b.col_off,
-                        seg[b.start:b.start + m])
+    in K1's accumulation dtype.  One launch for CUDA tensors (counted in
+    ``.launches``, bfloat16 tables in ``.launches_bf16``); the plain
+    version bucket by bucket for CPU tensors."""
+    k = t_self.shape[1]
+    seg = torch.empty((layout.n_segs, k), dtype=_acc_dtype(t_self.dtype), device=t_self.device)
+    if not t_self.is_cuda:
+        for b in layout.buckets:
+            m = b.rows.shape[0]
+            bucket_phi_sums(t_self, t_other, b.rows, b.cols, b.vals, b.col_off,
+                            seg[b.start:b.start + m])
+        return seg
+    from .. import _cuda
+
+    if not layout.buckets:
+        return seg
+    bf16 = t_self.dtype == torch.bfloat16
+    vals_dtype = layout.buckets[0].vals.dtype
+    _cuda.check(t_self, t_other, dtype=t_self.dtype)
+    if not bf16 and vals_dtype != t_self.dtype:
+        raise TypeError("all_bucket_sums: vals and tables differ in dtype")
+    if t_other.shape[1] != k:
+        raise ValueError("all_bucket_sums: shape mismatch")
+    table, blocks = _bucket_table(layout)
+    if not blocks:
+        return seg
+    if table.device != t_self.device:
+        raise ValueError("all_bucket_sums: layout and tables on different devices")
+    _cuda.launch("ell_phi_sums_all_bf16" if bf16 else "ell_phi_sums_all", vals_dtype, k,
+                 t_self, t_other, table, table.shape[0], blocks, seg, k)
+    if bf16:
+        all_bucket_sums.launches_bf16 += 1
+    else:
+        all_bucket_sums.launches += 1
     return seg
+
+
+all_bucket_sums.launches = all_bucket_sums.launches_bf16 = 0
 
 
 # ---- K2: segment sums to table order ---------------------------------

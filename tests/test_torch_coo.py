@@ -126,12 +126,57 @@ def test_coo_phi_sums_match_jax(dtype):
     rtol = 1e-10 if dtype == np.float64 else 2e-6
     np.testing.assert_allclose(su.numpy(), np.asarray(ref_u), rtol=rtol)
     np.testing.assert_allclose(si.numpy(), np.asarray(ref_i), rtol=rtol)
-    # the item order sorts the stream's item ids stably
-    order = coo.item_order.numpy()
-    np.testing.assert_array_equal(order, np.argsort(pdata.ix_i, kind="stable"))
-    np.testing.assert_array_equal(coo.item_keys.numpy(), pdata.ix_i[order])
+    # the item-ordered stream (the stable sort of the item ids), whole and
+    # in each share of a 3-way shard
+    _check_item_order(coo, pdata.ix_u, pdata.ix_i, pdata.nusers, pdata.nitems)
+    for rank in range(3):
+        part = C.coo_stream(pdata, "cpu", block_size=64, shard=(rank, 3))
+        _, iu, ii = (a.numpy() for a in part.flat())
+        assert 0 < part.nnz < nnz
+        _check_item_order(part, iu, ii, pdata.nusers, pdata.nitems)
+
+
+def _check_item_order(coo, ix_u, ix_i, nusers, nitems):
+    """``coo``'s user bounds and item-ordered arrays against numpy, for the
+    user-sorted triplets ``ix_u``, ``ix_i`` it holds."""
+    order = np.argsort(ix_i, kind="stable")
+    pos = np.empty(len(order), dtype=np.int64)
+    pos[order] = np.arange(len(order))
+    np.testing.assert_array_equal(coo.item_keys.numpy(), ix_i[order])
+    np.testing.assert_array_equal(coo.item_users.numpy(), ix_u[order])
+    np.testing.assert_array_equal(coo.item_pos.numpy(), pos)
+    ends = np.cumsum(np.bincount(ix_i, minlength=nitems))
+    np.testing.assert_array_equal(coo.item_runs.numpy(),
+                                  np.column_stack([ends - np.bincount(ix_i, minlength=nitems),
+                                                   ends]))
     np.testing.assert_array_equal(np.diff(coo.user_bounds.numpy()),
-                                  np.bincount(pdata.ix_u, minlength=pdata.nusers))
+                                  np.bincount(ix_u, minlength=nusers))
+    assert {a.dtype for a in (coo.item_keys, coo.item_users, coo.item_pos)} == {torch.int32}
+
+
+@pytest.mark.parametrize("shard", [(0, 1), (0, 3), (1, 3), (2, 3)])
+def test_item_pos_maps_each_triplet_to_its_place_in_item_order(shard):
+    """K7c's user pass writes triplet j's scale at ``item_pos[j]``, where
+    the item pass reads it beside ``item_users`` and ``item_keys``: the
+    place holds triplet j's own user and item, for every j, and every place
+    is some triplet's (a stream with repeated pairs, users without
+    triplets, whole and in shares)."""
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.utils.data import process_data
+
+    y, iu, ii = synth_counts(60, 30, nnz=800, seed=12)
+    iu = np.concatenate([iu, iu[:50]])  # a repeated (user, item) pair is two triplets
+    ii = np.concatenate([ii, ii[:50]])
+    y = np.concatenate([y, y[:50]])
+    keep = iu != 7  # user 7 has no triplet
+    pdata = process_data(np.column_stack([iu, ii, y])[keep], "maxiter", False, np.float64)
+    assert pdata.nusers == 60 and 7 not in pdata.ix_u
+    coo = C.coo_stream(pdata, "cpu", shard=shard)
+    _, ix_u, ix_i = (a.numpy() for a in coo.flat())
+    pos = coo.item_pos.numpy()
+    np.testing.assert_array_equal(coo.item_users.numpy()[pos], ix_u)
+    np.testing.assert_array_equal(coo.item_keys.numpy()[pos], ix_i)
+    np.testing.assert_array_equal(np.sort(pos), np.arange(coo.nnz))
 
 
 def test_coo_stream_needs_user_sorted_triplets():

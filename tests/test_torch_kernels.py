@@ -3,8 +3,11 @@ on the card, in float32 and float64, on small layouts that cover split
 rows, tiled (column-offset) buckets and zero-degree rows, SVI batches
 whose rows span many of K7's 256-slot chunks on both sides (runs past two
 groups of 64 chunks, an other-side id holding most slots, other-side rows
-with none), the whole-stream phi sums of the blocked-COO engine (K7c), the
-bfloat16-table forms of K1 and K3, K3's pad-row form (the table-sharded
+with none), the whole-stream phi sums of the blocked-COO engine (K7c, with
+user runs that start and end everywhere in its 32-slot groups), K1's
+padding from the middle of a 32-slot group, padding-only segments and
+non-positive dots (its one launch a side bit-equal to a launch a bucket),
+the bfloat16-table forms of K1 and K3, K3's pad-row form (the table-sharded
 engine's), top-n ranking (K6) with ties (across the fused path's item
 ranges too), fully masked rows, rows with fewer unseen items than n and
 every size class of n on both paths, the fused path bit-equal to the
@@ -423,6 +426,112 @@ def test_coo_phi_sums_kernel_vs_plain(cuda, dtype, k, nU, nnz, longest):
     assert torch.equal(again[0], su) and torch.equal(again[1], si)
 
 
+# user degrees that start and end runs everywhere in K7c's 32-slot groups,
+# its groups of eight gathers and its 256-slot chunks: single slots, runs
+# one short of, at and one past a group or a chunk, and long runs
+_RUN_DEGREES = [1, 2, 7, 8, 9, 31, 32, 33, 1, 63, 64, 65, 3, 100, 255, 256, 257, 5, 600, 1,
+                1, 1, 30, 34, 2000]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [8, 50, 200])
+def test_coo_phi_sums_user_runs_across_groups(cuda, dtype, k):
+    """K7c where user runs start and end at every place of the user pass's
+    32-slot groups (runs of 1 to 2,000 slots, many crossing a group or a
+    chunk) and an item holds 30% of the slots; the scales reach the item
+    pass through ``item_pos``; repeats bit-identical."""
+    from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops.svi import phi_sums_tables
+    from hpfrec_tpu_torch.utils.data import process_data
+
+    rng = np.random.default_rng(31)
+    degrees = np.array(_RUN_DEGREES * 12)
+    nU, nI = len(degrees), 700
+    iu = np.repeat(np.arange(nU), degrees)
+    ii = rng.integers(0, nI, len(iu))
+    ii[rng.random(len(iu)) < 0.3] = 5
+    y = rng.poisson(2.0, len(iu)) + 1.0
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    pdata = process_data(np.column_stack([iu, ii, y]), "maxiter", False, npdt)
+    coo = C.coo_stream(pdata, cuda)
+    assert np.array_equal(np.diff(coo.user_bounds.cpu().numpy()), degrees)
+    t = _tables(nU, k, dtype, cuda, 3)
+    b = _tables(nI, k, dtype, cuda, 4)
+    su, si = C.coo_phi_sums(t, b, coo)
+    ref_u, ref_i = phi_sums_tables(t, b, *coo.flat())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(su, ref_u, **TOL[dtype])
+    torch.testing.assert_close(si, ref_i, **TOL[dtype])
+    for _ in range(2):
+        again = C.coo_phi_sums(t, b, coo)
+        assert torch.equal(again[0], su) and torch.equal(again[1], si)
+
+
+def _edge_bucket(w, n_self, n_other, rng, device, vals_dtype):
+    """One (m, w) bucket whose segments are full, padded from the middle of
+    a 32-slot group, padded from slot 0 (padding only), one short of full,
+    zero-valued between nonzero slots, and of random fill."""
+    fills = [w, 13, min(45, w), 0, w - 1, w // 2 + 1] + list(rng.integers(0, w + 1, 10))
+    m = len(fills)
+    cols = rng.integers(0, n_other, (m, w)).astype(np.int32)
+    vals = (rng.poisson(2.0, (m, w)) + 1.0)
+    for r, f in enumerate(fills):
+        vals[r, f:] = 0
+    vals[5, 1:w // 2:3] = 0  # zero-valued slots with nonzero slots after them
+    cols[vals == 0] = 0
+    rows = rng.integers(0, n_self, m).astype(np.int32)
+    to = lambda a, dt: torch.from_numpy(a).to(device, dt)  # noqa: E731
+    return to(rows, torch.int32), to(cols, torch.int32), to(vals, vals_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,table", [(torch.float32, None), (torch.float64, None),
+                                         (torch.float32, torch.bfloat16),
+                                         (torch.float64, torch.bfloat16)],
+                         ids=["float32", "float64", "bf16-float32", "bf16-float64"])
+@pytest.mark.parametrize("k", [8, 50, 256])
+def test_ell_phi_sums_padding_and_nonpositive_dots(cuda, dtype, table, k):
+    """K1 on buckets of every warps-per-segment class (w from 8 to 3000)
+    whose segments hold padding that starts in the middle of a 32-slot
+    group, only padding, or zero-valued slots between nonzero ones, and
+    whose slots include other-side rows with a negative or a zero dot; all
+    buckets in one launch and each on its own (the same bits), against the
+    plain version; repeats bit-identical."""
+    from hpfrec_tpu_torch.ops import ell as E
+
+    rng = np.random.default_rng(41)
+    n_self, n_other, off = 50, 400, 7
+    widths = [8, 20, 100, 600, 1500, 3000]
+    assert {E._warps_per_segment(w) for w in widths} == {1, 2, 4, 8}
+    t = _tables(n_self, k, dtype, cuda, 5)
+    o = _tables(n_other + off, k, dtype, cuda, 6)
+    o[off + 1:off + 60:2] *= -1  # a negative dot
+    o[off + 2:off + 60:2] = 0  # a zero dot
+    if table is not None:
+        t, o = t.to(table), o.to(table)
+    buckets, start = [], 0
+    for j, w in enumerate(widths):
+        rows, cols, vals = _edge_bucket(w, n_self, n_other if j % 2 else 60, rng, cuda, dtype)
+        buckets.append(E.DeviceBucket(rows, cols, vals, off, start))
+        start += rows.shape[0]
+    idx = torch.zeros(1, dtype=torch.int32, device=cuda)
+    lay = E.DeviceEll(buckets=buckets, inv_perm=idx, split_seg_pos=idx[:0].reshape(0, 1),
+                      split_indptr=idx, n_rows=1, n_segs=start)
+    seg = E.all_bucket_sums(t, o, lay)
+    ref = torch.cat([E._bucket_phi_sums_plain(t, o, b.rows, b.cols, b.vals, b.col_off)
+                     for b in buckets])
+    torch.cuda.synchronize()
+    assert seg.dtype == E._acc_dtype(t.dtype)
+    torch.testing.assert_close(seg, ref, **TOL[seg.dtype])
+    for b in buckets:  # padding-only segments sum to exactly 0
+        assert not bool(seg[b.start + 3].any())
+        one = torch.empty_like(seg[b.start:b.start + b.rows.shape[0]])
+        E.bucket_phi_sums(t, o, b.rows, b.cols, b.vals, b.col_off, one)
+        assert torch.equal(one, seg[b.start:b.start + b.rows.shape[0]])
+    assert torch.equal(E.all_bucket_sums(t, o, lay), seg)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,chunk,k", CASES)
 def test_ell_phi_sums_bf16_kernel_vs_plain(cuda, dtype, chunk, k):
@@ -537,7 +646,7 @@ def test_launch_counters_stay_zero_on_cpu():
     from hpfrec_tpu_torch.ops import svi as S
     from hpfrec_tpu_torch.ops import topk as T
 
-    wrappers = [E.bucket_phi_sums, E.segment_table_sums, C.side_update,
+    wrappers = [E.all_bucket_sums, E.bucket_phi_sums, E.segment_table_sums, C.side_update,
                 C.side_derive, M.bucket_llk_parts, M.llk_rmse_sums,
                 S.build_epoch_buffers, S.batch_phi_sums, S.build_row_mask, S.svi_update,
                 T.topn_rows, S.user_factors_loop, M.predict_pairs, M.theta_diff_norm,
