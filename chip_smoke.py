@@ -18,7 +18,9 @@ non-zero, with no result line):
    users x 376,768 items, 38.7M nonzeros, k=50, float32; data made here
    from a seed): ``HPF(...).fit`` with train-llk checks, launch counters,
    then ``topN`` and ``predict``; then every full-batch kernel checked and
-   timed against its plain version at the shapes of that fit;
+   timed against its plain version at the shapes of that fit, and the
+   kernels' digamma against scipy's (and the stepwise form it replaced)
+   on a log sweep of [1e-4, 1e7] and on the fit's shapes;
 3b. the SVI path at the same shape, 1% of the triplets held out as a
    validation set: ``HPF(users_per_batch=100_000, items_per_batch=40_000,
    stop_crit='val-llk', ...).fit(train, val_set=val)``, ``eval_llk``,
@@ -393,11 +395,13 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
     # work of one call, for the bound: each input read once, each output
     # written once; operations per real nonzero or table element
     nnz = sum(int((b.vals != 0).sum()) for b in lay_u.buckets)
-    lay_bytes = [sum(nbytes(b.rows, b.cols, b.vals) for b in lay.buckets) for lay in (lay_u, lay_i)]
     tabs = nbytes(state.G_shp) + nbytes(state.L_shp)
     elems = state.G_shp.numel() + state.L_shp.numel()
     seg_bytes = sum(nbytes(s) for s in segs)
     k1_lay = k1_layout_bytes(lay_u, lay_i)
+    llk_parts = sum(-(-b.cols.shape[0] // (8 // E._warps_per_segment(b.cols.shape[1])))
+                    for b in lay_u.buckets if b.cols.numel())
+    llk_lay = sum(nbytes(b.rows, b.vals) + 4 * int((b.vals != 0).sum()) for b in lay_u.buckets)
     work = {
         # two exp tables per side, K1's layout bytes, the segment sums; 4k
         # flops per slot
@@ -413,8 +417,10 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
         "table_update": (4 * tabs, 35 * elems),
         # shp, rte in; tab out; ~33 operations an element
         "table_derive": (3 * tabs, 33 * elems),
-        # both tables, the user layout; a dot (2k) and ~6 operations a slot
-        "ell_llk": (tabs + lay_bytes[0], nnz * (2 * k + 6)),
+        # both tables, the user layout as K1's walk reads it (row ids,
+        # values, the real slots' column ids), the partials; a dot (2k) and
+        # ~6 operations a slot
+        "ell_llk": (tabs + llk_lay + 24 * llk_parts, nnz * (2 * k + 6)),
     }
 
     def index_add():
@@ -446,6 +452,45 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
     if not all(torch.equal(a, b) for a, b in zip(one, flat(*(bucket_by_bucket(*side)
                                                               for side in sides)))):
         raise AssertionError("K1: one launch a side and one a bucket give other bits")
+    return out
+
+
+def digamma_sweep(sets, dev, label):
+    """The kernels' digamma (K3's and K10's, ``ops.cavi.kernel_digamma``)
+    and the stepwise form it replaced in K3 against
+    ``scipy.special.digamma`` in float64 on the host, in float32 and float64
+    over each (name, values) of ``sets``: the max and mean error in ulp of
+    the dtype, and where the max is.  Raises if the kernels' form is worse
+    than the stepwise one in either figure."""
+    import torch
+    from scipy import special
+
+    from hpfrec_tpu_torch.ops import cavi as C
+
+    out = {}
+    for dtype in (np.float32, np.float64):
+        for name, values in sets:
+            x = np.asarray(values, dtype=dtype)
+            ref = special.digamma(x.astype(np.float64))
+            ulp = np.spacing(np.abs(ref).astype(dtype)).astype(np.float64)
+            xt = torch.from_numpy(x).to(dev)
+            row = {}
+            for form, stepwise in (("kernel", False), ("stepwise", True)):
+                err = np.abs(C.kernel_digamma(xt, stepwise).cpu().numpy().astype(np.float64)
+                             - ref) / ulp
+                at = int(np.argmax(err))
+                row[form] = dict(max_ulp=float(err.max()), mean_ulp=float(err.mean()),
+                                 at=float(x[at]))
+            print("[%s] digamma, %s, %s (%d values): kernel max %.2f ulp (x=%.9g), mean %.4f; "
+                  "stepwise max %.2f ulp (x=%.9g), mean %.4f"
+                  % (label, np.dtype(dtype).name, name, x.size, row["kernel"]["max_ulp"],
+                     row["kernel"]["at"], row["kernel"]["mean_ulp"], row["stepwise"]["max_ulp"],
+                     row["stepwise"]["at"], row["stepwise"]["mean_ulp"]))
+            if (row["kernel"]["max_ulp"] > row["stepwise"]["max_ulp"]
+                    or row["kernel"]["mean_ulp"] > row["stepwise"]["mean_ulp"]):
+                raise AssertionError(f"digamma {name} {dtype}: worse than the stepwise form: "
+                                     f"{row}")
+            out["%s %s" % (np.dtype(dtype).name, name)] = row
     return out
 
 
@@ -2258,6 +2303,10 @@ def main():
     print("[3] kernel checks at the fit's shapes (float32, fitted state, %d slots; "
           "times per iteration, both sides; ell_llk per check)" % slots)
     real = kernel_suite(lay_u, lay_i, fitted, "float32", reps=3)
+    digamma_sweep((("log sweep of [1e-4, 1e7]", np.logspace(-4, 7, 1_000_001)),
+                   ("the fit's shapes", np.concatenate([model.Gamma_shp.ravel(),
+                                                         model.Lambda_shp.ravel()]))),
+                  dev, "3")
     del lay_u, lay_i, fitted, model
     torch.cuda.empty_cache()
 

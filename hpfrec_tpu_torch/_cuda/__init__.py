@@ -37,17 +37,20 @@ _SIGNATURES = {
     # seg, inv_perm, split_indptr, split_seg_pos, out, n_rows, k, P
     "segment_table_sums": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
     # sums, scaler_old, colsum_other, prior, scaler_shape, add_scaler,
-    # shp, rte, tab, scaler_new, partials, n, n_real, k, nblocks
-    "table_update": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32],
-    # shp, rte, tab, partials, n, k, nblocks
-    "table_derive": [_P, _P, _P, _P, _I64, _I32, _I32],
+    # shp, rte, tab, scaler_new, partials, n, n_real, k, rows a tile, nblocks
+    "table_update": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32],
+    # shp, rte, tab, partials, n, k, rows a tile, nblocks
+    "table_derive": [_P, _P, _P, _P, _I64, _I32, _I32, _I32],
     # the same two with a bfloat16 tab
-    "table_update_bf16": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32],
-    "table_derive_bf16": [_P, _P, _P, _P, _I64, _I32, _I32],
+    "table_update_bf16": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
+                          _I32],
+    "table_derive_bf16": [_P, _P, _P, _P, _I64, _I32, _I32, _I32],
+    # x, out, n, stepwise: the kernels' digamma, elementwise
+    "digamma_eval": [_P, _P, _I64, _I32],
     # partials, colsum, nblocks, k
     "colsum_finish": [_P, _P, _I32, _I32],
-    # theta, beta, rows, cols, vals, partials, m, w, k, col_off, full_llk
-    "ell_llk": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32],
+    # theta, beta, rows, cols, vals, partials, m, w, k, col_off, full_llk, wps
+    "ell_llk": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _I32],
     # theta, beta, y, iu, ii, partials, n, k, full_llk, nblocks
     "coo_llk": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64],
     # y, cols, indptr, perm, offsets, e_y, e_row, e_col, nnz, n_rows

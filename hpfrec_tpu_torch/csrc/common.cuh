@@ -107,6 +107,28 @@ __device__ __forceinline__ T warp_max(T v) {
   return v;
 }
 
+// Asynchronous global -> shared copies (cp.async, sm_80 and later): 16
+// bytes (.cg, L2 only) or one 4- or 8-byte element (.ca); a group is
+// committed and waited for as a whole.
+__device__ __forceinline__ void async_copy16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void async_copy_elem(void* smem, const void* gmem) {
+  static_assert(N == 4 || N == 8, "async_copy_elem: 4 or 8 bytes");
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(N)
+               : "memory");
+}
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float dlog(float x) { return logf(x); }
 __device__ __forceinline__ double dlog(double x) { return log(x); }
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
@@ -114,39 +136,90 @@ __device__ __forceinline__ double dexp(double x) { return exp(x); }
 __device__ __forceinline__ float dlgamma(float x) { return lgammaf(x); }
 __device__ __forceinline__ double dlgamma(double x) { return lgamma(x); }
 
-// digamma(x) for x > 0 (CUDA's math library has none): the recurrence
-// psi(x) = psi(x + 1) - 1/x up to x >= X0, then the asymptotic series
-// ln x - 1/(2x) - sum_n B_2n / (2n x^2n).  Float stops at x^-10 with
-// X0 = 6 (next term < 1e-9), double at x^-14 with X0 = 10 (next term
-// < 1e-16).  x = 0 gives -inf; x < 0 and NaN give NaN (the shapes it is
-// called on are prior + non-negative sums, always > 0).
+// digamma(x) for x > 0 (CUDA's math library has none).  Away from its
+// positive root x0 = 1.46163214496836..., the recurrence psi(x) = psi(x + n)
+// - sum_{i<n} 1/(x + i) up to y = x + n >= X0, then the asymptotic series
+// ln y - 1/(2y) - sum_j B_2j / (2j y^2j).  The shift's sum is kept as one
+// fraction p / q (p' = p (x+i) + q, q' = q (x+i): no reciprocal a step).
+// The float form carries p and q in double (exact steps), takes the shift
+// as six predicated steps and divides once, 1 / (q y), for both p / q and
+// 1 / y; the double form loops to X0 and divides twice.  Float stops the
+// series at y^-10 with X0 = 6 (next term < 1e-9), double at y^-14 with
+// X0 = 10 (< 1e-16).  Near the root the recurrence and the series cancel
+// to a small result; there (|x - x0| < 0.3) the Taylor series psi(x0 + d)
+// = sum_n c_n d^n is used instead, with d = (x - x0_hi) - x0_lo and c_n =
+// psi^(n)(x0) / n! (mpmath: polygamma(n, x0) / factorial(n)), 11 terms in
+// float, 25 in double (the next term < 2^-25 and 2^-54 of the result at
+// |d| = 0.3).  The float form has no branch (both results are computed and
+// one selected), so a caller's unrolled loop interleaves several of them.
+// x = 0 gives -inf; x < 0 and NaN give NaN (the shapes it is called on are
+// prior + non-negative sums, always > 0).  chip_smoke.py (phase 3) and
+// scripts/split_k3_k4.py measure its error against scipy beside the
+// stepwise form it replaced (digamma_stepwise, table_update.cu).
 __device__ __forceinline__ float digamma(float x) {
-  if (!(x > 0.f)) return x == 0.f ? -INFINITY : NAN;
-  float r = 0.f;
-  while (x < 6.f) {
-    r -= 1.f / x;
-    x += 1.f;
+  const float d = (x - 1.4616321325302124f) - 1.243815006546356e-08f;
+  constexpr float c[11] = {0.9676722454476212f,    -0.4427631689835921f,  0.258499760955651f,
+                           -0.16394270544240652f,  0.10782405069126237f,  -0.07219956125645471f,
+                           0.04880428816414311f,   -0.03316112647484736f, 0.022597648232218104f,
+                           -0.01542476590494896f,  0.010538791616612175f};
+  float s = c[10];
+#pragma unroll
+  for (int i = 9; i >= 0; --i) s = fmaf(s, d, c[i]);
+  s *= d;
+  double y = x, p = 0.0, q = 1.0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    if (y < 6.0) {
+      p = fma(p, y, q);
+      q *= y;
+      y += 1.0;
+    }
   }
-  const float f = 1.f / (x * x);
+  const float z = (float)y;
+  const float qf = (float)q;
+  const float one = 1.f / (qf * z);  // the one division: 1/z = q one, p/q = p z one
+  const float inv = qf * one;
+  const float f = inv * inv;
   const float t =
       f * (-1.f / 12.f + f * (1.f / 120.f + f * (-1.f / 252.f + f * (1.f / 240.f + f * (-1.f / 132.f)))));
-  return r + logf(x) - 0.5f / x + t;
+  const float r = ((-((float)p * z * one) + logf(z)) - 0.5f * inv) + t;
+  const float v = fabsf(d) < 0.3f ? s : r;
+  return x > 0.f ? v : x == 0.f ? -INFINITY : NAN;
 }
 
 __device__ __forceinline__ double digamma(double x) {
   if (!(x > 0.0)) return x == 0.0 ? -INFINITY : NAN;
-  double r = 0.0;
+  const double d = (x - 1.4616321449683622) - 9.549995429965697e-17;
+  if (fabs(d) < 0.3) {
+    constexpr double c[25] = {
+        0.9676722454476212,      -0.4427631689835921,      0.258499760955651,
+        -0.16394270544240652,    0.10782405069126237,      -0.07219956125645471,
+        0.04880428816414311,     -0.03316112647484736,     0.022597648232218104,
+        -0.01542476590494896,    0.010538791616612175,     -0.007204534386356869,
+        0.004926781395729853,    -0.003369801655439328,    0.002305126326734928,
+        -0.0015769367714301972,  0.0010788252019162967,    -0.0007380709389960052,
+        0.000504953265834602,    -0.0003454680251063077,   0.00023635601564027053,
+        -0.00016170622091974803, 0.0001106337276874741,    -7.569179582195066e-05,
+        5.178575795222081e-05};
+    double s = c[24];
+#pragma unroll
+    for (int i = 23; i >= 0; --i) s = fma(s, d, c[i]);
+    return s * d;
+  }
+  double p = 0.0, q = 1.0;
   while (x < 10.0) {
-    r -= 1.0 / x;
+    p = fma(p, x, q);
+    q *= x;
     x += 1.0;
   }
-  const double f = 1.0 / (x * x);
+  const double inv = 1.0 / x;
+  const double f = inv * inv;
   const double t =
       f * (-1.0 / 12.0 +
            f * (1.0 / 120.0 +
                 f * (-1.0 / 252.0 +
                      f * (1.0 / 240.0 + f * (-1.0 / 132.0 + f * (691.0 / 32760.0 + f * (-1.0 / 12.0)))))));
-  return r + log(x) - 0.5 / x + t;
+  return ((-(p / q) + log(x)) - 0.5 * inv) + t;
 }
 
 // One slot's llk pieces (hpfrec_tpu/ops/metrics.py:36-47): the terms in T,

@@ -39,6 +39,7 @@ per fit (``coo_stream``).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -77,12 +78,18 @@ def _phi_block(t_tab, b_tab, y, iu, ii):
     denom = p.sum(-1)
     return (y / denom)[:, None] * p
 
-# Rows per block of the colsum partials: the kernel runs a fixed grid of at
-# most this many blocks (one warp per row, grid-stride), each writing one
-# (k,) partial that a second pass adds in block order, so colsums are
+# The colsum partials of K8 (ops/svi.py): a fixed grid of at most this
+# many blocks (one warp per row, grid-stride), each writing one (k,)
+# partial that a second pass adds in block order, so colsums are
 # deterministic.
 _MAX_COLSUM_BLOCKS = 1024
 _WARPS_PER_BLOCK = 8
+# K3's tiling (csrc/table_update.cu): ~8 KB of a table a tile, at most 256
+# rows, and 8 consecutive tiles a block, each block writing one (k,)
+# colsum partial.
+_K3_TILE_BYTES = 8192
+_K3_MAX_ROWS = 256
+_K3_TILES_PER_BLOCK = 8
 
 
 def elog_tables(shp, rte):
@@ -132,6 +139,18 @@ def _colsum_blocks(n: int) -> int:
     return max(1, min(_MAX_COLSUM_BLOCKS, -(-n // _WARPS_PER_BLOCK)))
 
 
+def _k3_grid(n: int, k: int, itemsize: int):
+    """K3's rows a tile and blocks for an (n, k) table of ``itemsize``-byte
+    elements: a function of the shapes and the dtype only (so every card
+    and rank adds the same partials).  Rows a tile are a multiple of 4 and
+    make ``rows * k`` a multiple of 8, so that every tile starts 16-byte
+    aligned in each table (bfloat16 tab included) and in the row scalers."""
+    align = math.lcm(4, 8 // math.gcd(k, 8))
+    rows = align * max(1, min(_K3_MAX_ROWS, _K3_TILE_BYTES // itemsize // k) // align)
+    tiles = -(-n // rows)
+    return rows, max(1, -(-tiles // _K3_TILES_PER_BLOCK))
+
+
 def _finish_colsum(partials, nblocks, k):
     from .. import _cuda
 
@@ -163,12 +182,12 @@ def side_update(sums, scaler_old, colsum_other, prior: float,
     shp, rte = torch.empty_like(sums), torch.empty_like(sums)
     tab = torch.empty_like(sums, dtype=tab_dtype)
     scaler = torch.empty_like(scaler_old)
-    nblocks = _colsum_blocks(n)
+    rows, nblocks = _k3_grid(n, k, sums.element_size())
     partials = torch.empty((nblocks, k), dtype=sums.dtype, device=sums.device)
     _cuda.launch(name, sums.dtype, k, sums, scaler_old, colsum_other,
                  float(prior), float(scaler_shape), float(add_scaler),
                  shp, rte, tab, scaler, partials, n, n if n_real is None else n_real, k,
-                 nblocks)
+                 rows, nblocks)
     counter = "launches" + ("" if n_real is None else "_pad") + (
         "" if tab_dtype is None else "_bf16")
     setattr(side_update, counter, getattr(side_update, counter) + 1)
@@ -192,9 +211,9 @@ def side_derive(shp, rte, tab_dtype=None):
         raise ValueError("side_derive: shape mismatch")
     name = _tab_kernel("table_derive", tab_dtype)
     tab = torch.empty_like(shp, dtype=tab_dtype)
-    nblocks = _colsum_blocks(n)
+    rows, nblocks = _k3_grid(n, k, shp.element_size())
     partials = torch.empty((nblocks, k), dtype=shp.dtype, device=shp.device)
-    _cuda.launch(name, shp.dtype, k, shp, rte, tab, partials, n, k, nblocks)
+    _cuda.launch(name, shp.dtype, k, shp, rte, tab, partials, n, k, rows, nblocks)
     if tab_dtype is None:
         side_derive.launches += 1
     else:
@@ -221,6 +240,23 @@ def colsum_finish(partials):
 
 
 colsum_finish.launches = 0
+
+
+def kernel_digamma(x, stepwise: bool = False):
+    """The digamma of K3 and K10 (``csrc/common.cuh``) elementwise on a CUDA
+    tensor of float32 or float64, or with ``stepwise`` the form with a
+    reciprocal a step of the shift that K3 used before its tiled form
+    (``csrc/table_update.cu``): what ``chip_smoke.py`` and
+    ``scripts/split_k3_k4.py`` measure the kernels' digamma with, against
+    ``scipy.special.digamma``.  On a CPU tensor, PyTorch's digamma."""
+    if not x.is_cuda:
+        return torch.special.digamma(x)
+    from .. import _cuda
+
+    _cuda.check(x, dtype=x.dtype)
+    out = torch.empty_like(x)
+    _cuda.launch("digamma_eval", x.dtype, None, x, out, x.numel(), int(bool(stepwise)))
+    return out
 
 
 # ---- the carried iteration ---------------------------------------------

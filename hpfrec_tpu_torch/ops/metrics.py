@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .cavi import BlockedCOO
-from .ell import DeviceEll
+from .ell import DeviceEll, _warps_per_segment
 
 
 def _llk_terms(y, yhat, full_llk):
@@ -48,7 +48,10 @@ def _bucket_llk_plain(Theta, Beta, rows, cols, vals, col_off, full_llk):
 
 
 def bucket_llk_parts(Theta, Beta, rows, cols, vals, col_off, full_llk: bool):
-    """K4 for one bucket: (n_parts, 3) float64 partial sums of (ll, se, sp)."""
+    """K4 for one bucket: (n_parts, 3) float64 partial sums of (ll, se, sp),
+    one a block of the kernel (none for an empty bucket); the plain version
+    gives one row.  ``ell_llk_rmse_sums`` calls it bucket by bucket, the
+    table-sharded engine per bucket and ring offset."""
     if not Theta.is_cuda:
         return _bucket_llk_plain(Theta, Beta, rows, cols, vals, col_off,
                                  full_llk)
@@ -60,11 +63,13 @@ def bucket_llk_parts(Theta, Beta, rows, cols, vals, col_off, full_llk: bool):
     _cuda.check(rows, cols, dtype=torch.int32)
     if Beta.shape[1] != k or rows.shape != (m,) or vals.shape != (m, w):
         raise ValueError("bucket_llk_parts: shape mismatch")
-    nblocks = max(1, -(-m // _cuda.WARPS_PER_BLOCK))
+    wps = _warps_per_segment(w)
+    nblocks = -(-m // (_cuda.WARPS_PER_BLOCK // wps)) if m and w else 0
     out = torch.empty((nblocks, 3), dtype=torch.float64, device=Theta.device)
-    _cuda.launch("ell_llk", Theta.dtype, k, Theta, Beta, rows, cols, vals, out,
-                 m, w, k, col_off, int(bool(full_llk)))
-    bucket_llk_parts.launches += 1
+    if nblocks:
+        _cuda.launch("ell_llk", Theta.dtype, k, Theta, Beta, rows, cols, vals, out,
+                     m, w, k, col_off, int(bool(full_llk)), wps)
+        bucket_llk_parts.launches += 1
     return out
 
 
@@ -73,7 +78,7 @@ bucket_llk_parts.launches = 0
 
 def ell_llk_rmse_sums(Theta, Beta, layout: DeviceEll, full_llk: bool = False):
     """Partials of the llk pieces over all buckets: (n_parts, 3) float64 on
-    the device (columns ll, se, sp)."""
+    the device (columns ll, se, sp), a launch a bucket."""
     return torch.cat([bucket_llk_parts(Theta, Beta, b.rows, b.cols, b.vals,
                                        b.col_off, full_llk)
                       for b in layout.buckets])

@@ -192,6 +192,256 @@ def test_kernel_errors_raise(cuda):
         C.side_derive(x.half(), x.half())
 
 
+# ---- K3's tiled pass and K4's walk ---------------------------------------
+
+def _k3_inputs(n, k, dtype, device, seed):
+    """Phi sums, row scalers and the other side's colsum of an (n, k) side,
+    with shapes from ~1e-4 (zero sums) to ~1e7 (large sums) so that the
+    digamma sees both ends, and rows near its root."""
+    rng = np.random.default_rng(seed)
+    sums = rng.random((n, k)) * 30
+    sums[::5] *= 1e-3
+    sums[1::7] = 0.0
+    sums[2::11] = rng.random((len(sums[2::11]), k)) * 1e7
+    sums[3::13] = 1.1616 + rng.random((len(sums[3::13]), k)) * 0.6  # shp 1.46 +- 0.3
+    scaler = rng.random((n, 1)) + 1.0
+    colsum = rng.random((1, k)) * 100
+    return [torch.from_numpy(a).to(device, dtype) for a in (sums, scaler, colsum)]
+
+
+def _k3_tab_close(got, ref, tab_dtype, dtype):
+    if tab_dtype is None:
+        torch.testing.assert_close(got, ref, **TOL[dtype])
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2.0 ** -7, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tab_dtype", [None, torch.bfloat16], ids=["state", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [8, 50, 64, 155, 201, 255, 256])
+def test_table_tiles_every_form_vs_plain(cuda, dtype, tab_dtype, k):
+    """K3's update, derive and pad-row forms against their plain versions on
+    n rows that are no multiple of the tile (a partial last tile and a
+    partial last block; at odd k above 128 in float64 the tiles take more
+    than 48 KB of shared memory), shapes from 1e-4 to 1e7 (the digamma's ends), rows
+    near the digamma's root and an all -inf row (rte = +inf: the
+    non-finite rowmax guard); every output twice with the same bits, the
+    bfloat16 tab bit-equal to the state-dtype tab rounded."""
+    from hpfrec_tpu_torch.ops import cavi as C
+
+    rows, _ = C._k3_grid(1, k, torch.tensor([], dtype=dtype).element_size())
+    n = rows * C._K3_TILES_PER_BLOCK * 3 + rows + 3
+    sums, scaler, colsum = _k3_inputs(n, k, dtype, cuda, 21)
+    args = (sums, scaler, colsum, 0.3, 0.3 + k * 0.3, 0.3, tab_dtype)
+    got = C.side_update(*args)
+    ref = C._side_update_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, C.side_update(*args)))
+    for i in (0, 1, 3, 4):
+        torch.testing.assert_close(got[i], ref[i], **TOL[dtype])
+    _k3_tab_close(got[2], ref[2], tab_dtype, dtype)
+    if tab_dtype is not None:
+        assert torch.equal(got[2], C.side_update(*args[:-1])[2].to(tab_dtype))
+    shp, rte = got[0].clone(), got[1].clone()
+    shp[5::17, ::3] = 1e-4  # shapes below 1e-3 beside ordinary ones in a row
+    rte[7] = float("inf")  # all -inf elog row
+    tab, cs = C.side_derive(shp, rte, tab_dtype)
+    tab_r, cs_r = C._side_derive_plain(shp, rte, tab_dtype)
+    _k3_tab_close(tab, tab_r, tab_dtype, dtype)
+    torch.testing.assert_close(cs, cs_r, **TOL[dtype])
+    assert not tab[7].any() and not torch.signbit(tab[7].float()).any()
+    again = C.side_derive(shp, rte, tab_dtype)
+    assert torch.equal(again[0], tab) and torch.equal(again[1], cs)
+    n_real = n - rows - 1  # padding from inside a tile to the end
+    pad_sums, pad_scaler = sums.clone(), scaler.clone()
+    pad_sums[n_real:], pad_scaler[n_real:] = 0, 0
+    pargs = (pad_sums, pad_scaler, colsum, 0.3, 0.3 + k * 0.3, 0.3, tab_dtype)
+    pad = C.side_update(*pargs, n_real=n_real)
+    pad_r = C._side_update_plain(*pargs, n_real)
+    for i in (0, 1, 3, 4):
+        torch.testing.assert_close(pad[i], pad_r[i], **TOL[dtype])
+    _k3_tab_close(pad[2], pad_r[2], tab_dtype, dtype)
+    assert torch.isinf(pad[1][n_real:]).all() and not pad[3][n_real:].any()
+    assert not pad[2][n_real:].any()
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_k3_grid_tiles_are_aligned_and_fixed_by_shapes(itemsize):
+    """K3's tiling is a function of (n, k, dtype) alone: rows a tile a
+    multiple of 4 with rows * k a multiple of 8 (every tile 16-byte aligned
+    in each table, the bfloat16 tab and the row scalers included), at most
+    ~8 KB a table a tile, and the blocks that cover n rows in 8-tile
+    runs, one block at least."""
+    from hpfrec_tpu_torch.ops import cavi as C
+
+    for k in (1, 2, 3, 7, 8, 25, 50, 64, 100, 200, 255, 256):
+        rows, blocks = C._k3_grid(1, k, itemsize)
+        assert rows % 4 == 0 and rows * k % 8 == 0 and rows <= C._K3_MAX_ROWS
+        least = np.lcm(4, 8 // np.gcd(k, 8))  # the fewest rows that keep the alignment
+        assert rows * k * itemsize <= C._K3_TILE_BYTES or rows == least
+        tile_rows = rows * C._K3_TILES_PER_BLOCK
+        for n in (0, 1, rows - 1, rows, tile_rows, tile_rows + 1, 1_019_318):
+            assert C._k3_grid(n, k, itemsize) == (rows, max(1, -(-n // tile_rows)))
+    assert C._k3_grid(1_019_318, 50, 4) == (40, 3186)
+
+
+def test_kernel_digamma_on_cpu_is_torch():
+    from hpfrec_tpu_torch.ops import cavi as C
+
+    x = torch.logspace(-4, 7, 101, dtype=torch.float64)
+    assert torch.equal(C.kernel_digamma(x), torch.special.digamma(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_table_tiles_every_k(cuda, dtype):
+    """K3 launches and agrees with its plain version at every k from 1 to
+    256 (``MAX_K``), both forms and both tab dtypes, on two full tiles and
+    a partial one: every tiling ``_k3_grid`` picks fits the block's shared
+    memory."""
+    from hpfrec_tpu_torch.ops import cavi as C
+
+    for k in range(1, 257):
+        rows, _ = C._k3_grid(1, k, torch.tensor([], dtype=dtype).element_size())
+        sums, scaler, colsum = _k3_inputs(2 * rows + 3, k, dtype, cuda, k)
+        for tab_dtype in (None, torch.bfloat16):
+            args = (sums, scaler, colsum, 0.3, 0.3 + k * 0.3, 0.3, tab_dtype)
+            got, ref = C.side_update(*args), C._side_update_plain(*args)
+            for i in (0, 1, 3, 4):
+                torch.testing.assert_close(got[i], ref[i], **TOL[dtype])
+            _k3_tab_close(got[2], ref[2], tab_dtype, dtype)
+            tab, cs = C.side_derive(got[0], got[1], tab_dtype)
+            tab_r, cs_r = C._side_derive_plain(got[0], got[1], tab_dtype)
+            _k3_tab_close(tab, tab_r, tab_dtype, dtype)
+            torch.testing.assert_close(cs, cs_r, **TOL[dtype])
+
+
+def _shifted(t):
+    """``t``'s values in a contiguous view that starts one element into a
+    fresh buffer: not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tab_dtype", [None, torch.bfloat16], ids=["state", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [7, 50])
+def test_table_tiles_unaligned_views(cuda, dtype, tab_dtype, k):
+    """K3 on inputs that are not 16-byte aligned (a row slice starting at an
+    odd row, and views one element into a buffer): the kernel's
+    one-element copies and stores give the bits of the same values handed
+    in as fresh (aligned) tensors."""
+    from hpfrec_tpu_torch.ops import cavi as C
+
+    sums, scaler, colsum = _k3_inputs(1201, k, dtype, cuda, 22)
+    args = (0.3, 0.3 + k * 0.3, 0.3, tab_dtype)
+    for view, sview in ((sums[1:], scaler[1:]), (_shifted(sums), _shifted(scaler))):
+        assert view.is_contiguous() and (view.data_ptr() % 16 or sview.data_ptr() % 16
+                                         or k * view.element_size() % 16)
+        got = C.side_update(view, sview, colsum, *args)
+        fresh = C.side_update(view.clone(), sview.clone(), colsum, *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, fresh))
+        ref = C._side_update_plain(view, sview, colsum, *args)
+        for i in (0, 1, 3, 4):
+            torch.testing.assert_close(got[i], ref[i], **TOL[dtype])
+        _k3_tab_close(got[2], ref[2], tab_dtype, dtype)
+    shp, rte = _shifted(fresh[0]), _shifted(fresh[1])
+    assert shp.data_ptr() % 16 and rte.data_ptr() % 16
+    tab, cs = C.side_derive(shp, rte, tab_dtype)
+    assert torch.equal(tab, fresh[2]) and torch.equal(cs, fresh[4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_digamma_against_scipy(cuda, dtype):
+    """The kernels' digamma on a log sweep of [1e-4, 1e7] and around its
+    root, against scipy in float64: within 64 ulp of the dtype in float32
+    and 256 in float64 (the measured maxima are a few tens; the stepwise
+    form it replaced reached ~1e5 ulp at the root), and no worse in its
+    maximum and mean than the stepwise form."""
+    from scipy import special
+
+    from hpfrec_tpu_torch.ops import cavi as C
+
+    x = np.concatenate([np.logspace(-4, 7, 200_001),
+                        1.4616321449683622 + np.linspace(-0.4, 0.4, 20_001)])
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    x = x.astype(npdt)
+    ref = special.digamma(x.astype(np.float64))
+    ulp = np.spacing(np.abs(ref).astype(npdt)).astype(np.float64)
+    xt = torch.from_numpy(x).to(cuda)
+    err = {}
+    for stepwise in (False, True):
+        got = C.kernel_digamma(xt, stepwise=stepwise).cpu().numpy().astype(np.float64)
+        err[stepwise] = np.abs(got - ref) / ulp
+    assert err[False].max() <= (64 if dtype == torch.float32 else 256)
+    assert err[False].max() <= err[True].max() and err[False].mean() <= err[True].mean()
+
+
+def _llk_layout(dtype, device):
+    """A layout whose buckets run 1, 2, 4 and 8 warps a segment (rows of up
+    to 3,000 slots), plus narrow rows and empty rows."""
+    rng = np.random.default_rng(12)
+    n_cols = 4000
+    degrees = np.concatenate([np.repeat([300, 700, 1500, 3000], 6),
+                              rng.integers(1, 40, 200), np.zeros(5, np.int64)])
+    rows = np.repeat(np.arange(len(degrees)), degrees).astype(np.int32)
+    cols = np.concatenate([rng.choice(n_cols, d, replace=False) for d in degrees]).astype(np.int32)
+    y = rng.poisson(2.0, len(rows)) + 1.0
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    return _layout(y, rows, cols, len(degrees), n_cols, npdt, device, max_width=8192), \
+        len(degrees), n_cols
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [8, 50, 200])
+@pytest.mark.parametrize("full_llk", [False, True])
+def test_ell_llk_walk_vs_plain(cuda, dtype, k, full_llk):
+    """K4 bucket by bucket against the plain version, on a layout with 1, 2,
+    4 and 8 warps a segment, padding (y = 0) and slots whose yhat is 0 or
+    negative (zero and negative Theta rows): a bucket's partials one a
+    block, and two runs give the same bits."""
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.ops import metrics as M
+
+    lay, n_rows, n_cols = _llk_layout(dtype, cuda)
+    assert {E._warps_per_segment(b.cols.shape[1]) for b in lay.buckets} == {1, 2, 4, 8}
+    assert any(bool((b.vals == 0).any()) for b in lay.buckets)
+    th = _tables(n_rows, k, dtype, cuda, 13) / k
+    th[::9] = 0.0  # yhat = 0: log(1)
+    th[4::9] *= -1.0  # yhat < 0
+    be = _tables(n_cols, k, dtype, cuda, 14)
+    parts = M.ell_llk_rmse_sums(th, be, lay, full_llk)
+    for b in lay.buckets:
+        m = b.cols.shape[0]
+        got = M.bucket_llk_parts(th, be, b.rows, b.cols, b.vals, b.col_off, full_llk)
+        assert got.shape == (-(-m // (8 // E._warps_per_segment(b.cols.shape[1]))), 3)
+        ref = M._bucket_llk_plain(th, be, b.rows, b.cols, b.vals, b.col_off, full_llk)
+        torch.testing.assert_close(got.sum(0), ref.sum(0), rtol=TOL[dtype]["rtol"], atol=1e-9)
+    assert torch.equal(M.ell_llk_rmse_sums(th, be, lay, full_llk), parts)
+    ref = torch.cat([M._bucket_llk_plain(th, be, b.rows, b.cols, b.vals, b.col_off, full_llk)
+                     for b in lay.buckets]).sum(0)
+    torch.testing.assert_close(parts.sum(0), ref, rtol=TOL[dtype]["rtol"], atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_ell_llk_empty_bucket(cuda):
+    """K4's one-bucket form on a bucket with no segments, or with segments
+    of no slots, gives no partial rows (none left unwritten)."""
+    from hpfrec_tpu_torch.ops import metrics as M
+
+    th = _tables(10, 8, torch.float32, cuda, 1)
+    be = _tables(12, 8, torch.float32, cuda, 2)
+    for m, w in ((0, 4), (3, 0)):
+        rows = torch.zeros(m, dtype=torch.int32, device=cuda)
+        cols = torch.zeros((m, w), dtype=torch.int32, device=cuda)
+        vals = torch.zeros((m, w), dtype=torch.float32, device=cuda)
+        assert M.bucket_llk_parts(th, be, rows, cols, vals, 0, False).shape == (0, 3)
+
+
 def _blocked(y, iu, ii, dtype, device, block_size=None):
     from hpfrec_tpu_torch.ops.cavi import device_blocked_coo
 
