@@ -46,9 +46,11 @@ non-zero, with no result line):
    those shapes: one 1,024-user chunk at the full catalog with the fit's
    seen lists at n = 10 (the fused path, also held bit for bit against the
    three-kernel path at n = 10 and timed beside it and the library call)
-   and n = 2,000 (the three-kernel path; one user with fewer than 2,000
-   unseen items), the fold-in of the heaviest user and of the user nearest
-   10 items, 4M pairs, the diff norm and the held-out rowsum correction;
+   and n = 2,000 (the three-kernel path, also split by launch: score, mask,
+   select; one user with fewer than 2,000 unseen items), the fold-in of the
+   heaviest user and of the user nearest 10 items (the heaviest also as HPF
+   calls it, from and to host arrays, and over 100 iterations), 4M pairs,
+   the diff norm and the held-out rowsum correction;
 3f. online updates on the SVI fit (``reindex=False``): ``partial_fit`` of
    a 100,000-user and a 40,000-item batch of its own triplets, growth by
    1,000 users, ``predict_factors`` for 256 histories (the heaviest
@@ -861,6 +863,13 @@ def serving_suite(model, users, seen_lists, n_list, histories, pairs, val_pairs,
                   "takes %.4f ms (fused %.4f ms, library %.4f ms)"
                   % (name, dtype_name, label, b, n, r[name]["three_kernel_ms"], r[name]["ms"],
                      r[name]["library_ms"]))
+        else:
+            # the three-kernel path by launch: score, mask, select
+            split = kernel_split(lambda n=n: T._topn_scored(th_rows, Beta, rows, items, n), reps)
+            r[name]["split_ms"] = {kernel_name(key): ms for ms, key in split}
+            print("  %-20s %s%s, %d users, n=%d, by launch (torch.profiler): %s"
+                  % (name, dtype_name, label, b, n, ", ".join(
+                      "%s %.4f ms" % kv for kv in r[name]["split_ms"].items())))
         if name in results:
             extra["%s n=%d" % (name, n)] = r[name]
         else:
@@ -882,6 +891,23 @@ def serving_suite(model, users, seen_lists, n_list, histories, pairs, val_pairs,
     heavy = max(fold, key=lambda name: int(name.split("=")[1]))
     results["fold_in"] = fold.pop(heavy)
     extra.update(fold)
+    # the heaviest history's fold-in as HPF calls it (host arrays in, one copy
+    # up, one back), and its iteration chain over 100 iterations
+    arrays, k_rte0 = model._fold_in_start(*max(histories, key=lambda h: len(h[0])), 1)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    walls = []
+    for _ in range(20 * reps + 1):
+        t0 = time.perf_counter()
+        S.fold_in(*arrays, k_rte0, hp, 10, 1e-3, dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    res = results["fold_in"]
+    res["as_called_ms"] = float(np.median(walls[1:]))
+    res["iter100_ms"] = cuda_ms(lambda: S.user_factors_loop(*args, k_rte0, hp, 100, 0.0),
+                                10 * reps)
+    print("  %-20s %s%s, %d items: as HPF calls it (host arrays in and out) %.4f ms a call "
+          "(host clock, median of %d); 100 iterations %.4f ms (CUDA events)"
+          % ("fold_in", dtype_name, label, len(arrays[0]), res["as_called_ms"], 20 * reps,
+             res["iter100_ms"]))
 
     iu, ii = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in pairs)
     vu, vi = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in val_pairs)
@@ -969,6 +995,11 @@ def kernel_split(fn, reps):
              ev.key) for ev in prof.key_averages()
             if str(getattr(ev, "device_type", "")).endswith("CUDA") and ev.count]
     return sorted(rows, reverse=True)
+
+
+def kernel_name(key):
+    """A kernel's bare name from the profiler's key (its signature)."""
+    return key.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
 
 
 def k7_split(fn, reps):

@@ -76,14 +76,14 @@ _SIGNATURES = {
     "theta_diff": [_P, _P, _P, _I64, _I32],
     # theta, beta, iu, ii, partials, n, k, nblocks
     "rowsum_dot": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
-    # theta_rows, beta, scores, b, nI, k
-    "topn_score": [_P, _P, _P, _I32, _I64, _I32],
+    # theta_rows, beta, scores, b, nI, k, range_w, R
+    "topn_score": [_P, _P, _P, _I32, _I64, _I32, _I64, _I32],
     # theta_rows, beta, mask (or NULL), W, cand, b, nI, k, n, range_w, R
     "topn_fused": [_P, _P, _P, _I64, _P, _I32, _I64, _I32, _I32, _I64, _I32],
     # y, elogb, beta_colsum, theta0, g_shp0, g_rte0, k_rte0, a, k_shp,
-    # add_k_rte, maxiter, stop_thr, P, k, theta, g_shp, g_rte, phi, n_iter
-    "fold_in": [_P, _P, _P, _P, _P, _P, _D, _D, _D, _D, _I32, _D, _I64, _I32, _P, _P, _P,
-                _P, _P],
+    # add_k_rte, maxiter, stop_thr, P, k, out (Theta, G_shp, G_rte, count),
+    # phi (or NULL)
+    "fold_in": [_P, _P, _P, _P, _P, _P, _D, _D, _D, _D, _I32, _D, _I64, _I32, _P, _P],
 }
 # entry points without a float type: name -> argument types before the stream
 _UNTYPED = {

@@ -1542,21 +1542,16 @@ class HPF:
     def _run_user_factors(self, items, counts, maxiter, random_seed, stop_thr, return_all):
         """Fold-in (reference ``calc_user_factors``, ``cython_loops.pxi:476-520``):
         the seeded host init, then K10 on the model's device with the item
-        parameters frozen."""
-        from ..ops.svi import user_factors_loop
+        parameters frozen (one copy up and one back on the card)."""
+        from ..ops.svi import fold_in
 
         arrays, k_rte0 = self._fold_in_start(items, counts, random_seed)
-        dev = self._torch_device()
-        Theta, G_shp, G_rte, phi_norm, _ = user_factors_loop(
-            *[_host_to_device(a, dev) for a in arrays], k_rte0, self._hp(), int(maxiter),
-            float(stop_thr))
-        Theta = Theta.cpu().numpy()
+        Theta, G_shp, G_rte, phi_norm, _ = fold_in(
+            *arrays, k_rte0, self._hp(), int(maxiter), float(stop_thr), self._torch_device(),
+            return_phi=return_all)
         if np.isnan(Theta).sum() > 0:
             raise ValueError("NaNs encountered in the result. Failed to produce latent factors.")
-        G_shp, G_rte = G_shp.cpu().numpy(), G_rte.cpu().numpy()
-        if return_all:
-            return Theta, G_shp, G_rte, phi_norm.cpu().numpy()
-        return Theta, G_shp, G_rte, None
+        return Theta, G_shp, G_rte, phi_norm
 
     def predict_factors(self, counts_df, maxiter=10, ncores=1, random_seed=1,
                         stop_thr=1e-3, return_all=False):

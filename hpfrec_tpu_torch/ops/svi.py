@@ -456,6 +456,29 @@ def _user_factors_loop_plain(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0,
     return Theta, G_shp, G_rte, e / s[:, None], i
 
 
+def _launch_fold_in(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0, k_rte0, hp,
+                    maxiter, stop_thr, out, phi):
+    """K10 on CUDA tensors: Theta, G_shp, G_rte and the int32 iteration count
+    into ``out`` ((3k + 1,) of the state dtype; the count in the last
+    element's first four bytes), phi_norm into ``phi`` (P, k) unless it is
+    None."""
+    from .. import _cuda
+
+    P, k = elogb_rows.shape
+    dt = y.dtype
+    _cuda.check(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0, out, dtype=dt)
+    if (y.shape != (P,) or beta_colsum.shape != (k,) or Theta0.shape != (k,)
+            or G_shp0.shape != (k,) or G_rte0.shape != (k,) or out.shape != (3 * k + 1,)
+            or (phi is not None and phi.shape != (P, k))):
+        raise ValueError("user_factors_loop: shape mismatch")
+    if phi is not None:
+        _cuda.check(phi, dtype=dt)
+    _cuda.launch("fold_in", dt, k, y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0,
+                 float(k_rte0), float(hp.a), float(hp.k_shp), float(hp.add_k_rte),
+                 int(maxiter), float(stop_thr), P, k, out, phi)
+    user_factors_loop.launches += 1
+
+
 def user_factors_loop(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0,
                       k_rte0: float, hp: Hyperparams, maxiter: int, stop_thr: float):
     """K10: fold-in CAVI over one user's counts with the item parameters
@@ -465,27 +488,47 @@ def user_factors_loop(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0,
     the initial ``Theta0``/``G_shp0``/``G_rte0`` (k,), all of the state
     dtype on one device; ``k_rte0`` and ``stop_thr`` are rounded to it.
     Returns ``(Theta, G_shp, G_rte, phi_norm (P, k), n_iters)``; the loop
-    stops when ``||Theta_new - Theta|| < stop_thr`` or at ``maxiter``."""
+    stops when ``||Theta_new - Theta|| < stop_thr`` or at ``maxiter``.
+    ``fold_in`` is the same loop from and to host arrays."""
     if not y.is_cuda:
         return _user_factors_loop_plain(y, elogb_rows, beta_colsum, Theta0, G_shp0,
                                         G_rte0, k_rte0, hp, maxiter, stop_thr)
-    from .. import _cuda
-
-    P = y.shape[0]
     k = beta_colsum.shape[0]
-    dt = y.dtype
-    _cuda.check(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0, dtype=dt)
-    if (elogb_rows.shape != (P, k) or Theta0.shape != (k,) or G_shp0.shape != (k,)
-            or G_rte0.shape != (k,)):
+    if elogb_rows.dim() != 2 or elogb_rows.shape[1] != k:
         raise ValueError("user_factors_loop: shape mismatch")
-    Theta, G_shp, G_rte = (torch.empty_like(beta_colsum) for _ in range(3))
+    out = torch.empty(3 * k + 1, dtype=y.dtype, device=y.device)
     phi = torch.empty_like(elogb_rows)
-    n_iter = torch.zeros(1, dtype=torch.int32, device=y.device)
-    _cuda.launch("fold_in", dt, k, y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0,
-                 float(k_rte0), float(hp.a), float(hp.k_shp), float(hp.add_k_rte),
-                 int(maxiter), float(stop_thr), P, k, Theta, G_shp, G_rte, phi, n_iter)
-    user_factors_loop.launches += 1
-    return Theta, G_shp, G_rte, phi, int(n_iter.item())
+    _launch_fold_in(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0, k_rte0, hp, maxiter,
+                    stop_thr, out, phi)
+    n_iter = int(out[3 * k:].view(torch.int32)[0])
+    return out[:k], out[k:2 * k], out[2 * k:3 * k], phi, n_iter
+
+
+def fold_in(y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0, k_rte0: float,
+            hp: Hyperparams, maxiter: int, stop_thr: float, device, return_phi: bool = False):
+    """K10 as ``HPF.predict_factors`` and ``HPF.add_user`` call it: the
+    arguments of ``user_factors_loop`` as host arrays of the state dtype,
+    run on ``device``.  On the card the six arrays go up as one buffer (one
+    copy) and Theta, G_shp, G_rte, the count and, with ``return_phi``,
+    phi_norm come back as one (one copy).  Returns host arrays ``(Theta,
+    G_shp, G_rte, phi_norm or None, n_iters)``."""
+    arrays = (y, elogb_rows, beta_colsum, Theta0, G_shp0, G_rte0)
+    if torch.device(device).type != "cuda":
+        Theta, G_shp, G_rte, phi, n = _user_factors_loop_plain(
+            *[torch.from_numpy(np.array(a)) for a in arrays], k_rte0, hp, maxiter, stop_thr)
+        return (Theta.numpy(), G_shp.numpy(), G_rte.numpy(),
+                phi.numpy() if return_phi else None, n)
+    P, k = elogb_rows.shape
+    host = torch.from_numpy(np.concatenate([np.ravel(a) for a in arrays]))
+    d = host.to(device)
+    views = (d[:P], d[P:P + P * k].view(P, k), *d[P + P * k:].view(4, k))
+    out = torch.empty(3 * k + 1 + (P * k if return_phi else 0), dtype=d.dtype, device=d.device)
+    phi = out[3 * k + 1:].view(P, k) if return_phi else None
+    _launch_fold_in(*views, k_rte0, hp, maxiter, stop_thr, out[:3 * k + 1], phi)
+    h = out.cpu().numpy()
+    n_iter = int(h[3 * k:3 * k + 1].view(np.int32)[0])
+    return (h[:k], h[k:2 * k], h[2 * k:3 * k],
+            h[3 * k + 1:].reshape(P, k) if return_phi else None, n_iter)
 
 
 user_factors_loop.launches = 0

@@ -10,8 +10,11 @@ the n best items of each user are selected on the device:
   pairs, and the n largest scores per row in ``lax.top_k``'s order (score
   descending, then index ascending).  Up to n = ``_FUSED_MAX_N`` one
   kernel scores and selects without a score buffer; a larger n writes the
-  scores and selects from them.  Its plain version below does the same
-  with a matrix product and a stable sort.
+  scores and selects from them (a histogram pass over each row that also
+  collects the keys at or above a guessed bin, a second pass where the
+  guess missed, and a sort of the keys at or above the n-th key's bin).
+  Its plain version below does the same with a matrix product and a stable
+  sort.
 - ``topn_batch``: the host's ragged pair list of the seen items, chunks of
   users whose device buffers stay within ``_CHUNK_BYTES``, and the host
   backfill for users with fewer than n unseen items.
@@ -50,26 +53,31 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, int(x - 1).bit_length())
 
 
+def _topn_select_plain(scores, n):
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :n], idx[:, :n].to(torch.int32)
+
+
 def _topn_rows_plain(Theta_rows, Beta, mask_rows, mask_items, n):
     scores = (Theta_rows @ Beta.T).to(torch.float32)
     if mask_rows is not None:
         r, i = mask_rows.long(), mask_items.long()
         keep = (r >= 0) & (r < scores.shape[0]) & (i >= 0) & (i < scores.shape[1])
         scores[r[keep], i[keep]] = -torch.inf
-    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :n], idx[:, :n].to(torch.int32)
+    return _topn_select_plain(scores, n)
 
 
-def _item_ranges(b: int, nI: int, n: int, sms: int):
+def _item_ranges(b: int, nI: int, n: int, sms: int, bm: int = _FUSED_BM):
     """``(range_w, R)``: the fused kernel's item ranges, ``R`` ranges of
     ``range_w`` items (a multiple of the tile; the last one shorter), as
-    many as keep the chunk's user tiles times ``R`` blocks within one wave
-    of ``_FUSED_BLOCKS_PER_SM`` blocks an SM (a second, partial wave would
-    take as long as the first), at least one, at most one a tile and at
-    most ``_SMEM_CAND // n`` (the merge sorts a row's ``R * n`` candidates
-    in shared memory)."""
+    many as keep the chunk's user tiles (of ``bm`` users: the fused
+    kernel's, or the score kernel's, which ``csrc/topn.cu`` exports) times
+    ``R`` blocks within one wave of ``_FUSED_BLOCKS_PER_SM`` blocks an SM
+    (a second, partial wave would take as long as the first), at least
+    one, at most one a tile and at most ``_SMEM_CAND // n`` (the merge
+    sorts a row's ``R * n`` candidates in shared memory)."""
     tiles = -(-nI // _FUSED_BN)
-    user_tiles = -(-b // _FUSED_BM)
+    user_tiles = -(-b // bm)
     want = _FUSED_BLOCKS_PER_SM * sms // user_tiles
     R = max(1, min(tiles, want, _SMEM_CAND // n))
     per = -(-tiles // R)
@@ -87,8 +95,9 @@ def topn_rows(Theta_rows, Beta, mask_rows, mask_items, n: int):
 
     On the card, n up to ``_FUSED_MAX_N`` runs the fused path (score and
     select in one kernel, no score buffer; launches in ``.launches``), a
-    larger n the three-kernel path (scores, mask, select; launches in
-    ``.launches_large``).  Both give the same bits."""
+    larger n the three-kernel path (scores, mask, select; one a select in
+    ``.launches_large``, counted by ``_topn_select``).  Both give the same
+    bits."""
     if not Theta_rows.is_cuda:
         return _topn_rows_plain(Theta_rows, Beta, mask_rows, mask_items, n)
     if n <= _FUSED_MAX_N:
@@ -142,24 +151,55 @@ def _topn_fused(Theta_rows, Beta, mask_rows, mask_items, n: int):
 
 
 def _topn_scored(Theta_rows, Beta, mask_rows, mask_items, n: int):
-    """K6's three-kernel path (CUDA tensors, any n): the (b, nI) float32
-    scores, ``-inf`` at the seen pairs, then a radix select and sort per
-    row."""
+    """K6's three-kernel path (CUDA tensors, any n): the scores with the
+    seen pairs at ``-inf`` (``_topn_scores``), then the select."""
+    return _topn_select(_topn_scores(Theta_rows, Beta, mask_rows, mask_items, n), n)
+
+
+def _topn_scores(Theta_rows, Beta, mask_rows, mask_items, n: int):
+    """The (b, nI) float32 scores of K6's three-kernel path (CUDA tensors):
+    summed as the fused kernel sums them, over its item ranges, then
+    ``-inf`` at the seen pairs."""
     _cuda, masked = _check(Theta_rows, Beta, mask_rows, mask_items, n)
     b, k = Theta_rows.shape
     nI = Beta.shape[0]
-    dt = Theta_rows.dtype
     dev = Theta_rows.device
     scores = torch.empty((b, nI), dtype=torch.float32, device=dev)
-    _cuda.launch("topn_score", dt, k, Theta_rows, Beta, scores, b, nI, k)
+    # item ranges as the fused kernel's at n = 1, for the score kernel's
+    # users a block: one wave of its blocks
+    lib = _cuda.load()
+    bm = (lib.hpf_topn_score_rows_f64 if Theta_rows.dtype == torch.float64
+          else lib.hpf_topn_score_rows_f32)()
+    range_w, R = _item_ranges(b, nI, 1, torch.cuda.get_device_properties(dev)
+                              .multi_processor_count, bm)
+    _cuda.launch("topn_score", Theta_rows.dtype, k, Theta_rows, Beta, scores, b, nI, k,
+                 range_w, R)
     if masked:
         _cuda.launch("topn_mask", None, None, scores, mask_rows, mask_items,
                      mask_rows.shape[0], b, nI)
+    return scores
+
+
+def _topn_select(scores, n: int):
+    """K6's select on a (b, nI) float32 score buffer: the n largest scores
+    of each row and their indices, in ``lax.top_k``'s order (score
+    descending, then index ascending).  On the card, a histogram pass over
+    each row's keys that also collects those at or above a guessed bin, a
+    second pass where the guess missed, and a sort of the keys at or above
+    the n-th key's bin (``csrc/topn.cu``)."""
+    if not scores.is_cuda:
+        return _topn_select_plain(scores, n)
+    from .. import _cuda
+
+    _cuda.check(scores, dtype=torch.float32)
+    b, nI = scores.shape
+    if not 1 <= n <= nI:
+        raise ValueError("topn_rows: n outside 1..nI")
     P = _next_pow2(n)
-    cand = (torch.empty((b, P), dtype=torch.int64, device=dev) if P > _SMEM_CAND
+    cand = (torch.empty((b, P), dtype=torch.int64, device=scores.device) if P > _SMEM_CAND
             else None)
-    vals = torch.empty((b, n), dtype=torch.float32, device=dev)
-    idx = torch.empty((b, n), dtype=torch.int32, device=dev)
+    vals = torch.empty((b, n), dtype=torch.float32, device=scores.device)
+    idx = torch.empty((b, n), dtype=torch.int32, device=scores.device)
     _cuda.launch("topn_select", None, None, scores, vals, idx, cand, b, nI, n, P)
     topn_rows.launches_large += 1
     return vals, idx

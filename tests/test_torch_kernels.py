@@ -11,7 +11,9 @@ the bfloat16-table forms of K1 and K3, K3's pad-row form (the table-sharded
 engine's), top-n ranking (K6) with ties (across the fused path's item
 ranges too), fully masked rows, rows with fewer unseen items than n and
 every size class of n on both paths, the fused path bit-equal to the
-three-kernel path, the fold-in loop (K10) and the pair reductions (K11).
+three-kernel path, the large-n select on crowded, tied and -inf rows
+against a stable sort, the fold-in loop (K10, also from and to host
+arrays as HPF calls it) and the pair reductions (K11).
 
 The ``gpu`` tests skip without a CUDA device; the card runs them with
 ``python -m pytest tests/test_torch_kernels.py -q --noconftest``
@@ -1115,6 +1117,178 @@ def test_topn_batch_card_equals_cpu(cuda, dtype):
     np.testing.assert_array_equal(got, ref)
 
 
+def _select_rows(nI, seed):
+    """float32 score rows for K6's select, one of each kind: uniform (the
+    first histogram pass leaves few candidates), within 1e-3 of 1 (one
+    12-bit bin: the second pass resolves it), within 1e-7 of 1 (one bin
+    down to the last bits, many exact ties: the ordered pass), small
+    integers (ties straddling every threshold), normal (negative and
+    positive), -inf but for 100 items, and -inf throughout."""
+    rng = np.random.default_rng(seed)
+    rows = np.stack([rng.random(nI), 1 + 1e-3 * rng.random(nI), 1 + 1e-7 * rng.random(nI),
+                     rng.integers(0, 10, nI).astype(np.float64), rng.standard_normal(nI),
+                     np.full(nI, -np.inf), np.full(nI, -np.inf)]).astype(np.float32)
+    rows[5, rng.choice(nI, 100, replace=False)] = rng.random(100)
+    rows[rows == 0] = 0.5  # no -0 / +0 pairs: the keys order them, a sort does not
+    return torch.from_numpy(rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [129, 2000, 4096, 4097, 20_000])
+def test_topn_select_vs_stable_sort(cuda, n):
+    """K6's select on score rows of every kind (``_select_rows``; 20,000
+    items, more than the 8,192 candidates a row keeps in shared memory) at
+    n past the fused path's cap, at and past the shared-memory sort's 4,096
+    and at n = nI: the values and indices of a stable descending sort, bit
+    for bit, and the same bits on a rerun."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    scores = _select_rows(20_000, 21).to(cuda)
+    got = T._topn_select(scores, n)
+    ref = torch.sort(scores, dim=1, descending=True, stable=True)
+    assert torch.equal(got[0], ref.values[:, :n])
+    assert torch.equal(got[1], ref.indices[:, :n].to(torch.int32))
+    again = T._topn_select(scores, n)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [129, 2000, 4096, 4097])
+def test_topn_select_long_rows_vs_stable_sort(cuda, n):
+    """K6's select on rows long enough for its first pass's guess (262,144
+    items or more; ``_select_rows``' kinds at 300,000 items, plus a row
+    whose sampled keys, 4 at every nI / 4,096 * 4-th place as csrc/topn.cu
+    takes them, are its largest and span several 12-bit bins, so at n =
+    2,000 the guessed bin lies above the n-th key's and a second pass
+    runs): a stable descending sort's values and indices, bit for bit."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    nI = 300_000
+    rows = _select_rows(nI, 24)
+    step = nI // 4096 * 4
+    sampled = (np.arange(1024)[:, None] * step + np.arange(4)).ravel()
+    rng = np.random.default_rng(25)
+    miss = rng.random(nI)
+    miss[sampled] = 10 + 10 * rng.random(sampled.size)  # over several 12-bit bins
+    miss = torch.from_numpy(miss.astype(np.float32))
+    scores = torch.cat([rows, miss[None]]).to(cuda)
+    got = T._topn_select(scores, n)
+    ref = torch.sort(scores, dim=1, descending=True, stable=True)
+    assert torch.equal(got[0], ref.values[:, :n])
+    assert torch.equal(got[1], ref.indices[:, :n].to(torch.int32))
+
+
+_GUESS_NI = 262_144  # the shortest row whose first pass takes a guess
+
+
+def _guess_overflow_row(n, seed):
+    """A float32 row of ``_GUESS_NI`` items whose first pass guesses too
+    low and overflows: every key csrc/topn.cu samples (4 at every nI /
+    4,096 * 4-th place) lies just below the 12-bit bin edge at 1.125, in a
+    bin of 10,000 keys, more than the 8,192 words a row collects; the n-th
+    largest key lies in the bin above, among n + 1,000 keys with ties (4
+    values), placed where nothing is sampled; the rest lie far below.  The
+    collecting pass then holds too many words while the n-th key's bin
+    would fit, so a second pass collects it.  Returns (row, sampled
+    places)."""
+    rng = np.random.default_rng(seed)
+    row = 0.01 * rng.random(_GUESS_NI)
+    step = _GUESS_NI // 4096 * 4
+    sampled = (np.arange(1024)[:, None] * step + np.arange(4)).ravel()
+    rest = np.setdiff1d(np.arange(_GUESS_NI), sampled)
+    low = np.concatenate([sampled, rng.choice(rest, 10_000 - sampled.size, replace=False)])
+    row[low] = 1.124 - 1e-3 * rng.random(low.size)
+    high = rng.choice(np.setdiff1d(rest, low), n + 1000, replace=False)
+    row[high] = 1.125 + 1e-3 * rng.integers(0, 4, high.size)
+    return row.astype(np.float32), sampled
+
+
+@pytest.mark.parametrize("n", [129, 2000])
+def test_guess_overflow_row_takes_the_second_pass(n):
+    """``_guess_overflow_row`` does what the card test needs, by the
+    kernel's arithmetic: the guessed bin (the 12-bit bin of the sampled
+    keys' rank-th largest, rank past the n-th's expected place by three
+    standard deviations and 8) lies below the n-th key's bin; the keys at
+    or above the guess number more than the 8,192-word buffer; those at
+    or above the n-th key's bin fit it."""
+    row, sampled = _guess_overflow_row(n, 31)
+    u = row.view(np.uint32)
+    key = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+    expect = n * 4096 / _GUESS_NI
+    rank = int(np.ceil(expect + 3 * np.sqrt(expect) + 8))
+    assert rank * _GUESS_NI / 4096 <= 0.5 * 8192  # the kernel guesses
+    guess_bin = np.sort(key[sampled] >> 20)[::-1][rank - 1]
+    nth_bin = np.sort(key)[::-1][n - 1] >> 20
+    assert guess_bin < nth_bin
+    assert (key >> 20 >= guess_bin).sum() > 8192
+    assert n < (key >> 20 >= nth_bin).sum() <= 8192
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [129, 2000])
+def test_topn_select_guess_overflow_vs_stable_sort(cuda, n):
+    """K6's select where its first pass guesses a bin below the n-th key's
+    and collects more words than its buffer holds (``_guess_overflow_row``,
+    twice, and its keys shuffled once): a second pass collects the n-th
+    key's bin and above.  The values and indices of a stable descending
+    sort, bit for bit, and the same bits on reruns."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    row, _ = _guess_overflow_row(n, 31)
+    shuffled = np.random.default_rng(32).permutation(row)
+    scores = torch.from_numpy(np.stack([row, shuffled, row])).to(cuda)
+    got = T._topn_select(scores, n)
+    ref = torch.sort(scores, dim=1, descending=True, stable=True)
+    assert torch.equal(got[0], ref.values[:, :n])
+    assert torch.equal(got[1], ref.indices[:, :n].to(torch.int32))
+    for _ in range(3):
+        again = T._topn_select(scores, n)
+        assert all(torch.equal(a, c) for a, c in zip(again, got))
+
+
+@pytest.mark.gpu
+def test_topn_select_counts_its_launches(cuda):
+    """A launch of K6's select counts one in ``topn_rows.launches_large``,
+    whether it comes through ``topn_rows`` or straight from
+    ``_topn_select``; the score and mask launches count none."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    th, be = _int_tables(4, 600, 8, torch.float32, cuda, 33)
+    before = T.topn_rows.launches_large
+    scores = T._topn_scores(th, be, None, None, 200)
+    assert T.topn_rows.launches_large == before
+    T._topn_select(scores, 200)
+    assert T.topn_rows.launches_large == before + 1
+    T.topn_rows(th, be, None, None, 200)
+    assert T.topn_rows.launches_large == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [129, 2000, 4096, 4097, 6000])
+def test_topn_scored_vs_stable_sort_of_its_scores(cuda, dtype, n):
+    """K6's three-kernel path against a stable descending sort of its own
+    score buffer (``_topn_scores``), bit for bit: integer tables (ties
+    across the threshold), seen items masked, row 0 fully masked, row 1
+    with 50 unseen items (fewer than n), n up to nI; the scores themselves
+    equal the plain product's (exact on integer tables)."""
+    from hpfrec_tpu_torch.ops import topk as T
+
+    b, nI, k = 6, 6000, 20
+    th, be = _int_tables(b, nI, k, dtype, cuda, 22)
+    rows, items = _seen_pairs(b, nI, 300, cuda, 23, full_row=0)
+    few = torch.arange(50, nI, dtype=torch.int32, device=cuda)
+    rows = torch.cat([rows, torch.ones_like(few)])
+    items = torch.cat([items, few])
+    scores = T._topn_scores(th, be, rows, items, n)
+    ref = T._topn_rows_plain(th, be, rows, items, nI)
+    assert torch.equal(torch.sort(scores, dim=1, descending=True, stable=True).values, ref[0])
+    got = T._topn_scored(th, be, rows, items, n)
+    want = torch.sort(scores, dim=1, descending=True, stable=True)
+    assert torch.equal(got[0], want.values[:, :n])
+    assert torch.equal(got[1], want.indices[:, :n].to(torch.int32))
+
+
 # ---- K10: fold-in ---------------------------------------------------------
 
 def _fold_in_inputs(P, k, dtype, device, seed):
@@ -1157,6 +1331,35 @@ def test_fold_in_kernel_vs_plain(cuda, dtype, P, k, maxiter, stop_thr):
         torch.testing.assert_close(g, r, **tol)
     again = S.user_factors_loop(*args, k_rte0, hp, maxiter, stop_thr)
     assert all(torch.equal(a, c) for a, c in zip(again[:4], got[:4]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P", [1, 70, 3000])
+@pytest.mark.parametrize("k", [7, 50, 256])
+@pytest.mark.parametrize("return_phi", [False, True])
+def test_fold_in_host_route_vs_plain(cuda, dtype, P, k, return_phi):
+    """K10 as HPF calls it (``fold_in``: host arrays in, one copy up, one
+    back) against the plain loop on the same arrays: the same iteration
+    count, the existing tolerances, phi_norm only when asked for, and
+    bit-identical reruns."""
+    from hpfrec_tpu_torch.models.state import Hyperparams
+    from hpfrec_tpu_torch.ops import svi as S
+
+    args, k_rte0 = _fold_in_inputs(P, k, dtype, "cpu", 7 * P + k)
+    arrays = [a.numpy() for a in args]
+    hp = Hyperparams(k=k)
+    got = S.fold_in(*arrays, k_rte0, hp, 12, 1e-4, cuda, return_phi)
+    ref = S._user_factors_loop_plain(*args, k_rte0, hp, 12, 1e-4)
+    assert got[4] == ref[4]
+    assert (got[3] is None) != return_phi
+    tol = dict(rtol=2e-5, atol=1e-6) if dtype == torch.float32 else TOL[dtype]
+    for g, r in zip(got[:4], ref[:4]):
+        if g is not None:
+            torch.testing.assert_close(torch.from_numpy(g), r, **tol)
+    again = S.fold_in(*arrays, k_rte0, hp, 12, 1e-4, cuda, return_phi)
+    assert again[4] == got[4]
+    assert all(np.array_equal(a, c) for a, c in zip(again[:4], got[:4]) if a is not None)
 
 
 # ---- K11: pair and table reductions ------------------------------------

@@ -1,6 +1,7 @@
 """Online updates of hpfrec_tpu_torch against hpfrec_tpu on the same inputs:
 ``partial_fit`` (user and item batches, growth, declared row lists),
-``user_factors_loop`` (K10's plain version), ``predict_factors``,
+``user_factors_loop`` (K10's plain version) and ``fold_in`` (its route
+from and to host arrays), ``predict_factors``,
 ``add_user`` (fold-in and ``update_all_params``, new and existing users)
 and the device-state cache (tests/test_growth_paths.py,
 tests/test_svi_oracle.py:78-200, tests/test_hpf_api.py:121-160).
@@ -258,6 +259,52 @@ def test_user_factors_loop_equals_jax(use_float, P, maxiter, stop_thr):
     for g, r in zip(got[:3], ref[:3]):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=rtol)
     np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3])[:P], rtol=rtol, atol=1e-30)
+
+
+@pytest.mark.parametrize("use_float", [True, False])
+@pytest.mark.parametrize("P", [1, 12, 200])
+@pytest.mark.parametrize("return_phi", [False, True])
+def test_fold_in_host_route_equals_jax(use_float, P, return_phi):
+    """``fold_in``, K10 from and to host arrays as HPF calls it, on the CPU
+    against the JAX while_loop on the same inputs: Theta, G, the count, and
+    phi_norm only when asked for."""
+    import jax
+    import jax.numpy as jnp
+    from scipy.special import digamma
+
+    from hpfrec_tpu.models.state import Hyperparams as HJ
+    from hpfrec_tpu.ops.svi import user_factors_loop as lj
+    from hpfrec_tpu_torch.models.state import Hyperparams as HT
+    from hpfrec_tpu_torch.ops.svi import fold_in
+
+    jax.config.update("jax_enable_x64", not use_float)
+    dt = np.float32 if use_float else np.float64
+    k = 5
+    rng = np.random.default_rng(3 * P + 1)
+    y = (rng.poisson(2, P) + 1).astype(dt)
+    elogb = (digamma(0.3 + rng.random((P, k))) - np.log(0.3 + rng.random((P, k)))).astype(dt)
+    bcs = (5 * rng.random(k)).astype(dt)
+    theta0 = rng.gamma(0.3, 1.0, k).astype(dt)
+    g_rte0 = (rng.gamma(0.3, 1 / 0.3, 1) + bcs).astype(dt)
+    g_shp0 = (g_rte0 * theta0 * rng.uniform(0.85, 1.15, k)).astype(dt)
+    k_rte0 = dt(1.0 + theta0.sum())
+    Pp = -(-P // 8) * 8
+    y_p, e_p = np.zeros(Pp, dt), np.zeros((Pp, k), dt)
+    y_p[:P], e_p[:P] = y, elogb
+    ref = lj(jnp.asarray(y_p), jnp.asarray(e_p), jnp.asarray(bcs), jnp.asarray(theta0),
+             jnp.asarray(g_shp0), jnp.asarray(g_rte0), jnp.asarray(k_rte0), HJ(k=k), 20,
+             jnp.asarray(1e-4, dtype=dt))
+    got = fold_in(y, elogb, bcs, theta0, g_shp0, g_rte0, float(k_rte0), HT(k=k), 20, 1e-4,
+                  "cpu", return_phi)
+    assert got[4] == int(ref[4])
+    rtol = 1e-5 if use_float else F64
+    for g, r in zip(got[:3], ref[:3]):
+        assert g.dtype == dt and g.shape == (k,)
+        np.testing.assert_allclose(g, np.asarray(r), rtol=rtol)
+    if return_phi:
+        np.testing.assert_allclose(got[3], np.asarray(ref[3])[:P], rtol=rtol, atol=1e-30)
+    else:
+        assert got[3] is None
 
 
 @pytest.mark.parametrize("use_float", [True, False])

@@ -301,6 +301,81 @@ def test_range_top_n_merge_equals_lax_top_k(kind, n, edges):
     np.testing.assert_array_equal(got_v, np.asarray(vals))
 
 
+def _level_select(scores, n, cap):
+    """K6's large-n select (``csrc/topn.cu`` ``topn_select_kernel``) in
+    numpy, row by row: histogram passes over the keys' top 12 bits, then
+    the next 12 and the last 8 of the keys that share the bits resolved so
+    far, until the keys at or above the n-th key's bin number at most
+    ``cap``; those are collected and sorted, or, once all 32 bits are
+    resolved, the keys above the n-th and the lowest-index keys equal to
+    it are.  Returns ((values, indices) decoded as ``_range_top_n`` does,
+    the number of histogram passes each row took, whether it took the
+    ordered pass)."""
+    words = _words(scores)
+    tops, passes, ordered = [], [], []
+    for w in words:
+        key = w >> np.uint64(32)
+        prefix, mask, remaining, above = 0, 0, n, 0
+        for level, (shift, bits) in enumerate(((20, 12), (8, 12), (0, 8))):
+            nb = 1 << bits
+            sel = (key & np.uint64(mask)) == np.uint64(prefix)
+            hist = np.bincount(((key[sel] >> np.uint64(shift)) & np.uint64(nb - 1))
+                               .astype(np.int64), minlength=nb)
+            from_top = np.cumsum(hist[::-1])
+            t = nb - 1 - int(np.searchsorted(from_top, remaining))
+            above_t = int(from_top[nb - 1 - t] - hist[t])
+            prefix |= t << shift
+            mask |= (nb - 1) << shift
+            above += above_t
+            remaining -= above_t
+            if shift == 0 or above + int(hist[t]) <= cap:
+                break
+        exact = shift == 0
+        if exact:
+            eq = w[key == np.uint64(prefix)]
+            cand = np.concatenate([w[key > np.uint64(prefix)], eq[np.argsort(~eq)][:remaining]])
+            assert cand.shape[0] == n
+        else:
+            cand = w[key >= np.uint64(prefix)]
+            assert cand.shape[0] == above + int(hist[t]) <= cap
+        tops.append(np.sort(cand)[::-1][:n])
+        passes.append(level + 1)
+        ordered.append(exact)
+    top = np.stack(tops)
+    key = (top >> np.uint64(32)).astype(np.uint32)
+    u = np.where(key & 0x80000000, key & 0x7FFFFFFF, ~key).astype(np.uint32)
+    idx = (np.uint64(0xFFFFFFFF) - (top & np.uint64(0xFFFFFFFF))).astype(np.int32)
+    return (u.view(np.float32), idx), passes, ordered
+
+
+@pytest.mark.parametrize("n,cap", [(129, 8192), (2000, 8192), (2000, 2048), (3000, 4096),
+                                   (4097, 8192), (12_000, 16_384)])
+def test_level_select_equals_lax_top_k(n, cap):
+    """The large-n select's candidate arithmetic gives lax.top_k's indices
+    and values on rows of every kind: uniform (one histogram pass), within
+    1e-3 of 1 (one 12-bit bin: two passes), within 1e-7 of 1 and small
+    integers (ties; the ordered pass where the tied bin overflows the
+    buffer), normal, -inf but for 100 items and -inf throughout; at buffer
+    sizes that send rows down each path (the kernel's buffer holds at
+    least the next power of two of n)."""
+    import jax
+
+    rng = np.random.default_rng(n)
+    nI = 12_000
+    scores = np.stack([rng.random(nI), 1 + 1e-3 * rng.random(nI), 1 + 1e-7 * rng.random(nI),
+                       rng.integers(1, 10, nI).astype(np.float64), rng.standard_normal(nI),
+                       np.full(nI, -np.inf), np.full(nI, -np.inf)]).astype(np.float32)
+    scores[5, rng.choice(nI, 100, replace=False)] = rng.random(100)
+    (vals, idx), passes, ordered = _level_select(scores, n, cap)
+    ref_v, ref_i = jax.lax.top_k(scores, n)
+    np.testing.assert_array_equal(idx, np.asarray(ref_i))
+    np.testing.assert_array_equal(vals, np.asarray(ref_v))
+    assert ordered[2] == ordered[6] == (nI > cap)
+    if n <= cap - 1000:
+        assert passes[0] == 1
+        assert passes[1] == (2 if nI > cap else 1) and not ordered[1]
+
+
 @pytest.mark.parametrize("b,nI,n,sms,R", [(1024, 376_768, 10, 132, 16),
                                           (16_384, 376_768, 10, 132, 1),
                                           (1024, 376_768, 128, 132, 16),
