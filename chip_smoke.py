@@ -49,8 +49,9 @@ non-zero, with no result line):
    and n = 2,000 (the three-kernel path, also split by launch: score, mask,
    select; one user with fewer than 2,000 unseen items), the fold-in of the
    heaviest user and of the user nearest 10 items (the heaviest also as HPF
-   calls it, from and to host arrays, and over 100 iterations), 4M pairs,
-   the diff norm and the held-out rowsum correction;
+   calls it, from and to host arrays, and over 100 iterations), 4M pairs
+   (and the 100,000 of ``predict`` and the held-out set's, the serving
+   sizes), the diff norm and the held-out rowsum correction;
 3f. online updates on the SVI fit (``reindex=False``): ``partial_fit`` of
    a 100,000-user and a 40,000-item batch of its own triplets, growth by
    1,000 users, ``predict_factors`` for 256 histories (the heaviest
@@ -82,7 +83,9 @@ non-zero, with no result line):
    in full batch (both engines), SVI with val-llk and a partial_fit: the
    ranks bit-equal to each other, ELL bit-equal to the one-rank card fit,
    the others within stated limits; (c) with two or more cards, (a) is
-   (b) over NCCL at the MillionSong shape;
+   (b) over NCCL at the MillionSong shape; every rank exits with its
+   group up, torn down by the exit handler of ``initialize``, and must be
+   gone within ``DP_EXIT_S`` of writing its results;
 3k. the table-sharded engine (``HPF(mesh=..., shard_tables=True)``, K13):
    (a) two ranks on the one card over gloo, named, fit phase 3's fit at the
    MillionSong shape (10 iterations, train-llk every 5), and phase 3h's
@@ -313,6 +316,17 @@ def compare(name, got, ref, dtype_name):
     return max_abs, max_rel
 
 
+def bits_check(name, got, ref, dtype_name):
+    """Kernel and plain version that add in one order: the same bits."""
+    import torch
+
+    got = [got] if isinstance(got, torch.Tensor) else list(got)
+    ref = [ref] if isinstance(ref, torch.Tensor) else list(ref)
+    if len(got) != len(ref) or not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise AssertionError(f"{name} {dtype_name}: kernel and plain version differ in bits")
+    return 0.0, 0.0
+
+
 def run_cases(cases, dtype_name, reps, label=""):
     """Check and time each case: name -> (kernel fn, plain fn, (bytes, ops),
     library fn or None).  Returns {name: dict}."""
@@ -448,7 +462,9 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
                                                            b.vals, b.col_off, False)
                                        for b in lay_u.buckets]).sum(0), None),
     }
-    cases = {n: (kern, plain, work[n], lib) for n, (kern, plain, lib) in cases.items()}
+    # K2 adds in its plain version's order: held to the bits
+    cases = {n: (kern, plain, work[n], lib) + ((bits_check,) if n == "segment_table_sums" else ())
+             for n, (kern, plain, lib) in cases.items()}
     out = run_cases(cases, dtype_name, reps)
     one = flat(*(E.all_bucket_sums(*side) for side in sides))
     if not all(torch.equal(a, b) for a, b in zip(one, flat(*(bucket_by_bucket(*side)
@@ -929,6 +945,14 @@ def serving_suite(model, users, seen_lists, n_list, histories, pairs, val_pairs,
                             scalar_check),
     }
     results.update(run_cases(cases, dtype_name, reps, label))
+    # predict_pairs at the serving sizes: predict's 100,000 pairs and the
+    # held-out set that the evaluation scores
+    small = {"predict_pairs n=%d" % u.numel(): (
+        lambda u=u, i=i: M.predict_pairs(Theta, Beta, u, i),
+        lambda u=u, i=i: M._pairs_plain(Theta, Beta, u, i),
+        (nbytes(u, i) + u.numel() * it + rows_touched(u, i), 2 * k * u.numel()), None)
+        for u, i in ((iu[:100_000], ii[:100_000]), (vu, vi))}
+    extra.update(run_cases(small, dtype_name, reps, label))
     return results, extra
 
 
@@ -1298,6 +1322,8 @@ DP_REQUIRED = {
 DP_LIMITS = {"float64": dict(llk=1e-11, factors=1e-11)}
 DP_ELL_LLK = 1e-12
 DP_TIMEOUT_S = 900
+# the longest a rank may take to exit once its results are written
+DP_EXIT_S = 60
 # NVLink between two H100s of one host, each way (NVIDIA data sheet)
 PEAK_LINK = 450e9
 REPLACES.update({
@@ -1533,7 +1559,6 @@ def dp_rank_main(cfg_path):
     ``rank<r>.json`` (and, on rank 0, the factors of the fits that are
     compared by value) to the run's directory."""
     import torch
-    import torch.distributed as dist
 
     from hpfrec_tpu_torch.parallel import distributed
 
@@ -1576,10 +1601,10 @@ def dp_rank_main(cfg_path):
         results["exchanges"] = dp_exchange_suite(mesh, data, models["ell"], reps=5)
         results["ts_step"] = ts_step_suite(mesh, data, models["ell"], reps=3)
     results["device"] = torch.cuda.get_device_name(mesh.device)
+    results["results_at"] = time.time()
     with open(os.path.join(cfg["out"], "rank%d.json" % cfg["rank"]), "w") as f:
         json.dump(results, f)
-    dist.destroy_process_group()
-    return 0
+    return 0  # the group is destroyed at exit, by the handler that initialize registered
 
 
 def spawn_ranks(task, world, backend, devices, data_dir, save=(), suite=False):
@@ -1587,8 +1612,10 @@ def spawn_ranks(task, world, backend, devices, data_dir, save=(), suite=False):
     ``--dp-rank``), each on its device of ``devices``, rendezvous through a
     file; ``suite`` runs the exchange suite and the table-sharded step
     suite after the fits.  Waits for every rank within ``DP_TIMEOUT_S``; a rank that fails
-    ends the others and fails the run.  Returns (the ranks' results, the
-    run's directory, its wall seconds)."""
+    ends the others and fails the run, and so does a rank that takes more than
+    ``DP_EXIT_S`` to exit after writing its results (its process group is
+    torn down at exit).  Returns (the ranks' results, each with ``exit_s``,
+    the run's directory, its wall seconds)."""
     run = tempfile.mkdtemp(prefix="hpf_dp_")
     procs = []
     t0 = time.perf_counter()
@@ -1604,12 +1631,16 @@ def spawn_ranks(task, world, backend, devices, data_dir, save=(), suite=False):
             procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                             "--dp-rank", path], stdout=log,
                                            stderr=subprocess.STDOUT), log))
-        while any(p.poll() is None for p, _ in procs):
-            if any(p.poll() not in (None, 0) for p, _ in procs):
+        ended = {}
+        while len(ended) < world:
+            for r, (p, _) in enumerate(procs):
+                if r not in ended and p.poll() is not None:
+                    ended[r] = time.time()
+            if any(p.returncode not in (None, 0) for p, _ in procs):
                 break
             if time.perf_counter() - t0 > DP_TIMEOUT_S:
                 raise AssertionError(f"{task} mesh: ranks still running after {DP_TIMEOUT_S} s")
-            time.sleep(0.5)
+            time.sleep(0.1)
     finally:
         for p, log in procs:
             if p.poll() is None:
@@ -1627,6 +1658,10 @@ def spawn_ranks(task, world, backend, devices, data_dir, save=(), suite=False):
     for r in range(world):
         with open(os.path.join(run, "rank%d.json" % r)) as f:
             results.append(json.load(f))
+        results[r]["exit_s"] = ended[r] - results[r]["results_at"]
+    slow = max(res["exit_s"] for res in results)
+    if slow > DP_EXIT_S:
+        raise AssertionError(f"{task} mesh: a rank took {slow:.1f} s to exit after its results")
     return results, run, time.perf_counter() - t0
 
 
@@ -1706,8 +1741,10 @@ def phase_3j(data_root, refs, small, counters, real):
     check_ranks_equal("msd", results)
     r0 = results[0]
     print("[3j] (a) NCCL mesh of %d rank(s), one per card (%s), MillionSong shape, float32: "
-          "the ranks ran %.1f s (their fits %.1f s); the ranks hold bit-equal arrays"
-          % (n_cards, r0["device"], wall, r0["fits_s"]))
+          "the ranks ran %.1f s (their fits %.1f s); the ranks hold bit-equal arrays; they "
+          "exited %s s after writing their results (the group torn down at exit)"
+          % (n_cards, r0["device"], wall, r0["fits_s"],
+             ", ".join("%.2f" % res["exit_s"] for res in results)))
     for name, unit in (("ell", "s/iteration"), ("coo", "s/iteration"), ("svi", "s/epoch")):
         ref = refs[name]
         verdict = check_against_one_device("3j", name, r0[name], ref, run, "float32", n_cards)
@@ -1743,8 +1780,9 @@ def phase_3j(data_root, refs, small, counters, real):
                                      save=("coo", "svi", "partial_fit"))
     check_ranks_equal("small", results)
     print("[3j] (b) two ranks on one card over gloo (named), phase 2's data set (%d "
-          "triplets), float64: the ranks ran %.1f s; the ranks hold bit-equal arrays"
-          % (small["all"].nnz, wall))
+          "triplets), float64: the ranks ran %.1f s; the ranks hold bit-equal arrays; they "
+          "exited %s s after writing their results"
+          % (small["all"].nnz, wall, ", ".join("%.2f" % res["exit_s"] for res in results)))
     for name in dp_fit_names("small"):
         verdict = check_against_one_device("3j (b)", name, results[0][name], small_refs[name],
                                            run, "float64", 2)
@@ -2500,7 +2538,8 @@ def main():
     histories = user_histories(train, hist_rows)
     print("[3e] serving and fold-in kernel checks (float32, the SVI fit's tables): one "
           "1,024-user chunk at n=10 and n=2,000, fold-in of user %d (%d items) and user %d "
-          "(%d items), 4M pairs, the held-out rowsum, the diff norm"
+          "(%d items), 4M pairs (and 100,000 and the held-out set's), the held-out rowsum, "
+          "the diff norm"
           % (heavy, deg[heavy], ten, deg[ten]))
     r3e, extra = serving_suite(model, serve_users[:1024].astype(np.int64),
                                (model._st_ix_user, model.seen, deg), (10, 2000),

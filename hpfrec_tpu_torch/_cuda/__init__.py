@@ -34,8 +34,9 @@ _SIGNATURES = {
     "ell_phi_sums_all": [_P, _P, _P, _I32, _I64, _P, _I32],
     # the same with bfloat16 tables and float32 out; typed by the vals
     "ell_phi_sums_all_bf16": [_P, _P, _P, _I32, _I64, _P, _I32],
-    # seg, inv_perm, split_indptr, split_seg_pos, out, n_rows, k, P
-    "segment_table_sums": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
+    # seg, inv_perm, split_indptr, split_seg_pos, chunk_sums (scratch), out,
+    # n_rows, k, n_chunks, P
+    "segment_table_sums": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32],
     # sums, scaler_old, colsum_other, prior, scaler_shape, add_scaler,
     # shp, rte, tab, scaler_new, partials, n, n_real, k, rows a tile, nblocks
     "table_update": [_P, _P, _P, _D, _D, _D, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32],
@@ -70,8 +71,8 @@ _SIGNATURES = {
     # scaler_out, partials, n, k, nblocks
     "svi_pass": [_P, _P, _P, _P, _P, _P, _D, _D, _D, _D, _D, _I32, _I32, _P, _P, _P,
                  _P, _I64, _I32, _I32],
-    # theta, beta, iu, ii, out, partials (or NULL), n, k, nblocks
-    "predict_pairs": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64],
+    # theta, beta, iu, ii, out, partials (or NULL), n, k, pairs a warp, nblocks
+    "predict_pairs": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64],
     # a, b, partials, n, nblocks
     "theta_diff": [_P, _P, _P, _I64, _I32],
     # theta, beta, iu, ii, partials, n, k, nblocks
@@ -87,9 +88,9 @@ _SIGNATURES = {
 }
 # entry points without a float type: name -> argument types before the stream
 _UNTYPED = {
-    # seg (float32), inv_perm, split_indptr, split_seg_pos, out (float64),
-    # n_rows, k, P
-    "segment_table_sums_f32_f64": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
+    # seg (float32), inv_perm, split_indptr, split_seg_pos, chunk_sums
+    # (float32 scratch), out (float64), n_rows, k, n_chunks, P
+    "segment_table_sums_f32_f64": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I32],
     # rows, m, mask
     "row_mask": [_P, _I64, _P],
     # scores, rows, items, npairs, b, nI

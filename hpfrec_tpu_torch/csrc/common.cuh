@@ -53,6 +53,27 @@ inline int kpl_for(int k) {
   return k <= 0 ? 0 : k <= 32 ? 1 : k <= 64 ? 2 : k <= 128 ? 4 : k <= 256 ? 8 : 0;
 }
 
+// VE consecutive elements of T as one aligned load or store (8 or 16
+// bytes: LDG/STG.64 or .128; 32 bytes of double are two 16-byte accesses).
+template <typename T, int VE>
+struct alignas(sizeof(T) * VE) Vec {
+  T v[VE];
+};
+
+// The widest vector of at most 16 bytes a lane that tiles rows of k
+// elements of each of the given sizes (k * size a multiple of the vector's
+// bytes), with every base address aligned to it; 1 when none does.
+__host__ inline int vec_elems(int k, int max_ve, const void* const* ptrs, const int* sizes,
+                              int n) {
+  for (int ve = max_ve; ve > 1; ve /= 2) {
+    bool ok = k % ve == 0;
+    for (int i = 0; i < n && ok; ++i)
+      ok = (uintptr_t)ptrs[i] % ((uintptr_t)ve * sizes[i]) == 0;
+    if (ok) return ve;
+  }
+  return 1;
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll

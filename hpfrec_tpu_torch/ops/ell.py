@@ -548,17 +548,26 @@ all_bucket_sums.launches = all_bucket_sums.launches_bf16 = 0
 # ---- K2: segment sums to table order ---------------------------------
 
 def _segment_table_sums_plain(seg, layout: DeviceEll):
-    """Plain version of K2: each row's first segment, plus the additive
-    split-row patch (position -1 hits an appended zero row)."""
+    """Plain version of K2, in the kernel's order of adds (so with its
+    bits): each row's first segment, then the row's split chunks in order,
+    each chunk the sum from zero of its P positions in order (position -1
+    adds nothing)."""
     out = seg[layout.inv_perm.long()]
-    if layout.split_seg_pos.shape[0]:
-        segz = torch.cat([seg, seg.new_zeros((1, seg.shape[1]))])
-        extra = segz[layout.split_seg_pos.long()].sum(1)
+    n_chunks = layout.split_seg_pos.shape[0]
+    if n_chunks:
+        pos = layout.split_seg_pos.long()
+        extra = seg.new_zeros((n_chunks, seg.shape[1]))
+        for p in range(pos.shape[1]):
+            valid = pos[:, p] >= 0
+            extra = torch.where(valid[:, None], extra + seg[pos[:, p].clamp_min(0)], extra)
         ip = layout.split_indptr.long()
-        rows = torch.repeat_interleave(
-            torch.arange(layout.n_rows, device=seg.device), ip[1:] - ip[:-1],
-            output_size=extra.shape[0])
-        out.index_add_(0, rows, extra)
+        counts = ip[1:] - ip[:-1]
+        rows = torch.repeat_interleave(torch.arange(layout.n_rows, device=seg.device), counts,
+                                       output_size=n_chunks)
+        rank = torch.arange(n_chunks, device=seg.device) - ip[rows]  # a chunk's place in its row
+        for j in range(int(counts.max())):
+            sel = rank == j
+            out[rows[sel]] += extra[sel]  # one chunk a row: no two adds meet
     return out
 
 
@@ -566,7 +575,9 @@ def segment_table_sums(seg, layout: DeviceEll, out_dtype=None):
     """K2: reassemble per-segment sums (n_segs, k) into table order
     (n_rows, k), summed in the dtype of ``seg`` and written in
     ``out_dtype`` (None: the same; float32 sums may be written as
-    float64)."""
+    float64).  On the card one call (counted once in ``.launches``) is a
+    pass over the split chunks, where the layout has any, then the pass
+    over every row; the chunk sums go to a scratch table allocated here."""
     out_dtype = seg.dtype if out_dtype is None else out_dtype
     if not seg.is_cuda:
         return _segment_table_sums_plain(seg, layout).to(out_dtype)
@@ -577,8 +588,10 @@ def segment_table_sums(seg, layout: DeviceEll, out_dtype=None):
     _cuda.check(layout.inv_perm, layout.split_indptr, layout.split_seg_pos,
                 dtype=torch.int32)
     out = torch.empty((layout.n_rows, k), dtype=out_dtype, device=seg.device)
-    args = (seg, layout.inv_perm, layout.split_indptr, layout.split_seg_pos, out,
-            layout.n_rows, k, layout.split_seg_pos.shape[1])
+    n_chunks = layout.split_seg_pos.shape[0]
+    chunk_sums = torch.empty((n_chunks, k), dtype=seg.dtype, device=seg.device)
+    args = (seg, layout.inv_perm, layout.split_indptr, layout.split_seg_pos, chunk_sums, out,
+            layout.n_rows, k, n_chunks, layout.split_seg_pos.shape[1])
     if out_dtype == seg.dtype:
         _cuda.launch("segment_table_sums", seg.dtype, k, *args)
     elif (seg.dtype, out_dtype) == (torch.float32, torch.float64):

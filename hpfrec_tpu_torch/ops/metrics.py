@@ -182,8 +182,20 @@ def val_llk_rmse(Theta, Beta, data: BlockedCOO, nnz: int, full_llk: bool = False
 
 # ---- K11: pair and table reductions ----------------------------------
 
-# Pairs per block of predict_pairs (csrc/pair_ops.cu: 8 warps of 256).
-_PAIRS_PER_BLOCK = 8 * 256
+# predict_pairs' grid (csrc/pair_ops.cu): a warp takes a run of pairs, a
+# multiple of _PAIRS_RUN, the least that keeps the grid within
+# _PAIRS_TARGET_WARPS warps (an H100's 132 SMs x 64), so that a launch of
+# 100,000 pairs still fills the card; 8 warps a block.
+_PAIRS_RUN = 32
+_PAIRS_TARGET_WARPS = 132 * 64
+
+
+def _pairs_grid(n: int):
+    """(pairs a warp, blocks) of a predict_pairs launch over ``n`` pairs: a
+    function of ``n`` only, so the partials add in the same order from run
+    to run."""
+    per_warp = _PAIRS_RUN * max(1, -(-n // (_PAIRS_TARGET_WARPS * _PAIRS_RUN)))
+    return per_warp, max(1, -(-n // (8 * per_warp)))
 
 
 def _reduce_blocks(n: int, per_block: int) -> int:
@@ -206,13 +218,16 @@ def _predict_pairs_launch(Theta, Beta, iu, ii, want_sum: bool):
     _cuda.check(iu, ii, dtype=torch.int32)
     if Beta.shape[1] != k or ii.shape != (n,):
         raise ValueError("predict_pairs: shape mismatch")
+    # the kernel reads rows in vectors of up to 16 bytes from 16-byte
+    # aligned tables (a fresh allocation is); an offset view is copied
+    Theta, Beta = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (Theta, Beta))
     out = torch.empty(n, dtype=Theta.dtype, device=Theta.device)
-    nblocks = max(1, -(-n // _PAIRS_PER_BLOCK))
+    per_warp, nblocks = _pairs_grid(n)
     partials = (torch.zeros(nblocks, dtype=torch.float64, device=Theta.device)
                 if want_sum else None)
     if n:
         _cuda.launch("predict_pairs", Theta.dtype, k, Theta, Beta, iu, ii, out, partials,
-                     n, k, nblocks)
+                     n, k, per_warp, nblocks)
         predict_pairs.launches += 1
     return out, partials
 

@@ -17,10 +17,16 @@ backend is NCCL for a CUDA device and gloo for the CPU.  gloo on a CUDA
 device (two ranks on one card, which NCCL refuses) runs only when the
 caller names ``backend="gloo"``; nothing falls back from NCCL to gloo, or
 from the card to the CPU.
+
+A group that ``initialize`` creates is destroyed at interpreter exit (an
+``atexit`` handler), unless the caller destroyed it first: a gloo group
+whose threads outlive the interpreter's teardown can abort the process.
+A group the caller created is left to the caller.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import warnings
@@ -55,6 +61,16 @@ def _device_and_backend(device, backend, local_rank):
     return device, backend
 
 
+def _destroy_at_exit(group):
+    """Exit handler of a group that :func:`initialize` created: destroy it
+    if it is still the default group (a no-op once the caller destroyed
+    it, or replaced it by a group of its own)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.group.WORLD is group:
+        dist.destroy_process_group()
+
+
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
@@ -74,7 +90,8 @@ def initialize(coordinator_address: Optional[str] = None,
     one, unless ``device="cpu"`` is named.  ``coordinator_address`` is
     ``host:port`` (a TCP rendezvous, as JAX's) or a ``torch.distributed``
     init URL (``tcp://...``, ``file://...``); ``initialization_timeout`` is
-    in seconds."""
+    in seconds.  A group created here is destroyed at exit unless the
+    caller destroys it first."""
     import torch.distributed as dist
 
     env = os.environ
@@ -115,6 +132,7 @@ def initialize(coordinator_address: Optional[str] = None,
         except Exception as e:
             raise RuntimeError("torch.distributed.init_process_group failed for %s: %s"
                                % (what, e)) from e
+        atexit.register(_destroy_at_exit, dist.group.WORLD)
     if num_processes is not None and dist.get_world_size() != num_processes:
         raise RuntimeError(
             "torch.distributed came up with %d processes but %d were requested — "

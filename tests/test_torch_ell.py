@@ -142,6 +142,45 @@ def test_ell_phi_sums_matches_jax(dtype, rtol, chunk):
         np.testing.assert_allclose(out.numpy(), ref, rtol=rtol, atol=0)
 
 
+K2_FORMS = {"float32": (np.float32, None, 1e-5), "float64": (np.float64, None, 1e-12),
+            "float32_float64": (np.float32, torch.float64, 1e-5)}
+
+
+@pytest.mark.parametrize("form", sorted(K2_FORMS))
+@pytest.mark.parametrize("k", [1, 9])
+def test_segment_table_sums_plain_matches_jax(form, k):
+    """K2's plain version (and the wrapper on CPU tensors) against JAX's
+    ``segment_table_sums`` on an item layout at max_width 2: split rows of
+    up to 19 chunks (76 extra segments, many more than 2P), chunks padded
+    with -1, and empty rows; float32 sums written as float64 are JAX's
+    sums cast after the reassembly (``ell.py:726-727``).  The two add a
+    chunk's positions in other orders: float64 rtol 1e-12, float32 1e-5,
+    each with an atol of rtol x max |sum| for sums that cancel to near 0."""
+    import jax.numpy as jnp
+
+    from hpfrec_tpu.ops import ell as J
+    from hpfrec_tpu_torch.ops import ell as T
+
+    dtype, out_dtype, rtol = K2_FORMS[form]
+    _x64(dtype)
+    y, iu, ii = _skewed(150, 90, 3000, seed=2, dtype=dtype)
+    indptr, ind, dat = _csr(y, ii, iu, 90, 150)
+    host = T.build_ell(indptr, ind, dat, 90, max_width=2, dtype=dtype, n_cols=150)
+    chunks = np.bincount(host.split_rows, minlength=90)
+    # a row of three chunks or more has over 2P extra segments
+    assert chunks.max() > 2 and (np.diff(indptr) == 0).any() and (host.split_seg_pos < 0).any()
+    lay = T.to_device(host, "cpu")
+    seg = np.random.default_rng(k).standard_normal((lay.n_segs, k)).astype(dtype)
+    ref = np.asarray(J.segment_table_sums(jnp.asarray(seg), J.device_ell(
+        J.build_ell(indptr, ind, dat, 90, max_width=2, dtype=dtype, n_cols=150))))
+    plain = T._segment_table_sums_plain(torch.from_numpy(seg), lay)
+    got = T.segment_table_sums(torch.from_numpy(seg), lay, out_dtype)
+    assert got.dtype == (out_dtype or plain.dtype) and got.shape == (90, k)
+    assert torch.equal(got, plain.to(got.dtype))
+    np.testing.assert_allclose(got.numpy(), ref.astype(got.numpy().dtype), rtol=rtol,
+                               atol=rtol * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("dtype,niter,rtol", [(np.float64, 1, 1e-10),
                                                (np.float64, 10, 1e-10),
                                                (np.float32, 1, 1e-5),

@@ -1362,6 +1362,76 @@ def test_fold_in_host_route_vs_plain(cuda, dtype, P, k, return_phi):
     assert all(np.array_equal(a, c) for a, c in zip(again[:4], got[:4]) if a is not None)
 
 
+# ---- K2: segment sums to table order -----------------------------------
+
+def _split_layout(n_rows, n_segs, device, seed, P=4):
+    """A reassembly layout by hand: each row's first segment a random
+    segment; rows with no split chunk, with one, with many (up to 100, also
+    side by side in one warp), chunks padded with -1 (one of them all -1)."""
+    from hpfrec_tpu_torch.ops.ell import DeviceEll
+
+    rng = np.random.default_rng(seed)
+    chunks = np.where(rng.random(n_rows) < 0.05, rng.integers(1, 4, n_rows), 0)
+    chunks[[0, 1, 2, 40, n_rows // 2, n_rows - 1]] = [100, 37, 1, 12, 60, 9]
+    pos = rng.integers(0, n_segs, (int(chunks.sum()), P))
+    pos[rng.random(pos.shape) < 0.2] = -1
+    pos[:, P - 1][rng.random(len(pos)) < 0.3] = -1
+    pos[5] = -1
+    indptr = np.concatenate([[0], np.cumsum(chunks)])
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)  # noqa: E731
+    return DeviceEll(buckets=[], inv_perm=up(rng.integers(0, n_segs, n_rows)),
+                     split_seg_pos=up(pos), split_indptr=up(indptr), n_rows=n_rows,
+                     n_segs=n_segs)
+
+
+K2_FORMS = {"float32": (torch.float32, None), "float64": (torch.float64, None),
+            "float32_float64": (torch.float32, torch.float64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", sorted(K2_FORMS))
+@pytest.mark.parametrize("k", [1, 7, 50, 64, 256])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_segment_table_sums_bits_vs_plain(cuda, form, k, offset):
+    """K2 equals its plain version bit for bit (both add in one order), over
+    1,037 rows (not a multiple of a warp's 32 or a block's 256), in every
+    vector form: ``offset`` 1 starts the sums one element past an aligned
+    address, which leaves only the one-element form."""
+    from hpfrec_tpu_torch.ops import ell as E
+
+    dtype, out_dtype = K2_FORMS[form]
+    n_rows, n_segs = 1037, 3000
+    lay = _split_layout(n_rows, n_segs, cuda, seed=k)
+    rng = np.random.default_rng(k + 1)
+    buf = torch.from_numpy(rng.standard_normal(n_segs * k + 1)).to(cuda, dtype)
+    seg = buf[offset:offset + n_segs * k].view(n_segs, k)
+    got = E.segment_table_sums(seg, lay, out_dtype)
+    ref = E._segment_table_sums_plain(seg, lay)
+    torch.cuda.synchronize()
+    assert got.dtype == (out_dtype or dtype) and got.shape == (n_rows, k)
+    assert torch.equal(got, ref.to(got.dtype))
+    assert torch.equal(E.segment_table_sums(seg, lay, out_dtype), got)
+
+
+@pytest.mark.gpu
+def test_segment_table_sums_bf16_fit_form(cuda):
+    """The bfloat16 fit's form: K1's float32 sums over bfloat16 tables,
+    reassembled by K2 into float64, bit-equal to the plain version."""
+    from hpfrec_tpu_torch.ops import ell as E
+
+    nU, nI = 300, 120
+    y, iu, ii = _counts(nU, nI, 4000, seed=1)
+    lay = _layout(y, ii, iu, nI, nU, np.float64, cuda, max_width=8)  # item rows split
+    assert lay.split_seg_pos.shape[0] > 0
+    t = _tables(nI, 50, torch.float64, cuda, 2).bfloat16()
+    b = _tables(nU, 50, torch.float64, cuda, 3).bfloat16()
+    seg = E.all_bucket_sums(t, b, lay)
+    assert seg.dtype == torch.float32
+    got = E.segment_table_sums(seg, lay, torch.float64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, E._segment_table_sums_plain(seg, lay).double())
+
+
 # ---- K11: pair and table reductions ------------------------------------
 
 @pytest.mark.gpu
@@ -1392,3 +1462,37 @@ def test_pair_ops_kernels_vs_plain(cuda, dtype, k, n):
     d = M.theta_diff_norm(th2, th)
     np.testing.assert_allclose(d, float(torch.linalg.norm((th2 - th).double())), rtol=rt)
     assert M.theta_diff_norm(th2, th) == d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 7, 33, 50, 64, 66, 99, 130, 255, 256])
+@pytest.mark.parametrize("n", [1, 31, 33, 65_536, 100_000, 300_000])
+def test_predict_pairs_every_grid(cuda, dtype, k, n):
+    """predict_pairs at every lane split (a group of 1 to 32 lanes a pair,
+    four or eight vectors a lane; 16-, 8-byte and one-element loads, the
+    last at odd k) and at grids from one block to a run of 64 pairs a
+    warp: within TOL of the plain version,
+    the same bits on a rerun, and the float64 partials of
+    ``sum_pairs_prediction`` within 10 x rtol of the plain sum.  Offset
+    views of the tables give the bits of aligned copies."""
+    from hpfrec_tpu_torch.ops import metrics as M
+
+    rng = np.random.default_rng(n * 7 + k)
+    th = _tables(500, k, dtype, cuda, 4) / k
+    be = _tables(700, k, dtype, cuda, 5)
+    iu = torch.from_numpy(rng.integers(0, 500, n).astype(np.int32)).to(cuda)
+    ii = torch.from_numpy(rng.integers(0, 700, n).astype(np.int32)).to(cuda)
+    got = M.predict_pairs(th, be, iu, ii)
+    plain = M._pairs_plain(th, be, iu, ii)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and got.dtype == dtype
+    torch.testing.assert_close(got, plain, **TOL[dtype])
+    assert torch.equal(M.predict_pairs(th, be, iu, ii), got)
+    s = M.sum_pairs_prediction(th, be, iu, ii)
+    np.testing.assert_allclose(s, float(plain.double().sum()), rtol=TOL[dtype]["rtol"] * 10)
+    assert M.sum_pairs_prediction(th, be, iu, ii) == s
+    if n == 100_000:
+        off = torch.empty(500 * k + 1, dtype=dtype, device=cuda)[1:].view(500, k)
+        off.copy_(th)
+        assert torch.equal(M.predict_pairs(off, be, iu, ii), got)

@@ -90,3 +90,54 @@ def test_theta_diff_norm_matches_jax(dtype):
     np.testing.assert_allclose(nt(torch.from_numpy(a), torch.from_numpy(b)),
                                float(nj(jnp.asarray(a), jnp.asarray(b))),
                                rtol=1e-6 if dtype == np.float32 else 1e-13)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float32, 2e-5), (np.float64, 1e-12)])
+@pytest.mark.parametrize("k", [7, 50, 256])
+def test_predict_pairs_matches_jax(dtype, rtol, k):
+    """K11's ``predict_pairs`` (its plain version and the wrapper on CPU
+    tensors) and ``sum_pairs_prediction`` against JAX's, on 3,001 pairs
+    (repeated rows included) made with numpy.  The sums over k run in
+    another order: float64 rtol 1e-12; float32 the kernel tests' 2e-5 (the
+    pair sum 1e-5 over 3,001 positive terms)."""
+    import jax
+    import jax.numpy as jnp
+
+    from hpfrec_tpu.ops import metrics as MJ
+    from hpfrec_tpu_torch.ops import metrics as MT
+
+    if dtype == np.float64:
+        jax.config.update("jax_enable_x64", True)
+    rng = np.random.default_rng(k)
+    Theta = (rng.random((70, k)) / k).astype(dtype)
+    Beta = rng.random((40, k)).astype(dtype)
+    iu = rng.integers(0, 70, 3001).astype(np.int32)
+    ii = rng.integers(0, 40, 3001).astype(np.int32)
+    ref = np.asarray(MJ.predict_pairs(jnp.asarray(Theta), jnp.asarray(Beta), jnp.asarray(iu),
+                                      jnp.asarray(ii)))
+    ref_sum = float(MJ.sum_pairs_prediction(jnp.asarray(Theta), jnp.asarray(Beta),
+                                            jnp.asarray(iu), jnp.asarray(ii)))
+    args = [torch.from_numpy(a) for a in (Theta, Beta, iu, ii)]
+    got = MT.predict_pairs(*args)
+    assert got.dtype == args[0].dtype and got.shape == (3001,)
+    assert torch.equal(got, MT._pairs_plain(*args))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=rtol)
+    np.testing.assert_allclose(MT.sum_pairs_prediction(*args), ref_sum,
+                               rtol=1e-5 if dtype == np.float32 else rtol)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 65_536, 100_000, 387_000, 1 << 22, 10 ** 9])
+def test_pairs_grid_covers_n_and_fills_the_card(n):
+    """predict_pairs' grid: a warp's run a multiple of 32 pairs, the blocks
+    (8 warps) cover n exactly once, a launch of 100,000 pairs or more has at
+    least 2.9 blocks for each of an H100's 132 SMs, and none more blocks
+    than 132 x 8 (the run grows instead)."""
+    from hpfrec_tpu_torch.ops.metrics import _pairs_grid
+
+    per_warp, blocks = _pairs_grid(n)
+    assert per_warp % 32 == 0 and per_warp >= 32
+    assert (blocks - 1) * 8 * per_warp < n <= blocks * 8 * per_warp
+    assert blocks <= 132 * 8
+    if n >= 100_000:
+        assert blocks >= 2.9 * 132
+    assert _pairs_grid(n) == (per_warp, blocks)
