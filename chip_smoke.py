@@ -64,7 +64,8 @@ non-zero, with no result line):
    same seed, options and data): its llk at the checks beside phase 3's
    ELL fit and the largest relative difference of the factors, s/iteration,
    launch counters (K7c and K5 launch, no ELL kernel does), then K7c
-   checked and timed at the fit's shapes, with its split by stage;
+   checked and timed at the fit's shapes, with its split by stage, and K5
+   over the fit's train stream (its train metric, 38.7M triplets);
 3h. the ELL fit of phase 3 with ``gather_dtype='bfloat16'``: its llk beside
    the float32-table fit's, s/iteration, launch counters, then the
    bfloat16 forms of K1 and K3 checked and timed at the fit's shapes;
@@ -512,6 +513,26 @@ def digamma_sweep(sets, dev, label):
     return out
 
 
+def coo_llk_case(Theta, Beta, data):
+    """K5's ``run_cases`` entry over ``data`` (a BlockedCOO on the card):
+    the kernel's partials and the plain version's, block by block, each
+    summed; its work: the triplets, and each distinct row of either table
+    read once; a dot, a log and a few more operations a real triplet."""
+    import torch
+
+    from hpfrec_tpu_torch.ops import metrics as M
+
+    y, iu, ii = (a.reshape(-1) for a in data)
+    k = Theta.shape[1]
+    work = (nbytes(y, iu, ii) + (int(torch.unique(iu).numel()) + int(torch.unique(ii).numel()))
+            * k * Theta.element_size(), int((y > 0).sum()) * (4 * k + 8))
+    return (lambda: M.llk_rmse_sums(Theta, Beta, data).sum(0),
+            lambda: torch.cat([M._coo_llk_plain(Theta, Beta, data.y[b], data.ix_u[b],
+                                                data.ix_i[b], False)
+                               for b in range(data.y.shape[0])]).sum(0),
+            work, None)
+
+
 def svi_suite(pdata, val, state, batches, dtype_name, reps, blend_all=(False,), label=""):
     """The SVI kernels and the COO llk against their plain versions on the
     card, at the shapes of an epoch of ``pdata`` (host ProcessedData) with
@@ -523,7 +544,6 @@ def svi_suite(pdata, val, state, batches, dtype_name, reps, blend_all=(False,), 
 
     from hpfrec_tpu_torch.models.state import Hyperparams
     from hpfrec_tpu_torch.ops import cavi as C
-    from hpfrec_tpu_torch.ops import metrics as M
     from hpfrec_tpu_torch.ops import svi as S
     from hpfrec_tpu_torch.utils.data import build_csr
 
@@ -583,9 +603,10 @@ def svi_suite(pdata, val, state, batches, dtype_name, reps, blend_all=(False,), 
     # written once, operations per nonzero or table element
     epoch_bytes = sum(nbytes(s["side"].y, s["side"].cols, s["side"].indptr, s["perm"],
                              s["off"], *s["epoch"]) for s in sides)
-    # a binary search (2 log2 n integer operations) and ~4 more per position
-    epoch_ops = sum(s["side"].y.numel() * (2 * int(np.log2(max(s["perm"].numel(), 2))) + 4)
-                    for s in sides)
+    # ~4 integer operations a position (its source offset), and a row
+    # search (2 log2 n) a tile of 2,048 positions
+    epoch_ops = sum(4 * s["side"].y.numel() + -(-s["side"].y.numel() // 2048)
+                    * 2 * int(np.log2(max(s["perm"].numel(), 2))) for s in sides)
     # the batch's triplets, bounds and rows; the t_loc rows of the batch and
     # the t_oth rows it touches; both sums and the mask out; a dot and two
     # k-wide multiply-adds per triplet
@@ -602,10 +623,6 @@ def svi_suite(pdata, val, state, batches, dtype_name, reps, blend_all=(False,), 
         upd_bytes += ((2 * n_l + 3 * n_g) * row_b + (n_l + n_g) * (it + 1)
                       + 2 * (n_l + n_g) * row_b + (n_l + n_g) * it)
         upd_ops += 10 * (n_l + n_g) * k
-    vy, viu, vii = (a.reshape(-1) for a in val)
-    n_val = int((vy > 0).sum())
-    llk_bytes = (nbytes(vy, viu, vii) + (int(torch.unique(viu).numel())
-                                         + int(torch.unique(vii).numel())) * row_b)
     Theta, Beta = state.G_shp / state.G_rte, state.L_shp / state.L_rte
 
     cases = {
@@ -620,12 +637,7 @@ def svi_suite(pdata, val, state, batches, dtype_name, reps, blend_all=(False,), 
             lambda: flat(S.batch_phi_sums(*s["phi_args"]) for s in sides),
             lambda: flat(S._batch_phi_sums_plain(*s["phi_args"][:5]) for s in sides),
             (phi_bytes, phi_ops), None),
-        "coo_llk": (
-            lambda: M.llk_rmse_sums(Theta, Beta, val).sum(0),
-            lambda: torch.cat([M._coo_llk_plain(Theta, Beta, val.y[b], val.ix_u[b],
-                                                val.ix_i[b], False)
-                               for b in range(val.y.shape[0])]).sum(0),
-            (llk_bytes, n_val * (4 * k + 8)), None),
+        "coo_llk": coo_llk_case(Theta, Beta, val),
     }
     out = run_cases(cases, dtype_name, reps, label)
     for ba in blend_all:
@@ -2731,6 +2743,11 @@ def main():
     print("[3g] K7c with ids in popularity order (item 0 the rank-1 item): %.4f ms"
           % cuda_ms(lambda: C.coo_phi_sums(t_tab, b_tab, stream), 3))
     stream = C.coo_stream(pdata_fit, dev)
+    print("[3g] K5 over the fit's train stream (its train metric: %d triplets in %d blocks, "
+          "float32, fitted state; times per check)" % (stream.nnz, stream.data.y.shape[0]))
+    real["coo_llk"]["coo_train_stream"] = run_cases(
+        {"coo_llk": coo_llk_case(fitted.G_shp / fitted.G_rte, fitted.L_shp / fitted.L_rte,
+                                 stream.data)}, "float32", 3, ", the COO train stream")["coo_llk"]
     carry = C._carry_init(fitted)
     _, prof = profiled(lambda: C.run_cavi_block_coo(carry, stream, 2, hp))
     print("[3g] two COO iterations (the fit's stream) under torch.profiler: wall %.3f ms, "
@@ -2901,7 +2918,8 @@ def main():
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "bytes": r["bytes"], "ops": r["ops"]})
+                        "bytes": r["bytes"], "ops": r["ops"],
+                        **{key: r[key] for key in ("coo_train_stream",) if key in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -52,8 +52,8 @@ _SIGNATURES = {
     "colsum_finish": [_P, _P, _I32, _I32],
     # theta, beta, rows, cols, vals, partials, m, w, k, col_off, full_llk, wps
     "ell_llk": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I32, _I32],
-    # theta, beta, y, iu, ii, partials, n, k, full_llk, nblocks
-    "coo_llk": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64],
+    # theta, beta, y, iu, ii, partials, n, k, full_llk, triplets a warp, nblocks
+    "coo_llk": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _I64],
     # y, cols, indptr, perm, offsets, e_y, e_row, e_col, nnz, n_rows
     "epoch_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64],
     # t_loc, t_oth, y, rows, cols, bounds, base, seg_rows, nq, skeys, order,

@@ -2,7 +2,8 @@
 //
 // Replaces hpfrec_tpu/ops/metrics.py:llk_rmse_sums (metrics.py:22-50),
 // which backs val_llk_rmse (the val-llk criterion), the final eval on a
-// validation set and HPF.eval_llk.  Over the triplets with y > 0:
+// validation set, HPF.eval_llk and the blocked-COO engine's train metric.
+// Over the triplets with y > 0:
 //   yhat = <Theta[iu], Beta[ii]>,
 //   ll = y * log(yhat > 0 ? yhat : 1) [- lgamma(y + 1) when full_llk],
 //   se = (y - yhat)^2,  sp = yhat,
@@ -12,68 +13,55 @@
 //
 // What bounds it on the card: the gathers of two random rows (Theta[iu]
 // and Beta[ii], k * sizeof(T) bytes each) per triplet; a dot, a log and a
-// few flops per triplet are nothing beside them.
+// few flops per triplet are nothing beside them.  The first design (a warp
+// a triplet, k spread over 32 lanes in 4-byte loads, a fixed 2,048
+// triplets a block) left the validation set's ~387k triplets 190 blocks
+// for 132 SMs and read at 13% of the byte bound.
 //
-// Design: K4's per-slot math (common.cuh llk_add / llk_block_store) over a
-// flat stream.  Each warp owns a fixed run of kSlotsPerWarp consecutive
-// triplets and walks it 4 at a time, the 8 row gathers issued before the
-// shuffle reductions; k is spread over the lanes (coalesced row reads).
-// Terms in T, sums in float64 by lane 0, the 8 warps of a block added in
-// warp order.  The partition depends only on n, and there are no atomics:
+// Design: predict_pairs' walk (pair_walk.cuh: a group of G lanes a
+// triplet, 8 at k = 50 float32, vector row loads, the next step's y, iu and
+// ii loaded while this step's rows arrive) over predict_pairs' grid, a run
+// of a multiple of 32 triplets a warp chosen from n alone
+// (ops/metrics.py:_pairs_grid: the validation set makes ~760 blocks, the
+// COO engine's 38.7M-triplet train stream ~1,050).  Padding is not read.
+// The first lane of a triplet's group adds its terms (common.cuh llk_add:
+// the terms in T, the sums in float64); the warp's lanes and then the 8
+// warps of a block are added in a fixed order.  The partition and the lane
+// split depend only on n, k and the dtype, and there are no atomics:
 // partials are bit-identical run to run.
-#include "common.cuh"
+#include "pair_walk.cuh"
 
 namespace hpf {
 
-constexpr int kCooUnroll = 4;
-constexpr int kSlotsPerWarp = 256;
-
-template <int KPL, typename T>
+template <typename T, int VE, int VPL>
 __global__ void __launch_bounds__(kThreads)
     coo_llk_kernel(const T* __restrict__ theta, const T* __restrict__ beta,
                    const T* __restrict__ y, const int32_t* __restrict__ iu,
                    const int32_t* __restrict__ ii, double* __restrict__ partials, int64_t n,
-                   int k, int full_llk) {
-  const int lane = threadIdx.x & (kWarp - 1);
+                   int k, int full_llk, int log2g, int64_t per_warp) {
   const int warp = threadIdx.x / kWarp;
-  const int64_t first = ((int64_t)blockIdx.x * kWarpsPerBlock + warp) * kSlotsPerWarp;
-  const int64_t last = first + kSlotsPerWarp < n ? first + kSlotsPerWarp : n;
+  const int64_t first = ((int64_t)blockIdx.x * kWarpsPerBlock + warp) * per_warp;
+  const int64_t last = first + per_warp < n ? first + per_warp : n;
   double ll = 0.0, se = 0.0, sp = 0.0;
-
-  for (int64_t j0 = first; j0 < last; j0 += kCooUnroll) {
-    T yv[kCooUnroll], d[kCooUnroll];
-#pragma unroll
-    for (int u = 0; u < kCooUnroll; ++u) {
-      const int64_t j = j0 + u;
-      yv[u] = j < last ? y[j] : T(0);
-      d[u] = T(0);
-      const bool live = yv[u] > T(0);
-      const T* trow = theta + (int64_t)(live ? iu[j] : 0) * k;
-      const T* brow = beta + (int64_t)(live ? ii[j] : 0) * k;
-#pragma unroll
-      for (int q = 0; q < KPL; ++q) {
-        const int c = lane + kWarp * q;
-        if (live && c < k) d[u] += trow[c] * brow[c];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kCooUnroll; ++u) d[u] = warp_sum(d[u]);
-#pragma unroll
-    for (int u = 0; u < kCooUnroll; ++u)
-      if (yv[u] > T(0)) llk_add(yv[u], d[u], full_llk, ll, se, sp);
-  }
+  pair_walk<T, VE, VPL, true>(theta, beta, iu, ii, y, first, last, k, log2g,
+                              [&](int64_t, T d, T yv) { llk_add(yv, d, full_llk, ll, se, sp); });
+  ll = warp_sum(ll);
+  se = warp_sum(se);
+  sp = warp_sum(sp);
   llk_block_store(ll, se, sp, partials);
 }
 
-template <int KPL, typename T>
+template <typename T>
 cudaError_t launch_coo_llk(const T* theta, const T* beta, const T* y, const int32_t* iu,
                            const int32_t* ii, double* partials, int64_t n, int k, int full_llk,
-                           int64_t nblocks, cudaStream_t stream) {
-  const int64_t per_block = (int64_t)kWarpsPerBlock * kSlotsPerWarp;
-  if (n <= 0 || nblocks != (n + per_block - 1) / per_block) return cudaErrorInvalidValue;
-  coo_llk_kernel<KPL, T><<<(unsigned)nblocks, kThreads, 0, stream>>>(theta, beta, y, iu, ii,
-                                                                      partials, n, k, full_llk);
-  return cudaGetLastError();
+                           int64_t per_warp, int64_t nblocks, cudaStream_t stream) {
+  if (!pair_grid_ok(n, k, per_warp, nblocks, theta, beta)) return cudaErrorInvalidValue;
+  return with_pair_form<T>(k, [&](auto ve, auto vpl, int log2g) {
+    coo_llk_kernel<T, decltype(ve)::value, decltype(vpl)::value>
+        <<<(unsigned)nblocks, kThreads, 0, stream>>>(theta, beta, y, iu, ii, partials, n, k,
+                                                     full_llk, log2g, per_warp);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace hpf
@@ -82,16 +70,16 @@ extern "C" {
 
 int hpf_coo_llk_f32(const float* theta, const float* beta, const float* y, const int32_t* iu,
                     const int32_t* ii, double* partials, int64_t n, int32_t k, int32_t full_llk,
-                    int64_t nblocks, void* stream) {
-  HPF_DISPATCH_KPL(k, hpf::launch_coo_llk, theta, beta, y, iu, ii, partials, n, k, full_llk,
-                   nblocks, (cudaStream_t)stream);
+                    int64_t per_warp, int64_t nblocks, void* stream) {
+  return hpf::launch_coo_llk(theta, beta, y, iu, ii, partials, n, k, full_llk, per_warp,
+                             nblocks, (cudaStream_t)stream);
 }
 
 int hpf_coo_llk_f64(const double* theta, const double* beta, const double* y,
                     const int32_t* iu, const int32_t* ii, double* partials, int64_t n, int32_t k,
-                    int32_t full_llk, int64_t nblocks, void* stream) {
-  HPF_DISPATCH_KPL(k, hpf::launch_coo_llk, theta, beta, y, iu, ii, partials, n, k, full_llk,
-                   nblocks, (cudaStream_t)stream);
+                    int32_t full_llk, int64_t per_warp, int64_t nblocks, void* stream) {
+  return hpf::launch_coo_llk(theta, beta, y, iu, ii, partials, n, k, full_llk, per_warp,
+                             nblocks, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -19,30 +19,18 @@
 // random k-wide rows per pair (2 k sizeof(T) bytes) for 2k flops, and
 // theta_diff streams two (n, k) tables: all three are bound by bytes.
 //
-// Design: predict_pairs gives each pair a group of G lanes (8 at k = 50
-// float32: 25 vectors of 8 bytes a row over 8 lanes), loads rows in 16- or
-// 8-byte vectors where k allows (one element at odd k: the scalar form),
-// loads a step's pairs' rows (32 / G pairs a warp, and more where small
-// rows leave registers for them) before the first multiply-add, the next
-// step's indices while they arrive, and adds a pair's lanes with log2(G)
-// shuffles.  Few registers a pair keep many warps an SM: on the H100 that
-// gathered faster than 16 pairs a warp in flight (scripts/split_k2_k11.py
-// turns, PERF.md).  A warp takes a run of a multiple of 32 pairs, chosen
-// from n (ops/metrics.py:_pairs_grid) so that 100,000 pairs make about
-// 390 blocks, three an SM, and 4M pairs about 1,024.  theta_diff and
+// Design: predict_pairs is the pair walk of pair_walk.cuh (a group of G
+// lanes a pair, 8 at k = 50 float32; vector row loads; the next step's
+// indices loaded ahead) over a run of a multiple of 32 pairs a warp, chosen
+// from n (ops/metrics.py:_pairs_grid) so that 100,000 pairs make about 390
+// blocks, three an SM, and 4M pairs about 1,024.  theta_diff and
 // rowsum_dot walk a fixed grid of at most 1024 blocks grid-stride.  Each
 // block adds its 8 warps' sums in warp order; the partition and the lane
 // split depend only on n, k and the dtype, and there are no atomics, so
 // every result is bit-identical from run to run.
-#include "common.cuh"
+#include "pair_walk.cuh"
 
 namespace hpf {
-
-// predict_pairs: a group of G lanes a pair (G a power of two, the least
-// with G * VPL >= k / VE; VPL = 4, or 8 above 128 vectors a row), VE
-// elements a vector load; U pairs a group in flight (kPairRegs registers
-// of rows a lane), so S = (32 / G) * min(U, G) <= 32 pairs a warp a step.
-constexpr int kPairRegs = 16;
 
 template <typename T, int VE, int VPL>
 __global__ void __launch_bounds__(kThreads)
@@ -50,82 +38,17 @@ __global__ void __launch_bounds__(kThreads)
                          const int32_t* __restrict__ iu, const int32_t* __restrict__ ii,
                          T* __restrict__ out, double* __restrict__ partials, int64_t n, int k,
                          int log2g, int64_t per_warp) {
-  using In = Vec<T, VE>;
-  constexpr int kWords = (int)sizeof(In) / 4 * VPL * 2;  // both rows' registers a pair
-  constexpr int U = kPairRegs / kWords > 1 ? kPairRegs / kWords : 1;
   __shared__ double red[kWarpsPerBlock];
-  const In* __restrict__ tv = reinterpret_cast<const In*>(theta);
-  const In* __restrict__ bv = reinterpret_cast<const In*>(beta);
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
-  const int G = 1 << log2g;
-  const int groups = kWarp >> log2g;
-  const int g = lane >> log2g;        // the lane's pair in a round
-  const int l = lane & (G - 1);       // the lane in its group
-  const int urun = U < G ? U : G;     // rounds a step
-  const int S = groups * urun;        // pairs a step
-  const int nv = k / VE;
   const int64_t first = ((int64_t)blockIdx.x * kWarpsPerBlock + warp) * per_warp;
   const int64_t last = first + per_warp < n ? first + per_warp : n;
   double total = 0.0;
-
-  // a step's pair indices, one a lane, coalesced; the next step's are
-  // loaded while this step's rows are
-  int32_t mu = 0, mi = 0;
-  if (lane < S && first + lane < last) {
-    mu = iu[first + lane];
-    mi = ii[first + lane];
-  }
-  for (int64_t j0 = first; j0 < last; j0 += S) {
-    int32_t nu = 0, ni = 0;
-    if (lane < S && j0 + S + lane < last) {
-      nu = iu[j0 + S + lane];
-      ni = ii[j0 + S + lane];
-    }
-    // every row load of the step before the first multiply
-    In t[U][VPL], b[U][VPL];
-    bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int slot = u * groups + g;
-      const int64_t su = __shfl_sync(0xffffffffu, mu, slot & (kWarp - 1));
-      const int64_t si = __shfl_sync(0xffffffffu, mi, slot & (kWarp - 1));
-      ok[u] = u < urun && j0 + slot < last;
-#pragma unroll
-      for (int q = 0; q < VPL; ++q) {
-        const int c = l + G * q;
-        if (ok[u] && c < nv) {
-          t[u][q] = tv[su * nv + c];
-          b[u][q] = bv[si * nv + c];
-        }
-      }
-    }
-    T d[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      d[u] = T(0);
-#pragma unroll
-      for (int q = 0; q < VPL; ++q) {
-        if (ok[u] && l + G * q < nv) {
-#pragma unroll
-          for (int e = 0; e < VE; ++e) d[u] += t[u][q].v[e] * b[u][q].v[e];
-        }
-      }
-    }
-    for (int o = G >> 1; o > 0; o >>= 1) {  // log2(G) shuffles a pair
-#pragma unroll
-      for (int u = 0; u < U; ++u) d[u] += __shfl_xor_sync(0xffffffffu, d[u], o);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (ok[u] && l == 0) {
-        out[j0 + u * groups + g] = d[u];
-        total += (double)d[u];
-      }
-    }
-    mu = nu;
-    mi = ni;
-  }
+  pair_walk<T, VE, VPL, false>(theta, beta, iu, ii, nullptr, first, last, k, log2g,
+                               [&](int64_t j, T d, T) {
+                                 out[j] = d;
+                                 total += (double)d;
+                               });
   if (partials == nullptr) return;
   total = warp_sum(total);
   if (lane == 0) red[warp] = total;
@@ -203,45 +126,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int VE, int VPL>
-cudaError_t launch_predict_pairs_ve(const T* theta, const T* beta, const int32_t* iu,
-                                    const int32_t* ii, T* out, double* partials, int64_t n,
-                                    int k, int64_t per_warp, int64_t nblocks,
-                                    cudaStream_t stream) {
-  const int nv = k / VE;
-  int log2g = 0;
-  while ((1 << log2g) * VPL < nv) ++log2g;
-  if (log2g > 5) return cudaErrorInvalidValue;
-  predict_pairs_kernel<T, VE, VPL><<<(unsigned)nblocks, kThreads, 0, stream>>>(
-      theta, beta, iu, ii, out, partials, n, k, log2g, per_warp);
-  return cudaGetLastError();
-}
-
-// The vector width is a function of k and the dtype alone (the wrapper
-// passes 16-byte aligned tables), so the lane split, and with it the bits,
-// depend on (n, k, dtype) only.
 template <typename T>
 cudaError_t launch_predict_pairs(const T* theta, const T* beta, const int32_t* iu,
                                  const int32_t* ii, T* out, double* partials, int64_t n, int k,
                                  int64_t per_warp, int64_t nblocks, cudaStream_t stream) {
-  const int64_t per_block = (int64_t)kWarpsPerBlock * per_warp;
-  if (n <= 0 || k <= 0 || k > 256 || per_warp <= 0 || per_warp % kWarp != 0 ||
-      nblocks != (n + per_block - 1) / per_block || (uintptr_t)theta % 16 != 0 ||
-      (uintptr_t)beta % 16 != 0)
-    return cudaErrorInvalidValue;
-  const int ve = sizeof(T) == 4 && k % 4 == 0 ? 4 : k % 2 == 0 ? 2 : 1;
-  const int nv = k / ve;
-  const int vpl = nv <= 128 ? 4 : 8;
-#define HPF_K11_FORM(VE, VPL)                                                               \
-  if (ve == VE && vpl == VPL)                                                               \
-  return launch_predict_pairs_ve<T, VE, VPL>(theta, beta, iu, ii, out, partials, n, k, \
-                                             per_warp, nblocks, stream)
-  if constexpr (sizeof(T) == 4) HPF_K11_FORM(4, 4);
-  HPF_K11_FORM(2, 4);
-  HPF_K11_FORM(1, 4);  // the scalar form: odd k
-  HPF_K11_FORM(1, 8);
-#undef HPF_K11_FORM
-  return cudaErrorInvalidValue;
+  if (!pair_grid_ok(n, k, per_warp, nblocks, theta, beta)) return cudaErrorInvalidValue;
+  return with_pair_form<T>(k, [&](auto ve, auto vpl, int log2g) {
+    predict_pairs_kernel<T, decltype(ve)::value, decltype(vpl)::value>
+        <<<(unsigned)nblocks, kThreads, 0, stream>>>(theta, beta, iu, ii, out, partials, n, k,
+                                                     log2g, per_warp);
+    return cudaGetLastError();
+  });
 }
 
 template <typename T>

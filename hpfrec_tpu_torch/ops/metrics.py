@@ -116,10 +116,31 @@ def _train_llk(parts, nnz, theta_colsum, beta_colsum):
     return llk, rmse
 
 
-# ---- K5: llk pieces over blocked COO ---------------------------------
+# ---- the pair walk's grid (K5, K11's predict_pairs) ------------------
 
-# Triplets per block of K5's partials (csrc/coo_llk.cu: 8 warps of 256).
-_COO_SLOTS_PER_BLOCK = 8 * 256
+# csrc/pair_walk.cuh: a warp takes a run of pairs (or triplets), a multiple
+# of _PAIRS_RUN, the least that keeps the grid within _PAIRS_TARGET_WARPS
+# warps (an H100's 132 SMs x 64), so that a launch of 100,000 pairs still
+# fills the card and one of 38.7M makes ~1,050 blocks; 8 warps a block.
+_PAIRS_RUN = 32
+_PAIRS_TARGET_WARPS = 132 * 64
+
+
+def _pairs_grid(n: int):
+    """(pairs a warp, blocks) of a pair walk over ``n`` pairs: a function of
+    ``n`` only, so the partials add in the same order from run to run."""
+    per_warp = _PAIRS_RUN * max(1, -(-n // (_PAIRS_TARGET_WARPS * _PAIRS_RUN)))
+    return per_warp, max(1, -(-n // (8 * per_warp)))
+
+
+def _aligned(*tables):
+    """The walk reads rows in vectors of up to 16 bytes from 16-byte
+    aligned tables (a fresh allocation is); an offset view is copied, so
+    the bits depend on (n, k, dtype) only."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tables)
+
+
+# ---- K5: llk pieces over blocked COO ---------------------------------
 
 
 def _coo_llk_plain(Theta, Beta, y, iu, ii, full_llk):
@@ -130,7 +151,8 @@ def _coo_llk_plain(Theta, Beta, y, iu, ii, full_llk):
 def llk_rmse_sums(Theta, Beta, data: BlockedCOO, full_llk: bool = False):
     """K5: (n_parts, 3) float64 partial sums of (ll, se, sp) over the
     triplets of ``data``; padding (y == 0) counts nothing.  The plain
-    version gives one row per block, the kernel one per 2048 triplets."""
+    version gives one row per block of ``data``, the kernel one per block
+    of its grid (``_pairs_grid`` of the triplet count)."""
     if not Theta.is_cuda:
         return torch.cat([_coo_llk_plain(Theta, Beta, data.y[b], data.ix_u[b],
                                          data.ix_i[b], full_llk)
@@ -144,11 +166,12 @@ def llk_rmse_sums(Theta, Beta, data: BlockedCOO, full_llk: bool = False):
     _cuda.check(iu, ii, dtype=torch.int32)
     if Beta.shape[1] != k or iu.shape != (n,) or ii.shape != (n,):
         raise ValueError("llk_rmse_sums: shape mismatch")
-    nblocks = max(1, -(-n // _COO_SLOTS_PER_BLOCK))
+    Theta, Beta = _aligned(Theta, Beta)
+    per_warp, nblocks = _pairs_grid(n)
     out = torch.zeros((nblocks, 3), dtype=torch.float64, device=Theta.device)
     if n:
         _cuda.launch("coo_llk", Theta.dtype, k, Theta, Beta, y, iu, ii, out, n, k,
-                     int(bool(full_llk)), nblocks)
+                     int(bool(full_llk)), per_warp, nblocks)
         llk_rmse_sums.launches += 1
     return out
 
@@ -182,22 +205,6 @@ def val_llk_rmse(Theta, Beta, data: BlockedCOO, nnz: int, full_llk: bool = False
 
 # ---- K11: pair and table reductions ----------------------------------
 
-# predict_pairs' grid (csrc/pair_ops.cu): a warp takes a run of pairs, a
-# multiple of _PAIRS_RUN, the least that keeps the grid within
-# _PAIRS_TARGET_WARPS warps (an H100's 132 SMs x 64), so that a launch of
-# 100,000 pairs still fills the card; 8 warps a block.
-_PAIRS_RUN = 32
-_PAIRS_TARGET_WARPS = 132 * 64
-
-
-def _pairs_grid(n: int):
-    """(pairs a warp, blocks) of a predict_pairs launch over ``n`` pairs: a
-    function of ``n`` only, so the partials add in the same order from run
-    to run."""
-    per_warp = _PAIRS_RUN * max(1, -(-n // (_PAIRS_TARGET_WARPS * _PAIRS_RUN)))
-    return per_warp, max(1, -(-n // (8 * per_warp)))
-
-
 def _reduce_blocks(n: int, per_block: int) -> int:
     """Blocks of a fixed-grid reduction over ``n`` items (at most 1024):
     a function of the size only, so the partials add in the same order
@@ -218,9 +225,7 @@ def _predict_pairs_launch(Theta, Beta, iu, ii, want_sum: bool):
     _cuda.check(iu, ii, dtype=torch.int32)
     if Beta.shape[1] != k or ii.shape != (n,):
         raise ValueError("predict_pairs: shape mismatch")
-    # the kernel reads rows in vectors of up to 16 bytes from 16-byte
-    # aligned tables (a fresh allocation is); an offset view is copied
-    Theta, Beta = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (Theta, Beta))
+    Theta, Beta = _aligned(Theta, Beta)
     out = torch.empty(n, dtype=Theta.dtype, device=Theta.device)
     per_warp, nblocks = _pairs_grid(n)
     partials = (torch.zeros(nblocks, dtype=torch.float64, device=Theta.device)

@@ -470,6 +470,138 @@ def test_coo_llk_kernel_vs_plain(cuda, dtype, full_llk, k):
     assert torch.equal(M.llk_rmse_sums(th, be, data, full_llk), got)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("full_llk", [False, True])
+@pytest.mark.parametrize("k", [1, 7, 50, 64, 200, 256])
+@pytest.mark.parametrize("n", [1, 33, 5003, 300_000])
+def test_coo_llk_walk_vs_plain(cuda, dtype, full_llk, k, n):
+    """K5 on the pair walk: every lane split (k from 1 to 256, both
+    dtypes), streams from one triplet to many blocks' shares (300,000 is
+    ~585 blocks of 512), a tenth of the triplets padding (y == 0) anywhere
+    in the stream.  One partial row a block of ``_pairs_grid(n)``, their
+    sum within TOL of the plain version, the same bits on a second call."""
+    from hpfrec_tpu_torch.ops import metrics as M
+
+    rng = np.random.default_rng(n + 3 * k)
+    y = (rng.poisson(2.0, n) + 1.0) * (rng.random(n) >= 0.1)
+    iu = rng.integers(0, 400, n).astype(np.int32)
+    ii = rng.integers(0, 300, n).astype(np.int32)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    data = _blocked(y, iu, ii, npdt, cuda)
+    th = _tables(400, k, dtype, cuda, 1) / k
+    be = _tables(300, k, dtype, cuda, 2)
+    got = M.llk_rmse_sums(th, be, data, full_llk)
+    ref = M._coo_llk_plain(th, be, *(a.reshape(-1) for a in data), full_llk)
+    torch.cuda.synchronize()
+    assert got.shape == (M._pairs_grid(data.y.numel())[1], 3)
+    torch.testing.assert_close(got.sum(0), ref.sum(0), rtol=TOL[dtype]["rtol"], atol=1e-9)
+    assert torch.equal(M.llk_rmse_sums(th, be, data, full_llk), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_coo_llk_all_padding_counts_nothing(cuda, dtype):
+    """A stream of padding only (y == 0 everywhere) gives zero partials."""
+    from hpfrec_tpu_torch.ops import metrics as M
+
+    n = 20_000
+    idx = np.random.default_rng(1).integers(0, 50, n).astype(np.int32)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    data = _blocked(np.zeros(n), idx, idx, npdt, cuda)
+    th = _tables(50, 50, dtype, cuda, 1)
+    parts = M.llk_rmse_sums(th, th, data, True)
+    assert not bool(parts.any())
+
+
+EPOCH_CASES = ("zero_run", "zero_ends", "one_row", "single_row", "ragged")
+
+
+def epoch_case(case, seed=0, n_cols=70):
+    """CSR arrays ``(indptr, cols, y)`` and a row permutation whose
+    permuted row degrees make one of K9's tile edge cases (a tile holds
+    2,048 positions and stages 1,024 rows at a time): a run of 5,000
+    zero-degree rows inside the stream; zero-degree rows first and last;
+    one row holding almost every nonzero; a single row; nnz three tiles
+    plus 5.  Every case crosses several tiles."""
+    rng = np.random.default_rng(seed)
+    if case == "zero_run":
+        deg = np.concatenate([rng.integers(1, 9, 600), np.zeros(5000, np.int64),
+                              rng.integers(1, 9, 900)])
+    elif case == "zero_ends":
+        deg = np.concatenate([np.zeros(3000, np.int64), rng.integers(0, 12, 1500),
+                              np.zeros(2500, np.int64)])
+    elif case == "one_row":
+        deg = rng.integers(0, 3, 400)
+        deg[137] = 9000
+    elif case == "single_row":
+        deg = np.array([6001])
+    else:
+        deg = rng.integers(1, 16, 600)
+        deg[-1] += 3 * 2048 + 5 - deg.sum()
+    perm = rng.permutation(deg.shape[0])
+    row_deg = np.empty_like(deg)
+    row_deg[perm] = deg
+    indptr = np.zeros(deg.shape[0] + 1, dtype=np.int64)
+    np.cumsum(row_deg, out=indptr[1:])
+    nnz = int(indptr[-1])
+    cols = rng.integers(0, n_cols, nnz).astype(np.int32)
+    y = (rng.poisson(2.0, nnz) + 1).astype(np.float64)
+    return indptr, cols, y, perm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", EPOCH_CASES)
+def test_epoch_gather_tile_cases_vs_plain(cuda, dtype, case):
+    """K9's tiles at their edges: the kernel's stream equals the plain one
+    bit for bit."""
+    from hpfrec_tpu_torch.ops import svi as S
+
+    indptr, cols, y, perm = epoch_case(case)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    side = S.epoch_side(indptr, cols, y, npdt, cuda)
+    offsets = torch.from_numpy(S.epoch_offsets(side.deg, perm).astype(np.int32)).to(cuda)
+    perm_d = torch.from_numpy(perm.astype(np.int32)).to(cuda)
+    got = S.build_epoch_buffers(side.y, side.cols, side.indptr, perm_d, offsets)
+    ref = S._build_epoch_buffers_plain(side.y, side.cols, side.indptr, perm_d, offsets)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == (len(y),) and torch.equal(g, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_epoch_gather_zipf_side_vs_plain(cuda, dtype):
+    """K9 over a Zipf side of 30,000 rows and ~1M positions (the head row
+    spans dozens of tiles, the tail rows many a tile, some rows empty), from
+    input views at an odd offset: equal to the plain stream bit for bit."""
+    from hpfrec_tpu_torch.ops import svi as S
+
+    rng = np.random.default_rng(5)
+    n = 30_000
+    deg = np.floor(150_000 / np.arange(1, n + 1) * rng.random(n) * 2).astype(np.int64)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    nnz = int(indptr[-1])
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    side = S.epoch_side(indptr, rng.integers(0, 900, nnz).astype(np.int32),
+                        (rng.poisson(2.0, nnz) + 1.0), npdt, cuda)
+    y_off = torch.empty(nnz + 1, dtype=dtype, device=cuda)[1:]
+    y_off.copy_(side.y)
+    c_off = torch.empty(nnz + 1, dtype=torch.int32, device=cuda)[1:]
+    c_off.copy_(side.cols)
+    perm = rng.permutation(n)
+    offsets = torch.from_numpy(S.epoch_offsets(side.deg, perm).astype(np.int32)).to(cuda)
+    perm_d = torch.from_numpy(perm.astype(np.int32)).to(cuda)
+    got = S.build_epoch_buffers(y_off, c_off, side.indptr, perm_d, offsets)
+    ref = S._build_epoch_buffers_plain(side.y, side.cols, side.indptr, perm_d, offsets)
+    torch.cuda.synchronize()
+    assert (deg == 0).any() and deg.max() > 20_000
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
 def _csr_side(n_rows, n_cols, degrees, hot, seed, hot_share=0.4):
     """CSR arrays with the given row degrees; a share of each row's slots
     goes to the other-side id ``hot`` (duplicates within a row)."""

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from oracle import synth_counts
+from test_torch_kernels import EPOCH_CASES, epoch_case
 
 
 @pytest.fixture(autouse=True)
@@ -82,6 +83,36 @@ def test_build_epoch_buffers_matches_jax(dtype):
                                 torch.from_numpy(offsets.astype(np.int32)))
     ref = bj(jnp.asarray(y), jnp.asarray(cols), jnp.asarray(indptr.astype(np.int32)),
              jnp.asarray(perm.astype(np.int32)), 1024)
+    nnz = len(y)
+    np.testing.assert_array_equal(offsets, np.asarray(ref[3]))
+    for g, r in zip(got, ref[:3]):
+        assert g.shape == (nnz,)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r)[:nnz])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", EPOCH_CASES)
+def test_build_epoch_buffers_tile_cases_match_jax(dtype, case):
+    """K9's plain version against the JAX function on the edge cases of the
+    kernel's 2,048-position tiles (``test_torch_kernels.epoch_case``): a run
+    of zero-degree rows longer than a tile, zero-degree rows first and
+    last, one row holding almost every nonzero, a single row, nnz not a
+    multiple of the tile.  Exact, with the offsets."""
+    import jax.numpy as jnp
+
+    from hpfrec_tpu.ops.svi import build_epoch_buffers as bj
+    from hpfrec_tpu_torch.ops import svi as S
+
+    _x64(dtype)
+    indptr, cols, y, perm = epoch_case(case)
+    y = y.astype(dtype)
+    side = S.epoch_side(indptr, cols, y, dtype, "cpu")
+    offsets = S.epoch_offsets(side.deg, perm)
+    got = S.build_epoch_buffers(side.y, side.cols, side.indptr,
+                                torch.from_numpy(perm.astype(np.int32)),
+                                torch.from_numpy(offsets.astype(np.int32)))
+    ref = bj(jnp.asarray(y), jnp.asarray(cols), jnp.asarray(indptr.astype(np.int32)),
+             jnp.asarray(perm.astype(np.int32)), 16)
     nnz = len(y)
     np.testing.assert_array_equal(offsets, np.asarray(ref[3]))
     for g, r in zip(got, ref[:3]):

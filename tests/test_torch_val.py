@@ -152,6 +152,64 @@ def test_llk_rmse_sums_match_jax(dtype, rtol, full_llk):
         MJ.val_llk_rmse(jnp.asarray(Theta), jnp.asarray(Beta), dj, nnz, full_llk), rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-10), (np.float32, 1e-5)])
+@pytest.mark.parametrize("full_llk", [False, True])
+@pytest.mark.parametrize("case", ["mostly_padding", "single_triplet"])
+def test_llk_rmse_sums_edge_cases_match_jax(case, dtype, rtol, full_llk):
+    """K5's plain version against the JAX function where the kernel's walk
+    has its edges: blocks that are mostly padding (1,003 triplets in blocks
+    of 1,000: the last holds 997 padding slots), and a single triplet
+    (``block_coo`` pads it to 8)."""
+    import jax.numpy as jnp
+
+    from hpfrec_tpu.ops import metrics as MJ
+    from hpfrec_tpu_torch.ops import metrics as MT
+
+    _x64(dtype)
+    nU, nI, k = 80, 50, 9
+    y, iu, ii = synth_counts(nU, nI, nnz=1500, seed=8, dtype=dtype)
+    n, block = (1003, 1000) if case == "mostly_padding" else (1, None)
+    y, iu, ii = y[:n], iu[:n], ii[:n]
+    rng = np.random.default_rng(9)
+    Theta = (rng.random((nU, k)) * 0.5).astype(dtype)
+    Beta = (rng.random((nI, k)) * 0.5).astype(dtype)
+    dt, dj, nnz = _blocked_pair(y, iu, ii, block)
+    th, be = torch.from_numpy(Theta), torch.from_numpy(Beta)
+    parts = MT.llk_rmse_sums(th, be, dt, full_llk)
+    ll, se, sp = MJ.llk_rmse_sums(jnp.asarray(Theta), jnp.asarray(Beta), dj, full_llk)
+    assert nnz == n and float(dt.y.reshape(-1)[n:].abs().sum()) == 0.0
+    np.testing.assert_allclose(parts.numpy(), np.stack([ll, se, sp], 1), rtol=rtol,
+                               atol=1e-9)
+    np.testing.assert_allclose(
+        MT.val_llk_rmse(th, be, dt, nnz, full_llk),
+        MJ.val_llk_rmse(jnp.asarray(Theta), jnp.asarray(Beta), dj, nnz, full_llk), rtol=rtol)
+
+
+@pytest.mark.parametrize("n", [1, 8, 2049, 387_528, 148 * (1 << 18)])
+def test_llk_grid_covers_every_triplet_once(n):
+    """K5's grid (the pair walk's, ``_pairs_grid``) takes the triplet count
+    alone, so the partials' count and order are fixed by (n, k, dtype) and
+    equal n gives an equal block count; the warps' runs cover every
+    triplet exactly once; the validation set (~387k triplets) fills the
+    card with several blocks an SM, and the COO engine's 38.8M-triplet
+    train stream makes no more than 132 x 8 blocks."""
+    import inspect
+
+    from hpfrec_tpu_torch.ops.metrics import _pairs_grid
+
+    assert list(inspect.signature(_pairs_grid).parameters) == ["n"]
+    per_warp, blocks = _pairs_grid(n)
+    starts = np.arange(blocks * 8, dtype=np.int64) * per_warp
+    ends = np.minimum(starts + per_warp, n)
+    live = starts < n
+    assert starts[0] == 0 and ends[live][-1] == n
+    assert np.array_equal(starts[live][1:], ends[live][:-1])
+    assert live[-8:].any() and int(np.maximum(ends - starts, 0).sum()) == n
+    assert _pairs_grid(n) == (per_warp, blocks)
+    if n >= 387_528:
+        assert 2.9 * 132 <= blocks <= 132 * 8
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_rowsum_dot_rows_matches_jax(dtype):
     import jax.numpy as jnp
