@@ -97,11 +97,15 @@ non-zero, with no result line):
    form and the step (K13b) against their plain versions and times them,
    and splits an iteration by part (K1 per ring offset, the host-staged
    ring, K2, K3's pad-row form, the colsum exchange; host_pack of the
-   sharded layouts); (b) on the NCCL mesh of 3j (a) (one rank on most
-   machines, where the ring is K1 over the sub-tiles with no exchange:
-   ``HPF`` takes the engine only over two or more ranks, so it is called
-   directly) the same parts from the ELL fit's state, and the step against
-   the one-device ELL step; (c) each rank's half of the ring phi sums (two
+   sharded layouts); K1 runs once a ring offset, in no other form; (b) on
+   the NCCL mesh of 3j (a) (one rank on most machines, where the ring is K1
+   a ring offset with no exchange: ``HPF`` takes the engine only over two
+   or more ranks, so it is called directly), from the ELL fit's state, the
+   step, the ring phi sums and the train metric on the plan of each
+   candidate sub-tile window (untiled, JAX's 40 MB, 25 MB) beside the
+   one-device ELL step, and on the card's window (the fits') the same
+   parts as (a) and the step held against the one-device step; (c) each
+   rank's half of the ring phi sums (two
    ranks, every rank in this process, the ring's shards handed in) and
    K3's pad-row form (both tab dtypes) against their plain versions on
    phase 2's data set, float32 and float64; (d) with two or more cards,
@@ -209,8 +213,8 @@ REPLACES = {
     "rowsum_dot_rows": ("hpfrec_tpu_torch/csrc/pair_ops.cu", "hpfrec_tpu/ops/metrics.py:170"),
     "coo_phi_sums": ("hpfrec_tpu_torch/csrc/svi_phi_sums.cu", "hpfrec_tpu/ops/cavi.py:92"),
     "ell_phi_sums_bf16": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu", "hpfrec_tpu/ops/ell.py:447"),
-    "ell_phi_sums_bucket": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu", "hpfrec_tpu/ops/ell.py:447"),
-    "ell_phi_sums_bucket_bf16": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu",
+    "ell_phi_sums_offset": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu", "hpfrec_tpu/ops/ell.py:447"),
+    "ell_phi_sums_offset_bf16": ("hpfrec_tpu_torch/csrc/ell_phi_sums.cu",
                                  "hpfrec_tpu/ops/ell.py:447"),
     "table_update_bf16": ("hpfrec_tpu_torch/csrc/table_update.cu", "hpfrec_tpu/ops/ell.py:804"),
     "table_derive_bf16": ("hpfrec_tpu_torch/csrc/table_update.cu", "hpfrec_tpu/ops/ell.py:752"),
@@ -364,7 +368,8 @@ def k1_layout_bytes(*layouts):
 
 def bucket_by_bucket(t_self, t_other, lay):
     """K1's segment sums of a layout with one launch a bucket
-    (``bucket_phi_sums``, as the table-sharded engine runs it)."""
+    (``bucket_phi_sums``): the bits of one launch a side or a ring offset;
+    no path runs it, the checks time it beside them."""
     import torch
 
     from hpfrec_tpu_torch.ops import ell as E
@@ -423,7 +428,6 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
         # two exp tables per side, K1's layout bytes, the segment sums; 4k
         # flops per slot
         "ell_phi_sums": (2 * tabs + k1_lay + seg_bytes, 2 * nnz * 4 * k),
-        "ell_phi_sums_bucket": (2 * tabs + k1_lay + seg_bytes, 2 * nnz * 4 * k),
         # segment sums and index arrays in, tables out; the split-row adds
         "segment_table_sums": (seg_bytes + sum(nbytes(lay.inv_perm, lay.split_indptr,
                                                       lay.split_seg_pos)
@@ -447,9 +451,6 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
     cases = {
         "ell_phi_sums": (lambda: flat(*(E.all_bucket_sums(*side) for side in sides)),
                          lambda: flat(*(phi_plain(*side) for side in sides)), None),
-        # the same sums a bucket a launch (the table-sharded engine's K13a)
-        "ell_phi_sums_bucket": (lambda: flat(*(bucket_by_bucket(*side) for side in sides)),
-                                lambda: flat(*(phi_plain(*side) for side in sides)), None),
         "segment_table_sums": (
             lambda: flat(*(E.segment_table_sums(seg, side[2]) for seg, side in zip(segs, sides))),
             lambda: flat(*(E._segment_table_sums_plain(seg, side[2])
@@ -467,10 +468,12 @@ def kernel_suite(lay_u, lay_i, state, dtype_name, reps):
     cases = {n: (kern, plain, work[n], lib) + ((bits_check,) if n == "segment_table_sums" else ())
              for n, (kern, plain, lib) in cases.items()}
     out = run_cases(cases, dtype_name, reps)
-    one = flat(*(E.all_bucket_sums(*side) for side in sides))
-    if not all(torch.equal(a, b) for a, b in zip(one, flat(*(bucket_by_bucket(*side)
-                                                              for side in sides)))):
-        raise AssertionError("K1: one launch a side and one a bucket give other bits")
+    # the same sums a bucket a launch: the same bits; timed beside, but no
+    # path runs it (the table-sharded ring launches K1 once a ring offset)
+    bucket = {"ell_phi_sums_bucket": (lambda: flat(*(bucket_by_bucket(*side) for side in sides)),
+                                      lambda: flat(*(E.all_bucket_sums(*side) for side in sides)),
+                                      work["ell_phi_sums"], None, bits_check)}
+    run_cases(bucket, dtype_name, reps, " (a bucket a launch, against one a side)")
     return out
 
 
@@ -755,7 +758,6 @@ def bf16_suite(lay_u, lay_i, state, dtype_name, reps, label=""):
     work = {
         # both bfloat16 tables per side, the layouts, float32 segment sums out
         "ell_phi_sums_bf16": (2 * tabs16 + lay_bytes + seg_bytes, 2 * nnz * 4 * k),
-        "ell_phi_sums_bucket_bf16": (2 * tabs16 + lay_bytes + seg_bytes, 2 * nnz * 4 * k),
         # sums in; shp, rte out in the state dtype, tab out in bfloat16
         "table_update_bf16": (elems * (3 * it + 2), 35 * elems),
         # shp, rte in; tab out in bfloat16
@@ -765,11 +767,14 @@ def bf16_suite(lay_u, lay_i, state, dtype_name, reps, label=""):
     # peak rate are float32's
     k1 = {"ell_phi_sums_bf16": (lambda: flat(*(E.all_bucket_sums(*side) for side in sides)),
                                 lambda: flat(*(phi_plain(*side) for side in sides)),
-                                work["ell_phi_sums_bf16"], None),
-          "ell_phi_sums_bucket_bf16": (lambda: flat(*(bucket_by_bucket(*side) for side in sides)),
-                                       lambda: flat(*(phi_plain(*side) for side in sides)),
-                                       work["ell_phi_sums_bucket_bf16"], None)}
+                                work["ell_phi_sums_bf16"], None)}
     out = run_cases(k1, "float32", reps, label + ", %s state" % dtype_name)
+    # a bucket a launch: the same bits, timed beside (no path runs it)
+    run_cases({"ell_phi_sums_bucket_bf16": (
+        lambda: flat(*(bucket_by_bucket(*side) for side in sides)),
+        lambda: flat(*(E.all_bucket_sums(*side) for side in sides)),
+        work["ell_phi_sums_bf16"], None, bits_check)}, "float32", reps,
+        label + ", %s state (a bucket a launch, against one a side)" % dtype_name)
     cases = {
         "table_update_bf16": (lambda: flat(*(C.side_update(*u) for u in upd)),
                               lambda: flat(*(C._side_update_plain(*u) for u in upd)),
@@ -1203,7 +1208,9 @@ def kernel_counters():
     kernel wrapper, and the data-parallel exchanges (K12), which count the
     collectives they issue, and the table-sharded engine (K13), which counts
     its calls.  The bfloat16-table forms of K1 and K3 count in their
-    wrappers' .launches_bf16, K3's pad-row forms in .launches_pad(_bf16),
+    wrappers' .launches_bf16, K1 a ring offset a launch (the table-sharded
+    ring's) in .launches_offset(_bf16), K3's pad-row forms in
+    .launches_pad(_bf16),
     K6's three-kernel path (n above the fused path's cap) in
     .launches_large."""
     from hpfrec_tpu_torch.ops import cavi as C
@@ -1233,6 +1240,8 @@ def kernel_counters():
                 "cross_rank_colsum": TS.cross_rank_colsum}
     counters = {name: (w, "launches") for name, w in wrappers.items()}
     counters.update({"ell_phi_sums_bf16": (E.all_bucket_sums, "launches_bf16"),
+                     "ell_phi_sums_offset": (E.all_bucket_sums, "launches_offset"),
+                     "ell_phi_sums_offset_bf16": (E.all_bucket_sums, "launches_offset_bf16"),
                      "ell_phi_sums_bucket_bf16": (E.bucket_phi_sums, "launches_bf16"),
                      "table_update_bf16": (C.side_update, "launches_bf16"),
                      "table_derive_bf16": (C.side_derive, "launches_bf16"),
@@ -1312,11 +1321,11 @@ DP_REQUIRED = {
             "table_derive", "gather_partials", "coo_llk"),
     "partial_fit": ("sharded_svi_phi_sums", "batch_phi_sums", "svi_update", "table_derive"),
     "ts": ("table_sharded_step", "ring_table_sums", "cross_rank_colsum", "colsum_finish",
-           "table_sharded_llk_parts", "ell_phi_sums_bucket", "segment_table_sums",
+           "table_sharded_llk_parts", "ell_phi_sums_offset", "segment_table_sums",
            "table_update_pad",
            "table_derive", "ell_llk", "gather_partials"),
     "ts_bf16": ("table_sharded_step", "ring_table_sums", "cross_rank_colsum", "colsum_finish",
-                "table_sharded_llk_parts", "ell_phi_sums_bucket_bf16", "segment_table_sums",
+                "table_sharded_llk_parts", "ell_phi_sums_offset_bf16", "segment_table_sums",
                 "table_update_pad_bf16", "table_derive_bf16", "ell_llk", "gather_partials"),
 }
 # a data-parallel fit against the one-device fit on the same card.  On one
@@ -1901,8 +1910,12 @@ def ts_bound(hbm, link, ops):
 def ts_cases(mesh, ts, carry, reps):
     """The table-sharded engine's parts on one rank of ``mesh``, from
     ``carry`` (float32 tables) on the rank's rows of the engine ``ts``:
-    K13a (both sides' ring phi sums), K13c (one train check), K3's pad-row
-    form (both sides' updates) and K13b (one step), each against its plain
+    K1 as the ring launches it (once a ring offset, both sides, each offset
+    against the rank's own shard, which has every shard's shape; on the
+    tables and on them rounded to bfloat16; also held bit for bit against
+    one launch a bucket), K13a (both sides' ring phi sums), K13c (one train
+    check), K3's pad-row form (both sides' updates) and K13b (one step),
+    each against its plain
     version (the same ring and composition with the plain K1, K2, K3 and
     K4; raises beyond ``compare``'s float32 tolerance, or where a padding
     row is not inert) and timed with CUDA events beside its bound (HBM,
@@ -1913,12 +1926,36 @@ def ts_cases(mesh, ts, carry, reps):
 
     from hpfrec_tpu_torch.models.state import Hyperparams
     from hpfrec_tpu_torch.ops import cavi as C
+    from hpfrec_tpu_torch.ops import ell as E
     from hpfrec_tpu_torch.ops import metrics as M
     from hpfrec_tpu_torch.parallel import table_sharded as TS
 
     W, hp, f32 = mesh.world_size, Hyperparams(k=K), torch.float32
     st = carry.state
     sides = ((carry.t_tab, carry.b_tab, ts.u), (carry.b_tab, carry.t_tab, ts.i))
+    sides16 = tuple((a.bfloat16(), b.bfloat16(), sh) for a, b, sh in sides)
+
+    def k1_offsets(tabs):  # one launch a ring offset, into each side's segment sums
+        segs = []
+        for a, b, sh in tabs:
+            segs.append(torch.empty((sh.ell.n_segs, K), dtype=f32, device=a.device))
+            for view in sh.offsets:
+                E.all_bucket_sums(a, b, view, out=segs[-1])
+        return segs
+
+    def k1_buckets(tabs):  # one launch a bucket, the same bits
+        return [bucket_by_bucket(a, b, sh.ell) for a, b, sh in tabs]
+
+    def k1_plain(tabs):
+        return [torch.cat([E._bucket_phi_sums_plain(a, b, bk.rows, bk.cols, bk.vals, bk.col_off)
+                           for bk in sh.ell.buckets]) for a, b, sh in tabs]
+
+    def k1_work(tabs):  # layouts (real slots' cols), own rows, W shards, sums out; 4k a slot
+        lay = sum(nbytes(b.rows, b.vals) + 4 * int((b.vals != 0).sum())
+                  for _, _, sh in tabs for b in sh.ell.buckets)
+        nnz = sum(int((b.vals != 0).sum()) for _, _, sh in tabs for b in sh.ell.buckets)
+        return (lay + sum(nbytes(a) + W * nbytes(b) + sh.ell.n_segs * K * 4 for a, b, sh in tabs),
+                0, nnz * 4 * K, 0)
     su, si = (TS.ring_table_sums(mesh, a, b, sh, f32) for a, b, sh in sides)
     upd = ((su, st.k_rte, carry.beta_colsum, hp.a, hp.k_shp, hp.add_k_rte, None, ts.u.n_real),
            (si, st.t_rte, carry.theta_colsum, hp.c, hp.t_shp, hp.add_t_rte, None, ts.i.n_real))
@@ -1955,6 +1992,8 @@ def ts_cases(mesh, ts, carry, reps):
     elems = st.G_shp.numel() + st.L_shp.numel()
     nnz_u = sum(int((b.vals != 0).sum()) for b in ts.u.ell.buckets)
     work = {
+        "ell_phi_sums_offset": k1_work(sides),
+        "ell_phi_sums_offset_bf16": k1_work(sides16),
         "ring_table_sums": w_a,
         # Theta's rows, every Beta shard, the user layout; a dot (2k) and ~6
         # operations a slot
@@ -1969,6 +2008,8 @@ def ts_cases(mesh, ts, carry, reps):
                                w_a[3] + 2 * tabs),
     }
     cases = {
+        "ell_phi_sums_offset": (lambda: k1_offsets(sides), lambda: k1_plain(sides)),
+        "ell_phi_sums_offset_bf16": (lambda: k1_offsets(sides16), lambda: k1_plain(sides16)),
         "ring_table_sums": (lambda: [TS.ring_table_sums(mesh, a, b, sh, f32) for a, b, sh in sides],
                             lambda: [ts_plain_ring_sums(mesh, a, b, sh) for a, b, sh in sides]),
         "table_sharded_llk_parts": (
@@ -1988,6 +2029,9 @@ def ts_cases(mesh, ts, carry, reps):
             err = step_check(name, got, ref, "float32")
         else:
             err = compare(name, got, ref, "float32")
+        if name.startswith("ell_phi_sums_offset"):
+            bits_check(name + " against a bucket a launch", got,
+                       k1_buckets(sides16 if name.endswith("bf16") else sides), "float32")
         hbm, link, ops, inter = work[name]
         b_ms, b_by = ts_bound(hbm, link, ops)
         out[name] = dict(ms=cuda_ms(kern, reps), plain_ms=cuda_ms(plain, reps), bound_ms=b_ms,
@@ -1997,13 +2041,27 @@ def ts_cases(mesh, ts, carry, reps):
     return out
 
 
+def ts_windows():
+    """The sub-tile windows that phase 3k (b) times, name -> ``window_bytes``:
+    untiled shards, JAX's 40 MB (a TPU figure) and a width near half the
+    H100's 50 MB L2."""
+    from hpfrec_tpu_torch.parallel import table_sharded as TS
+
+    return {"untiled": TS.UNTILED, "40 MB (JAX)": 40 * 2 ** 20, "25 MB": 25 * 2 ** 20}
+
+
 def ts_step_suite(mesh, data, model, reps):
     """Phase 3k (b), in the NCCL rank(s) of 3j (a): the table-sharded engine
     built and called directly on that mesh (one rank on most machines: the
-    ring is K1 over the sub-tiles, with no exchange, and ``HPF`` never takes
-    the engine there) at the MillionSong shape, from the ELL fit's state:
-    ``ts_cases``, and the step against the one-device ELL step from the same
-    state, timed beside it."""
+    ring is K1 a ring offset with no exchange, and ``HPF`` never takes the
+    engine there) at the MillionSong shape, from the ELL fit's state, on
+    the plan of each window of ``ts_windows``: its step, ring phi sums
+    (K13a) and train metric (K13c) timed beside the one-device ELL step;
+    on the card's window (``CARD_WINDOW_BYTES``, the fit's) ``ts_cases``,
+    and the step against the one-device step from the same state.  The
+    windows' figures are under the key "windows"."""
+    import torch
+
     from hpfrec_tpu_torch.models.state import Hyperparams, state_from_numpy
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as E
@@ -2013,35 +2071,59 @@ def ts_step_suite(mesh, data, model, reps):
     dev, W = mesh.device, mesh.world_size
     pdata = process_data(data["all"], "train-llk", False, np.float32, sort_by_user=True)
     nU, nI = pdata.nusers, pdata.nitems
-    t0 = time.perf_counter()
-    plan = TS.prepare_table_sharded(*build_csr(pdata.ix_u, pdata.ix_i, pdata.y, nU, nI),
-                                    *build_csr(pdata.ix_i, pdata.ix_u, pdata.y, nI, nU),
-                                    nU, nI, K, W, 4, dtype=np.float32)
-    host_pack_s = time.perf_counter() - t0
-    ts = TS.TableSharded(mesh, plan, nU, nI, dev)
+    csr = (*build_csr(pdata.ix_u, pdata.ix_i, pdata.y, nU, nI),
+           *build_csr(pdata.ix_i, pdata.ix_u, pdata.y, nI, nU))
     host = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
                              model.Lambda_rte, model.k_rte, model.t_rte], "cpu")
     hp = Hyperparams(k=K)
-    carry = ts.carry_init(ts.shard_state(host))
-    out = ts_cases(mesh, ts, carry, reps)
     lay_u, lay_i = (E.to_device(h, dev) for h in E.build_layouts(pdata, np.float32))
     one = C._carry_init(type(host)(*[a.to(dev) for a in host]))
-    got = [a.to(dev) for a in
-           ts.real_state(TS.table_sharded_step(mesh, carry, ts.u, ts.i, hp).state)]
-    ref = list(E.cavi_step_ell_carried(one, lay_u, lay_i, hp).state)
-    vs_one = compare("table-sharded step vs one device", got, ref, "float32")
-    out["table_sharded_step"].update(
-        one_device_ms=cuda_ms(lambda: E.cavi_step_ell_carried(one, lay_u, lay_i, hp), reps),
-        vs_one_device=list(vs_one), host_pack_s=host_pack_s, world=W,
-        n_sub=[plan.plan_u[2], plan.plan_i[2]], buckets=[len(ts.u.ell.buckets),
-                                                         len(ts.i.ell.buckets)])
+    one_ms = cuda_ms(lambda: E.cavi_step_ell_carried(one, lay_u, lay_i, hp), reps)
+    windows, out = {}, None
+    for name, window in ts_windows().items():
+        t0 = time.perf_counter()
+        plan = TS.prepare_table_sharded(*csr, nU, nI, K, W, 4, dtype=np.float32,
+                                        window_bytes=window)
+        host_pack_s = time.perf_counter() - t0
+        ts = TS.TableSharded(mesh, plan, nU, nI, dev)
+        carry = ts.carry_init(ts.shard_state(host))
+        Theta, Beta = (s_ / r_ for s_, r_ in ((carry.state.G_shp, carry.state.G_rte),
+                                              (carry.state.L_shp, carry.state.L_rte)))
+        windows[name] = dict(
+            window_bytes=window, n_sub=[plan.plan_u[2], plan.plan_i[2]],
+            buckets=[len(ts.u.ell.buckets), len(ts.i.ell.buckets)],
+            segments=[ts.u.ell.n_segs, ts.i.ell.n_segs], host_pack_s=host_pack_s,
+            step_ms=cuda_ms(lambda: TS.table_sharded_step(mesh, carry, ts.u, ts.i, hp), reps),
+            ring_ms=cuda_ms(lambda: [TS.ring_table_sums(mesh, a, b, sh, torch.float32)
+                                     for a, b, sh in ((carry.t_tab, carry.b_tab, ts.u),
+                                                      (carry.b_tab, carry.t_tab, ts.i))], reps),
+            llk_ms=cuda_ms(lambda: TS.table_sharded_llk_parts(mesh, Theta, Beta, ts.u, False),
+                           reps),
+            one_device_ms=one_ms)
+        if window == TS.CARD_WINDOW_BYTES:
+            out = ts_cases(mesh, ts, carry, reps)
+            got = [a.to(dev) for a in
+                   ts.real_state(TS.table_sharded_step(mesh, carry, ts.u, ts.i, hp).state)]
+            ref = list(E.cavi_step_ell_carried(one, lay_u, lay_i, hp).state)
+            vs_one = compare("table-sharded step vs one device", got, ref, "float32")
+            out["table_sharded_step"].update(
+                one_device_ms=one_ms, vs_one_device=list(vs_one), host_pack_s=host_pack_s,
+                world=W, window=name, n_sub=windows[name]["n_sub"],
+                buckets=windows[name]["buckets"])
+        del plan, ts, carry, Theta, Beta
+        torch.cuda.empty_cache()
+    if out is None:
+        raise AssertionError(f"the card's window {TS.CARD_WINDOW_BYTES} is not among "
+                             f"{ts_windows()}")
+    out["windows"] = windows
     return out
 
 
 def ts_split(mesh, engine, state, reps):
     """Phase 3k (a), in each rank: one iteration of the table-sharded fit
     split by part, from its last state (CUDA events, ms, both sides): K1 on
-    the buckets of each ring offset, a whole ring pass of each side's
+    the buckets of each ring offset (one launch a side), a whole ring pass
+    of each side's
     table with nothing computed (on gloo with CUDA tables: staged through
     the host), K2, K3's pad-row form, one cross-rank colsum (three an
     iteration), and the whole step.  Every rank runs the same collectives
@@ -2062,10 +2144,7 @@ def ts_split(mesh, engine, state, reps):
 
     def k1(o):
         for (a, b, sh), seg in zip(sides, segs):
-            for j in sh.by_offset[o]:
-                bk = sh.ell.buckets[j]
-                E.bucket_phi_sums(a, b, bk.rows, bk.cols, bk.vals, bk.col_off,
-                                  seg[bk.start:bk.start + bk.rows.shape[0]])
+            E.all_bucket_sums(a, b, sh.offsets[o], out=seg)
 
     def ring_pass():
         for a, b, _ in sides:
@@ -2135,9 +2214,18 @@ def ts_fit_report(tag, results, run, wall, refs):
             raise AssertionError(f"{tag}: the {name} fit is off its one-device fit: llk "
                                  f"{dev_llk:.3e}, factors {dev_f}")
     bf = r0["ts_bf16"]["launches"]
-    if (bf["ell_phi_sums"] or bf["ell_phi_sums_bucket"] or bf["table_update_pad"]
-            or bf["table_derive"]):
+    if bf["ell_phi_sums_offset"] or bf["table_update_pad"] or bf["table_derive"]:
         raise AssertionError(f"{tag}: the bfloat16-table fit ran a state-dtype table kernel: {bf}")
+    for name in TS_FITS:  # K1 once a ring offset (that has buckets), in no other form
+        lc = r0[name]["launches"]
+        other = {n: lc[n] for n in ("ell_phi_sums", "ell_phi_sums_bf16", "ell_phi_sums_bucket",
+                                    "ell_phi_sums_bucket_bf16") if lc[n]}
+        k1 = lc["ell_phi_sums_offset"] + lc["ell_phi_sums_offset_bf16"]
+        if other or not lc["ring_table_sums"] <= k1 <= len(results) * lc["ring_table_sums"]:
+            raise AssertionError(f"{tag} {name}: K1 is not one launch a ring offset: {k1} "
+                                 f"over {lc['ring_table_sums']} ring calls; other forms {other}")
+        print("[%s] %s fit: K1 %d launches over %d ring_table_sums calls of %d ring offsets"
+              % (tag, name, k1, lc["ring_table_sums"], len(results)))
     for r, res in enumerate(results):
         print("[%s] rank %d, one iteration by part (ms): %s" % (tag, r, json.dumps(res["split"])))
         ts_cases_report("%s, rank %d" % (tag, r), res["ts_cases"])
@@ -2177,10 +2265,17 @@ def phase_3k(data_root, refs, real, ts_step, small):
     launches_ts = ts_fit_report("3k (a), gloo on one card", results, run, wall, refs)
     real.update(results[0]["ts_cases"])
     shutil.rmtree(run)
+    windows = ts_step.pop("windows")
     st = ts_step["table_sharded_step"]
+    for name, w in windows.items():
+        print("[3k (b)] window %-12s sub-tiles a shard %s, buckets %s, segments %s, host_pack "
+              "%.3f s: step %.4f ms (one device %.4f ms), ring phi sums %.4f ms, train metric "
+              "%.4f ms" % (name, w["n_sub"], w["buckets"], w["segments"], w["host_pack_s"],
+                           w["step_ms"], w["one_device_ms"], w["ring_ms"], w["llk_ms"]))
     print("[3k (b)] the engine on the NCCL mesh of 3j (%d rank(s)), MillionSong shape, from "
-          "the ELL fit's state (host_pack of the sharded layouts %.3f s; sub-tiles a shard %s, "
-          "buckets %s):" % (st["world"], st["host_pack_s"], st["n_sub"], st["buckets"]))
+          "the ELL fit's state, the card's window (%s; host_pack of the sharded layouts %.3f s; "
+          "sub-tiles a shard %s, buckets %s):" % (st["world"], st["window"], st["host_pack_s"],
+                                                  st["n_sub"], st["buckets"]))
     ts_cases_report("3k (b)", ts_step)
     print("[3k (b)] one step: %.4f ms on the engine, %.4f ms on one device (phase 3's ELL "
           "step); the states after it: max abs %.3e, max rel %.3e"

@@ -75,8 +75,8 @@ _SIGNATURES = {
     "predict_pairs": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64],
     # a, b, partials, n, nblocks
     "theta_diff": [_P, _P, _P, _I64, _I32],
-    # theta, beta, iu, ii, partials, n, k, nblocks
-    "rowsum_dot": [_P, _P, _P, _P, _P, _I64, _I32, _I32],
+    # theta, beta, iu, ii, partials (scratch), out, n, k, pairs a warp, nblocks
+    "rowsum_dot": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64],
     # theta_rows, beta, scores, b, nI, k, range_w, R
     "topn_score": [_P, _P, _P, _I32, _I64, _I32, _I64, _I32],
     # theta_rows, beta, mask (or NULL), W, cand, b, nI, k, n, range_w, R

@@ -47,10 +47,12 @@
 // once per layout, buckets with the longest walk a warp first), so the
 // short buckets fill the card while the long ones run; with one launch per
 // bucket (49 an iteration at the MillionSong shape) each bucket's last,
-// partial wave idled the card.  ell_phi_sums_kernel runs one bucket
-// (the table-sharded engine's calls, one per bucket and ring offset).  No
-// atomics, so the result is bit-identical run to run, and the two kernels
-// give the same bits.  Registers (ptxas, sm_90a, -O3, KPL = 2 float32): see
+// partial wave idled the card.  The table-sharded ring launches it once a
+// ring offset, from a table of that offset's buckets, each with its
+// sub-tile's column base, writing their segments into the rank's sums.
+// ell_phi_sums_kernel runs one bucket (the same walk; the card tests hold
+// the two launch forms to the same bits).  No atomics, so the result is
+// bit-identical run to run.  Registers (ptxas, sm_90a, -O3, KPL = 2 float32): see
 // the build log of -Xptxas -v; no kernel here spills at any KPL.
 #include "common.cuh"
 

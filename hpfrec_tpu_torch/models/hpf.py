@@ -752,7 +752,8 @@ class HPF:
             self._metric_coo = coo.data
             self._load_kernels(dev, stats)
         elif self._table_sharded:
-            from ..parallel.table_sharded import TableSharded, prepare_table_sharded
+            from ..parallel.table_sharded import (CARD_WINDOW_BYTES, TableSharded,
+                                                  prepare_table_sharded)
 
             gd = gather_table_dtype(self.gather_dtype)
             g_item = 2 if gd is not None else np.dtype(self._dtype).itemsize
@@ -762,7 +763,8 @@ class HPF:
                 csr_i = data_utils.build_csr(pdata.ix_i, pdata.ix_u, pdata.y, self.nitems,
                                              self.nusers)
                 plan = prepare_table_sharded(*csr_u, *csr_i, self.nusers, self.nitems, self.k,
-                                             self._n_ranks, g_item, dtype=self._dtype)
+                                             self._n_ranks, g_item, dtype=self._dtype,
+                                             window_bytes=CARD_WINDOW_BYTES)
                 del csr_u, csr_i
             self._load_kernels(dev, stats)
             with stats.phase("transfer"):

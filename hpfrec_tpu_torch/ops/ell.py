@@ -14,8 +14,9 @@ The device half runs two hand-written CUDA kernels:
   ``sum_j vals[r,j] * t_self[rows[r]] * t_other[off+cols[r,j]] /
   <t_self[rows[r]], t_other[off+cols[r,j]]>``, every bucket of a side in
   one launch from a device table of the buckets (``_bucket_table``, built
-  once per layout); ``bucket_phi_sums`` launches one bucket (the
-  table-sharded engine's calls).
+  once per layout), or every bucket of a view of a layout (the
+  table-sharded ring's, one a ring offset) into the layout's sums;
+  ``bucket_phi_sums`` launches one bucket (the same walk and bits).
 - **K2** ``segment_table_sums`` (``csrc/segment_sums.cu``): segment sums
   to table order, split rows added in a fixed order (no atomics).
 
@@ -61,8 +62,10 @@ MIN_WIDTH = 8
 _SPLIT_P = 4
 
 # The JAX package's column-tiling plan (its TPU gather-window thresholds).
-# Nothing in the port's fit uses it (the fit builds untiled layouts); it is
-# kept only to reproduce the JAX package's tiled layout for parity checks.
+# No fit of the port uses them (a one-device fit builds untiled layouts, a
+# table-sharded fit takes parallel.table_sharded.CARD_WINDOW_BYTES); they
+# are kept to reproduce the JAX package's tiled layouts and its
+# table-sharded plans (their default window) for parity checks.
 _FAST_GATHER_BYTES = 40 * 1024 * 1024
 _TILE_THRESHOLD_BYTES = 48 * 1024 * 1024
 
@@ -504,13 +507,28 @@ def _bucket_table(layout: DeviceEll):
     return table, blocks
 
 
-def all_bucket_sums(t_self, t_other, layout: DeviceEll):
+def all_bucket_sums(t_self, t_other, layout: DeviceEll, out=None):
     """Per-segment phi sums over all buckets, in segment order: (n_segs, k),
     in K1's accumulation dtype.  One launch for CUDA tensors (counted in
     ``.launches``, bfloat16 tables in ``.launches_bf16``); the plain
-    version bucket by bucket for CPU tensors."""
+    version bucket by bucket for CPU tensors.
+
+    With ``out`` (n_segs, k), the sums of ``layout``'s buckets are written
+    into it at their ``start`` and the rest of it is left as it is:
+    ``layout`` is then a view of some of a layout's buckets, as the
+    table-sharded ring keeps one a ring offset
+    (``parallel.table_sharded.rank_share``), and these launches count in
+    ``.launches_offset`` (``.launches_offset_bf16``)."""
     k = t_self.shape[1]
-    seg = torch.empty((layout.n_segs, k), dtype=_acc_dtype(t_self.dtype), device=t_self.device)
+    if out is None:
+        seg = torch.empty((layout.n_segs, k), dtype=_acc_dtype(t_self.dtype),
+                          device=t_self.device)
+    else:
+        if out.shape != (layout.n_segs, k) or out.dtype != _acc_dtype(t_self.dtype):
+            raise ValueError("all_bucket_sums: out of shape %s and %s, the layout's sums are "
+                             "(%d, %d) %s" % (tuple(out.shape), out.dtype, layout.n_segs, k,
+                                              _acc_dtype(t_self.dtype)))
+        seg = out
     if not t_self.is_cuda:
         for b in layout.buckets:
             m = b.rows.shape[0]
@@ -533,16 +551,16 @@ def all_bucket_sums(t_self, t_other, layout: DeviceEll):
         return seg
     if table.device != t_self.device:
         raise ValueError("all_bucket_sums: layout and tables on different devices")
+    _cuda.check(seg, dtype=seg.dtype)
     _cuda.launch("ell_phi_sums_all_bf16" if bf16 else "ell_phi_sums_all", vals_dtype, k,
                  t_self, t_other, table, table.shape[0], blocks, seg, k)
-    if bf16:
-        all_bucket_sums.launches_bf16 += 1
-    else:
-        all_bucket_sums.launches += 1
+    counter = ("launches" if out is None else "launches_offset") + ("_bf16" if bf16 else "")
+    setattr(all_bucket_sums, counter, getattr(all_bucket_sums, counter) + 1)
     return seg
 
 
 all_bucket_sums.launches = all_bucket_sums.launches_bf16 = 0
+all_bucket_sums.launches_offset = all_bucket_sums.launches_offset_bf16 = 0
 
 
 # ---- K2: segment sums to table order ---------------------------------

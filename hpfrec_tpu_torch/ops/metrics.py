@@ -304,14 +304,10 @@ def _rowsum_dot_rows_plain(Theta, Beta, iu, ii) -> float:
     return float(np.float32(torch.dot(Theta[iu.long()].sum(0), Beta[ii.long()].sum(0)).item()))
 
 
-def rowsum_dot_rows(Theta, Beta, iu, ii) -> float:
-    """K11: ``colsum(Theta[iu]) . colsum(Beta[ii])`` (rows counted with
-    multiplicity), rounded to float32 as the JAX function returns it: the
-    final eval's correction on a validation set (reference ``pxi:105``).
-    On the card the column sums are per-block float64 partials, added and
-    dotted on the host in float64."""
-    if not Theta.is_cuda:
-        return _rowsum_dot_rows_plain(Theta, Beta, iu, ii)
+def _rowsum_dot_launch(Theta, Beta, iu, ii, nblocks=None):
+    """The kernel and its device finish over ``_pairs_grid(n)`` (or a
+    larger grid of ``nblocks``, whose blocks past the last pair add
+    nothing): the float64 dot, (1,) on the device."""
     from .. import _cuda
 
     n = iu.shape[0]
@@ -320,14 +316,29 @@ def rowsum_dot_rows(Theta, Beta, iu, ii) -> float:
     _cuda.check(iu, ii, dtype=torch.int32)
     if Beta.shape[1] != k or ii.shape != (n,):
         raise ValueError("rowsum_dot_rows: shape mismatch")
-    if n == 0:
-        return 0.0
-    nblocks = _reduce_blocks(n, 8)
+    Theta, Beta = _aligned(Theta, Beta)
+    per_warp, grid = _pairs_grid(n)
+    nblocks = grid if nblocks is None else nblocks
     partials = torch.empty((nblocks, 2 * k), dtype=torch.float64, device=Theta.device)
-    _cuda.launch("rowsum_dot", Theta.dtype, k, Theta, Beta, iu, ii, partials, n, k, nblocks)
+    out = torch.empty(1, dtype=torch.float64, device=Theta.device)
+    _cuda.launch("rowsum_dot", Theta.dtype, k, Theta, Beta, iu, ii, partials, out, n, k,
+                 per_warp, nblocks)
     rowsum_dot_rows.launches += 1
-    cs = partials.cpu().numpy().sum(0)
-    return float(np.float32(np.dot(cs[:k], cs[k:])))
+    return out
+
+
+def rowsum_dot_rows(Theta, Beta, iu, ii) -> float:
+    """K11: ``colsum(Theta[iu]) . colsum(Beta[ii])`` (rows counted with
+    multiplicity), rounded to float32 as the JAX function returns it: the
+    final eval's correction on a validation set (reference ``pxi:105``).
+    On the card the column sums and the dot are float64 and stay on the
+    device (the kernel's per-block partials, then a launch that adds them
+    and takes the dot); one value is copied back."""
+    if not Theta.is_cuda:
+        return _rowsum_dot_rows_plain(Theta, Beta, iu, ii)
+    if iu.shape[0] == 0:
+        return 0.0
+    return float(np.float32(_rowsum_dot_launch(Theta, Beta, iu, ii).item()))
 
 
 rowsum_dot_rows.launches = 0

@@ -12,9 +12,11 @@ ranks:
   the ring offset ``o = (d - e) % W`` of the opposite shard ``e`` they
   read, their cols local to a sub-tile of that shard
   (:func:`build_sharded_ell`).  At step ``o`` rank ``d`` holds shard
-  ``(d - o) % W``, runs K1 on exactly its offset-``o`` buckets (column base
-  the sub-tile's first row), and passes the shard on to rank ``d + 1``;
-  K2 then reassembles the segments into the rank's rows.  Each shard
+  ``(d - o) % W``, runs K1 once over exactly its offset-``o`` buckets
+  (each with its column base, the sub-tile's first row; one launch from
+  the offset's table of buckets, :func:`rank_share`), and passes the shard
+  on to rank ``d + 1``; K2 then reassembles the segments into the rank's
+  rows.  Each shard
   visits each rank once, and a rank holds at most three shards (its own
   and two buffers), never the whole table.  On NCCL the next shard's
   transfer (``batch_isend_irecv``) runs while K1 reads the present one.
@@ -34,6 +36,13 @@ ranks:
   ``make_table_sharded_metric``): K4 over the rank's users' buckets, the
   Beta shards on the same ring, and K12d's ``gather_partials``.
 
+Sub-tiles.  JAX cuts each shard into sub-tiles of at most a 40 MB gather
+window, a TPU figure.  The window is an argument here
+(``window_bytes``): its default is JAX's, so that the layouts compare bit
+for bit, and a fit takes the card's, :data:`CARD_WINDOW_BYTES`, the fastest
+of the widths measured on an H100 (``chip_smoke.py`` phase 3k (b),
+``scripts/split_k13_k11.py``; PERF.md).
+
 Padding.  Both sides are padded so that each rank's row count is a whole
 number of sub-tiles of the opposite side's plan (:func:`plan_table_sharding`),
 and rows are spread over the ranks by degree (:func:`plan_balanced_rows`).
@@ -45,14 +54,13 @@ tail of its rows (:func:`rank_share` checks it).  A fit reads back only the
 real rows, in their original order (:meth:`TableSharded.gather_rows`).
 
 The host half (planning, balancing, the sharded layouts) is a copy of the
-JAX module's and builds the same layouts bit for bit, on the port's
-``ops.ell.build_ell`` and its copy of the 40 MB sub-tile window (a TPU
-figure, kept so that the layouts compare; the H100's own width is open).
+JAX module's and, at JAX's window, builds the same layouts bit for bit, on
+the port's ``ops.ell.build_ell``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 from typing import NamedTuple, Optional, Tuple
 
@@ -62,21 +70,35 @@ import torch
 from ..models.state import VariationalState
 from ..ops.cavi import Carry, _carry_init, cavi_step_carried, colsum_finish
 from ..ops.ell import (_FAST_GATHER_BYTES, _INT32_MAX, DeviceBucket, DeviceEll, EllBucket,
-                       _acc_dtype, _upload, bucket_phi_sums, build_ell, segment_table_sums)
+                       _acc_dtype, _upload, all_bucket_sums, build_ell, segment_table_sums)
 from ..ops.metrics import bucket_llk_parts
 from .engine import all_gather_rows
 from .mesh import Mesh
 
+# A ``window_bytes`` of UNTILED: one sub-tile a shard, whatever its size.
+UNTILED = 0
+# The sub-tile window of a fit on the card (``HPF`` passes it): untiled.
+# At the MillionSong shape on an H100 (one NCCL rank, and two gloo ranks of
+# one card) untiled shards ran the step fastest, beside JAX's 40 MB and
+# 25 MB, near half the L2: fewer buckets and segments, and no K2 adds of a
+# row's sub-tile segments (chip_smoke.py phase 3k (b),
+# scripts/split_k13_k11.py; PERF.md section 6).
+CARD_WINDOW_BYTES = UNTILED
+
 # ---- host half: copies of the JAX module's planning and packing ------------------
 
 
-def plan_table_sharding(n_rows: int, k: int, ndev: int,
-                        gather_itemsize: int = 4) -> Tuple[int, int, int, int]:
+def plan_table_sharding(n_rows: int, k: int, ndev: int, gather_itemsize: int = 4,
+                        window_bytes: Optional[int] = None) -> Tuple[int, int, int, int]:
     """One side's padded row layout as a gather target: ``(n_padded,
     per_dev, n_sub, chunk)`` with ``per_dev = n_sub * chunk`` rows a rank,
-    ``chunk`` rows of the exp table within the 40 MB window."""
+    ``chunk`` rows of the exp table within ``window_bytes`` (None: JAX's
+    40 MB, this module's ``_FAST_GATHER_BYTES`` as it stands at the call;
+    :data:`UNTILED`: one sub-tile a shard)."""
+    if window_bytes is None:
+        window_bytes = _FAST_GATHER_BYTES
     per0 = -(-n_rows // ndev)
-    c0 = max(1, _FAST_GATHER_BYTES // (k * gather_itemsize))
+    c0 = per0 if window_bytes == UNTILED else max(1, window_bytes // (k * gather_itemsize))
     n_sub = max(1, -(-per0 // c0))
     chunk = -(-per0 // n_sub)
     per = n_sub * chunk
@@ -236,15 +258,16 @@ class TablePlan(NamedTuple):
 
 def prepare_table_sharded(indptr_u, ind_u, dat_u, indptr_i, ind_i, dat_i, n_users, n_items,
                           k, ndev, gather_itemsize, dtype=np.float32, balance=True,
-                          **build_kw) -> TablePlan:
+                          window_bytes: Optional[int] = None, **build_kw) -> TablePlan:
     """Plan and build both sides' sharded layouts (JAX
-    ``prepare_table_sharded``; no environment variable: ``balance`` is an
-    argument).  With ``balance`` and more than one rank, both sides' rows
-    are spread by degree (:func:`plan_balanced_rows`) and each side's cols
-    renumbered through the opposite permutation; else the permutations are
-    the identity."""
-    plan_u = plan_table_sharding(n_users, k, ndev, gather_itemsize)
-    plan_i = plan_table_sharding(n_items, k, ndev, gather_itemsize)
+    ``prepare_table_sharded``; no environment variable: ``balance`` and
+    ``window_bytes``, the sub-tile window of :func:`plan_table_sharding`,
+    JAX's by default, are arguments).  With ``balance`` and more than one
+    rank, both sides' rows are spread by degree (:func:`plan_balanced_rows`)
+    and each side's cols renumbered through the opposite permutation; else
+    the permutations are the identity."""
+    plan_u = plan_table_sharding(n_users, k, ndev, gather_itemsize, window_bytes)
+    plan_i = plan_table_sharding(n_items, k, ndev, gather_itemsize, window_bytes)
     nU_p, nI_p = plan_u[0], plan_i[0]
     ip_u = np.concatenate([indptr_u, np.full(nU_p - n_users, indptr_u[-1])])
     ip_i = np.concatenate([indptr_i, np.full(nI_p - n_items, indptr_i[-1])])
@@ -307,11 +330,15 @@ class RankEll:
     row of the bucket's sub-tile, ``start`` its place in the segment
     order), its ``inv_perm`` and its split rows in K2's convention (-1 for
     an unused position, a per-row ``split_indptr``; JAX's padding entries
-    dropped); ``by_offset[o]`` the buckets read at ring step ``o``;
+    dropped); ``by_offset[o]`` the buckets read at ring step ``o`` and
+    ``offsets[o]`` a view of ``ell`` with only those buckets (the same
+    ``n_segs`` and ``start``s: K1 writes them into the rank's segment sums
+    in one launch, from a table of the buckets cached on the view);
     ``n_real`` the rank's real rows, which come before its padding rows."""
 
     ell: DeviceEll
     by_offset: Tuple[Tuple[int, ...], ...]
+    offsets: Tuple[DeviceEll, ...]
     per_opp: int
     n_real: int
 
@@ -353,8 +380,10 @@ def rank_share(se: ShardedEll, rank: int, device, row_ids: Optional[np.ndarray] 
                     split_seg_pos=_upload(sp, np.int32, device),
                     split_indptr=_upload(split_indptr, np.int32, device),
                     n_rows=per, n_segs=start)
-    return RankEll(ell=ell, by_offset=tuple(tuple(j) for j in by_offset), per_opp=se.per_opp,
-                   n_real=n_real)
+    offsets = tuple(replace(ell, buckets=[buckets[j] for j in js], k1_table=None)
+                    for js in by_offset)
+    return RankEll(ell=ell, by_offset=tuple(tuple(j) for j in by_offset), offsets=offsets,
+                   per_opp=se.per_opp, n_real=n_real)
 
 
 # ---- the ring ------------------------------------------------------------------------
@@ -408,11 +437,12 @@ def ring_table_sums(mesh: Optional[Mesh], t_self, t_other, share: RankEll, out_d
                     shards=None):
     """K13a: the phi sums (per, k) of the rank's rows, with ``t_other``
     (the rank's shard of the opposite exp table) travelling around the ring.
-    At step o, K1 runs over the offset-o buckets against the shard present
-    (``col_off`` = the sub-tile's first row); then K2 reassembles the rank's
-    segments, written in ``out_dtype`` (None: K1's accumulation dtype).
-    ``shards`` (the opposite shards of steps 0 .. W-1) stands in for the
-    ring where the caller holds every rank's shard, as a test does."""
+    At step o, K1 runs once over the offset-o buckets (``share.offsets[o]``)
+    against the shard present, each bucket with its sub-tile's first row as
+    ``col_off``, into the rank's segment sums; then K2 reassembles them,
+    written in ``out_dtype`` (None: K1's accumulation dtype).  ``shards``
+    (the opposite shards of steps 0 .. W-1) stands in for the ring where the
+    caller holds every rank's shard, as a test does."""
     seg = torch.empty((share.ell.n_segs, t_self.shape[1]), dtype=_acc_dtype(t_self.dtype),
                       device=t_self.device)
     steps = shards if shards is not None else ring(mesh, t_other)
@@ -420,10 +450,7 @@ def ring_table_sums(mesh: Optional[Mesh], t_self, t_other, share: RankEll, out_d
         if buf.shape[0] != share.per_opp:
             raise ValueError("ring step %d: a shard of %d rows, the layout reads %d"
                              % (o, buf.shape[0], share.per_opp))
-        for j in share.by_offset[o]:
-            b = share.ell.buckets[j]
-            bucket_phi_sums(t_self, buf, b.rows, b.cols, b.vals, b.col_off,
-                            seg[b.start:b.start + b.rows.shape[0]])
+        all_bucket_sums(t_self, buf, share.offsets[o], out=seg)
     ring_table_sums.launches += 1
     return segment_table_sums(seg, share.ell, out_dtype)
 

@@ -7,13 +7,16 @@ with none), the whole-stream phi sums of the blocked-COO engine (K7c, with
 user runs that start and end everywhere in its 32-slot groups), K1's
 padding from the middle of a 32-slot group, padding-only segments and
 non-positive dots (its one launch a side bit-equal to a launch a bucket),
+its launch a ring offset on the table-sharded layouts (bit-equal to a
+launch a bucket),
 the bfloat16-table forms of K1 and K3, K3's pad-row form (the table-sharded
 engine's), top-n ranking (K6) with ties (across the fused path's item
 ranges too), fully masked rows, rows with fewer unseen items than n and
 every size class of n on both paths, the fused path bit-equal to the
 three-kernel path, the large-n select on crowded, tied and -inf rows
 against a stable sort, the fold-in loop (K10, also from and to host
-arrays as HPF calls it) and the pair reductions (K11).
+arrays as HPF calls it) and the pair reductions (K11; rowsum_dot_rows'
+device finish also over blocks past the last pair).
 
 The ``gpu`` tests skip without a CUDA device; the card runs them with
 ``python -m pytest tests/test_torch_kernels.py -q --noconftest``
@@ -917,6 +920,67 @@ def test_ell_phi_sums_padding_and_nonpositive_dots(cuda, dtype, table, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ndev", [2, 3])
+@pytest.mark.parametrize("window", ["jax", "card", "4 rows"])
+@pytest.mark.parametrize("dtype,table", [(torch.float32, None), (torch.float64, None),
+                                         (torch.float32, torch.bfloat16)],
+                         ids=["float32", "float64", "bf16-float32"])
+def test_k1_a_ring_offset_a_launch_equals_a_bucket_a_launch(cuda, dtype, table, window, ndev):
+    """K1 as the table-sharded ring runs it (``all_bucket_sums`` over a
+    ring offset's view, into the rank's segment sums: one launch an
+    offset) against one launch a bucket (``bucket_phi_sums``) on every
+    rank's share of both sides' sharded layouts, with JAX's window, the
+    card's and a 4-row window (several sub-tiles a shard): the same bits,
+    within TOL of the plain version, the same bits on a rerun, and one
+    launch counted an offset that has buckets."""
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.parallel import table_sharded as T
+    from hpfrec_tpu_torch.utils.data import build_csr
+
+    nU, nI, k = 300, 120, 50
+    y, iu, ii = _counts(nU, nI, 4000, seed=9)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    itemsize = 2 if table is not None else np.dtype(npdt).itemsize
+    window_bytes = {"jax": None, "card": T.CARD_WINDOW_BYTES, "4 rows": 4 * k * itemsize}[window]
+    plan = T.prepare_table_sharded(*build_csr(iu, ii, y.astype(npdt), nU, nI),
+                                   *build_csr(ii, iu, y.astype(npdt), nI, nU), nU, nI, k, ndev,
+                                   itemsize, dtype=npdt, max_width=16, window_bytes=window_bytes)
+    assert (plan.plan_u[2] > 1) == (window == "4 rows")
+    counter = "launches_offset" + ("_bf16" if table is not None else "")
+    for side, se in enumerate((plan.se_u, plan.se_i)):
+        own = _tables(se.rows_per_dev, k, dtype, cuda, 1 + side)
+        shard = _tables(se.per_opp, k, dtype, cuda, 3 + side)
+        if table is not None:
+            own, shard = own.to(table), shard.to(table)
+        acc = E._acc_dtype(own.dtype)
+        for d in range(ndev):
+            share = T.rank_share(se, d, cuda)
+
+            def per_offset():
+                out = torch.full((share.ell.n_segs, k), float("nan"), dtype=acc, device=cuda)
+                for view in share.offsets:
+                    E.all_bucket_sums(own, shard, view, out=out)
+                return out
+
+            before = getattr(E.all_bucket_sums, counter)
+            got = per_offset()
+            assert getattr(E.all_bucket_sums, counter) - before == sum(
+                any(b.rows.shape[0] for b in v.buckets) for v in share.offsets)
+            one = torch.full_like(got, float("nan"))
+            for js in share.by_offset:
+                for j in js:
+                    b = share.ell.buckets[j]
+                    E.bucket_phi_sums(own, shard, b.rows, b.cols, b.vals, b.col_off,
+                                      one[b.start:b.start + b.rows.shape[0]])
+            plain = torch.cat([E._bucket_phi_sums_plain(own, shard, b.rows, b.cols, b.vals,
+                                                        b.col_off) for b in share.ell.buckets])
+            torch.cuda.synchronize()
+            assert torch.equal(got, one)  # every segment written, the same bits
+            torch.testing.assert_close(got, plain, **TOL[acc])
+            assert torch.equal(per_offset(), got)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,chunk,k", CASES)
 def test_ell_phi_sums_bf16_kernel_vs_plain(cuda, dtype, chunk, k):
     """K1 on bfloat16 tables (vals in the state dtype): float32 sums; K2
@@ -1037,7 +1101,8 @@ def test_launch_counters_stay_zero_on_cpu():
                 M.rowsum_dot_rows, C.coo_phi_sums, C.colsum_finish]
     counts = lambda: [(w.launches, getattr(w, "launches_bf16", 0),  # noqa: E731
                        getattr(w, "launches_pad", 0), getattr(w, "launches_pad_bf16", 0),
-                       getattr(w, "launches_large", 0))
+                       getattr(w, "launches_large", 0), getattr(w, "launches_offset", 0),
+                       getattr(w, "launches_offset_bf16", 0))
                       for w in wrappers]
     before = counts()
     y, iu, ii = _counts(40, 30, 300, seed=3)
@@ -1045,6 +1110,8 @@ def test_launch_counters_stay_zero_on_cpu():
     t = _tables(40, 5, torch.float32, "cpu", 1)
     b = _tables(30, 5, torch.float32, "cpu", 2)
     su = E.ell_phi_sums(t, b, lay)
+    E.all_bucket_sums(t, b, lay, out=torch.empty((lay.n_segs, 5)))
+    E.all_bucket_sums(t.bfloat16(), b.bfloat16(), lay, out=torch.empty((lay.n_segs, 5)))
     C.side_update(su, t[:, :1], b[:1], 0.3, 1.8, 0.3)
     C.side_derive(t, t + 1)
     C.side_derive(t, t + 1, torch.bfloat16)
@@ -1594,6 +1661,42 @@ def test_pair_ops_kernels_vs_plain(cuda, dtype, k, n):
     d = M.theta_diff_norm(th2, th)
     np.testing.assert_allclose(d, float(torch.linalg.norm((th2 - th).double())), rtol=rt)
     assert M.theta_diff_norm(th2, th) == d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 7, 50, 64, 128, 256])
+@pytest.mark.parametrize("n", [1, 7, 257, 5003, 387_525])
+def test_rowsum_dot_rows_vs_plain(cuda, dtype, k, n):
+    """rowsum_dot_rows' kernel and device finish at every lane split and
+    at grids from one block to the held-out set's 387,525 pairs: the
+    float64 dot within 1e-6 (float32 tables) / 1e-12 (float64) of the plain
+    float64 dot, the value returned its float32 rounding, the same bits on a
+    rerun; with a grid of more blocks than the pairs need, the finish adds
+    the empty blocks' zero rows (the same bits where the pairs fill one
+    block)."""
+    from hpfrec_tpu_torch.ops import metrics as M
+
+    rng = np.random.default_rng(n * 11 + k)
+    th = _tables(3000, k, dtype, cuda, 6) / k
+    be = _tables(2000, k, dtype, cuda, 7)
+    iu = torch.from_numpy(rng.integers(0, 3000, n).astype(np.int32)).to(cuda)
+    ii = torch.from_numpy(rng.integers(0, 2000, n).astype(np.int32)).to(cuda)
+    rtol = 1e-6 if dtype == torch.float32 else 1e-12
+    dot = M._rowsum_dot_launch(th, be, iu, ii)
+    assert dot.shape == (1,) and dot.dtype == torch.float64
+    ref = float(torch.dot(th[iu.long()].double().sum(0), be[ii.long()].double().sum(0)))
+    np.testing.assert_allclose(dot.item(), ref, rtol=rtol)
+    r = M.rowsum_dot_rows(th, be, iu, ii)
+    assert r == float(np.float32(dot.item()))
+    np.testing.assert_allclose(r, ref, rtol=1e-6)
+    assert M.rowsum_dot_rows(th, be, iu, ii) == r
+    assert torch.equal(M._rowsum_dot_launch(th, be, iu, ii), dot)
+    _, grid = M._pairs_grid(n)
+    spare = M._rowsum_dot_launch(th, be, iu, ii, nblocks=grid + 63)
+    if grid == 1:
+        assert torch.equal(spare, dot)
+    np.testing.assert_allclose(spare.item(), ref, rtol=rtol)
 
 
 @pytest.mark.gpu

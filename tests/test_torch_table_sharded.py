@@ -4,12 +4,13 @@ K13) on the CPU.
 - The host half builds the JAX package's plans, balanced permutations and
   sharded layouts bit for bit, for 2 and 4 ranks, balanced and contiguous,
   with the 40 MB sub-tile window and with a window of 4 rows (several
-  sub-tiles a shard) and split rows.
-- Each rank's half of K13a (K1 per ring offset, then K2) and of K13c (K4
-  per ring offset), run for every rank in one process with the ring's
+  sub-tiles a shard) and split rows; without a window argument the plan
+  takes JAX's window, as the module's ``_FAST_GATHER_BYTES`` stands.
+- Each rank's half of K13a (K1 once a ring offset, then K2) and of K13c
+  (K4 per ring offset), run for every rank in one process with the ring's
   shards handed in, equals the one-device E-step and train-llk partials
-  (float64, 1e-12: the sums run in other orders); padding rows come out
-  exactly 0.
+  (float64, 1e-12: the sums run in other orders), with the 4-row window
+  and with untiled shards; padding rows come out exactly 0.
 - K3's pad-row form: the real rows as the plain update gives them, the
   padding rows' scaler 0, mean and exp table +0.0, the colsum that of the
   real rows.
@@ -30,7 +31,9 @@ K13) on the CPU.
   sharding (measured 2.9e-15): JAX's table-sharded val-llk reads its
   padded, permuted rows by the original ids (JAX ``hpf.py:801-805``), and
   the test shows that JAX figure off by more than 1e-3 (-325.3 / -359.4
-  against -313.6 / -368.0).
+  against -313.6 / -368.0).  ``HPF`` plans with the card's window
+  (``CARD_WINDOW_BYTES``), and its two-rank fit agrees with JAX's on JAX's
+  sub-tiled layouts (a 4-row window) at the float64 limits.
 """
 
 import os
@@ -120,16 +123,24 @@ def _padded(real, slot, n_padded):
     return out
 
 
-@pytest.mark.parametrize("ndev", [2, 3])
-def test_rank_halves_match_the_one_device_sums(monkeypatch, ndev):
+# the 4-row window (several sub-tiles a shard), and untiled shards (the
+# card's window)
+HALVES = [(2, SMALL_WINDOW), (3, SMALL_WINDOW), (2, 0), (3, 0)]
+
+
+@pytest.mark.parametrize("ndev,window", HALVES, ids=["2", "3", "2-untiled", "3-untiled"])
+def test_rank_halves_match_the_one_device_sums(monkeypatch, ndev, window):
     from hpfrec_tpu_torch.ops import ell as E
     from hpfrec_tpu_torch.ops import metrics as M
     from hpfrec_tpu_torch.parallel import table_sharded as T
 
+    assert T.UNTILED == 0
     monkeypatch.setattr(T, "_FAST_GATHER_BYTES", SMALL_WINDOW)
     csr_u, csr_i = _both_csr(np.float64)
     plan = T.prepare_table_sharded(*csr_u, *csr_i, 83, 45, 6, ndev, 4, dtype=np.float64,
-                                   max_width=16)
+                                   max_width=16, window_bytes=window)
+    n_sub = (plan.plan_u[2], plan.plan_i[2])
+    assert (n_sub == (1, 1)) == (window == T.UNTILED)
     rng = np.random.default_rng(7)
     t_real, b_real = (torch.from_numpy(rng.random((n, 6)) + 0.1) for n in (83, 45))
     slot_u, slot_i = (np.argsort(p, kind="stable")[:n]
@@ -150,6 +161,9 @@ def test_rank_halves_match_the_one_device_sums(monkeypatch, ndev):
             E.build_ell(*csr, n, max_width=16, dtype=np.float64), "cpu"))
         np.testing.assert_allclose(got[torch.from_numpy(slot)].numpy(), whole.numpy(),
                                    rtol=1e-12)
+        # one K1 call a ring offset, each writing only its buckets' segments
+        assert [len(v.buckets) for v in shares[0].offsets] == [
+            len(js) for js in shares[0].by_offset]
         pad = np.setdiff1d(np.arange(got.shape[0]), slot)
         assert torch.equal(got[pad], torch.zeros_like(got[pad]))
 
@@ -164,6 +178,25 @@ def test_rank_halves_match_the_one_device_sums(monkeypatch, ndev):
     whole = M.ell_llk_rmse_sums(t_real, b_real, E.to_device(
         E.build_ell(*csr_u, 83, max_width=16, dtype=np.float64), "cpu"))
     np.testing.assert_allclose(parts.sum(0).numpy(), whole.sum(0).numpy(), rtol=1e-12)
+
+
+def test_prepare_keeps_jax_window_by_default(monkeypatch):
+    """Without ``window_bytes`` the plan takes JAX's window as the module's
+    ``_FAST_GATHER_BYTES`` stands at the call (so that the layouts compare
+    with JAX's); ``window_bytes=UNTILED`` gives one sub-tile a shard."""
+    from hpfrec_tpu_torch.parallel import table_sharded as T
+
+    assert T.plan_table_sharding(1_000_000, 50, 2) == T.plan_table_sharding(
+        1_000_000, 50, 2, 4, 40 * 1024 * 1024)
+    assert T.plan_table_sharding(1_000_000, 50, 2)[2] == 3
+    assert T.plan_table_sharding(1_000_000, 50, 2, 4, T.UNTILED) == (1_000_000, 500_000, 1,
+                                                                     500_000)
+    monkeypatch.setattr(T, "_FAST_GATHER_BYTES", SMALL_WINDOW)
+    csr_u, csr_i = _both_csr(np.float32)
+    plan = T.prepare_table_sharded(*csr_u, *csr_i, 83, 45, 6, 2, 4)
+    assert (plan.plan_u, plan.plan_i) == tuple(
+        T.plan_table_sharding(n, 6, 2, 4, SMALL_WINDOW) for n in (83, 45))
+    assert plan.plan_u[2] > 1 and plan.plan_i[2] > 1
 
 
 def test_padding_rows_must_be_a_tail():
@@ -281,9 +314,28 @@ def _fit(cls, mode, dtype, **extra):
 
 
 def _port_fit(mode, dtype, mesh=None):
+    """The port's fit of ``mode``; "window" is the "train" fit with JAX's
+    window narrowed to ``SMALL_WINDOW`` (the default of
+    ``prepare_table_sharded``), which also returns the sub-tiles a shard
+    (``n_sub``) of the plan that ``HPF`` built."""
     from hpfrec_tpu_torch import HPF
+    from hpfrec_tpu_torch.parallel import table_sharded as T
 
-    return _fit(HPF, mode, dtype, device="cpu", mesh=mesh)
+    if mode != "window":
+        return _fit(HPF, mode, dtype, device="cpu", mesh=mesh)
+    plans, prepare, window = [], T.prepare_table_sharded, T._FAST_GATHER_BYTES
+
+    def recording(*args, **kwargs):
+        plans.append(prepare(*args, **kwargs))
+        return plans[-1]
+
+    T.prepare_table_sharded, T._FAST_GATHER_BYTES = recording, SMALL_WINDOW
+    try:
+        out = _fit(HPF, "train", dtype, device="cpu", mesh=mesh)
+    finally:
+        T.prepare_table_sharded, T._FAST_GATHER_BYTES = prepare, window
+    out["n_sub"] = np.array([plans[0].plan_u[2], plans[0].plan_i[2]])
+    return out
 
 
 def _jax_fit(mode, dtype, shard_tables=True):
@@ -328,3 +380,30 @@ def test_two_rank_table_sharded_fit(tmp_path, monkeypatch, mode, dtype):
                                           err_msg=name)
         for name in STATE:
             np.testing.assert_array_equal(r0[name], r0["whole_" + name], err_msg=name)
+
+
+def test_two_rank_fit_takes_the_card_window(tmp_path, monkeypatch):
+    """``HPF(shard_tables=True)`` plans with the card's window
+    (``CARD_WINDOW_BYTES``: its sub-tiles a shard, not the default's), and
+    the two-rank gloo fit agrees with JAX's two-device fit on JAX's
+    sub-tiled layouts (its window narrowed to ``SMALL_WINDOW``) within the
+    float64 ``JAX_TOL``: the sub-tiles change only the order of the adds."""
+    from hpfrec_tpu.parallel import table_sharded as J
+    from hpfrec_tpu_torch.parallel import table_sharded as T
+
+    r0, r1 = _two_ranks(tmp_path, "window", np.float64, module="test_torch_table_sharded")
+    for name in r0:
+        np.testing.assert_array_equal(r0[name], r1[name], err_msg=name)  # ranks bit-equal
+    monkeypatch.setattr(T, "_FAST_GATHER_BYTES", SMALL_WINDOW)
+    card = [T.plan_table_sharding(n, 6, 2, 8, T.CARD_WINDOW_BYTES)[2] for n in (83, 45)]
+    default = [T.plan_table_sharding(n, 6, 2, 8)[2] for n in (83, 45)]
+    assert list(r0["n_sub"]) == card and card != default
+
+    monkeypatch.setattr(J, "FAST_GATHER_BYTES", SMALL_WINDOW)
+    assert min(J.plan_table_sharding(n, 6, 2, 8)[2] for n in (83, 45)) > 1  # JAX sub-tiled
+    ref = _jax_fit("train", np.float64)
+    tol = JAX_TOL[np.float64]
+    assert int(r0["niter"]) == int(ref["niter"])
+    np.testing.assert_allclose(r0["llk"], ref["llk"], rtol=tol["llk"])
+    for name in STATE:
+        np.testing.assert_allclose(r0[name], ref[name], rtol=tol["factors"], err_msg=name)
