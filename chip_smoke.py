@@ -6,7 +6,10 @@ Phases (each prints its lines; any failure propagates and the script exits
 non-zero, with no result line):
 
 1. device and build: the card (nvidia-smi name and power limit), the
-   kernel build from csrc/ and whether the native host helpers loaded;
+   kernel build from csrc/ and the native host helpers: their thread
+   runtime (OpenMP on PyTorch's own runtime, else std::thread), threads a
+   loop, nproc, the OpenMP library, the flags and why a preferred route
+   failed; the phase fails if they loaded single-threaded;
 2. kernel checks: each CUDA kernel against its plain PyTorch version on
    the card, float32 and float64, k=50, on a ~1M-nonzero power-law data
    set: the full-batch kernels over its ELL layouts, the SVI kernels over
@@ -17,7 +20,10 @@ non-zero, with no result line):
 3. the full-batch path at the MillionSong TasteProfile shape (1,019,318
    users x 376,768 items, 38.7M nonzeros, k=50, float32; data made here
    from a seed): ``HPF(...).fit`` with train-llk checks, launch counters,
-   then ``topN`` and ``predict``; then every full-batch kernel checked and
+   a digest of the fitted state, the same fit with the native helpers on
+   one thread and on every core (reindex, host_pack, transfer of each; the
+   factors bit-equal), then ``topN`` and ``predict``; then every full-batch
+   kernel checked and
    timed against its plain version at the shapes of that fit, and the
    kernels' digamma against scipy's (and the stepwise form it replaced)
    on a log sweep of [1e-4, 1e7] and on the fit's shapes;
@@ -111,6 +117,22 @@ non-zero, with no result line):
    phase 2's data set, float32 and float64; (d) with two or more cards,
    (a) over NCCL on every card (``--ts-cards`` runs (d) alone, with the
    one-device fits it is held against);
+3l. the north star (``example/northstar_e2e_torch.py``'s
+   ``run_northstar`` with its defaults: 48,373,586 rows with repeated
+   (user, item) pairs, 1,019,318 users x 376,768 items, split 80/20, k=30,
+   float32, val-llk every 10 with stop_thr 1e-3, maxiter 150): the
+   iteration it stopped at, the val llk at each check, s/iteration, the
+   ``fit_stats_`` phases, nonzero-updates/s, the launches of K1-K5 (path
+   ``ns``); ``evaluate`` on 20,000 held-out users (finite, ROC-AUC > 0.5,
+   lift > 1); then K1-K4 (``kernel_suite``), K5 over the 9.67M-row
+   validation set (also against its float64 sums), K6 (n=10, one 1,024-user
+   chunk), K10 and K11 (4M held-out pairs, the held-out set) checked and
+   timed against their plain versions at k=30 on the fit's shapes and state;
+3m. quality parity at the ml100k shape
+   (``scripts/quality_oracle_parity_torch.py``: the port on the card against
+   ``tests/oracle.py``'s ``OracleHPF`` on the host, from the same init;
+   fails on any of its limits), then ``example/quickstart_torch.py``'s
+   ``main()`` on the card;
 4. agreement and determinism at a small size, full batch and alternating
    SVI with val-llk, the COO engine in full batch and SVI, the ELL engine
    with bfloat16 tables: two card fits are bit-identical, and the card
@@ -121,7 +143,8 @@ non-zero, with no result line):
    ``save_folder`` export, and a ``profile_dir`` trace that names a port
    kernel;
 5. a JSON line of the kernels (time, plain version's time, bound, launches
-   on the main paths, in all and by path), and the result line.
+   on the main paths, in all and by path; ``k30``: the same figures from
+   phase 3l), and the result line.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
@@ -2351,6 +2374,157 @@ def ts_halves_check(small, dev):
               % (name, "; ".join("%s %.3e %.3e" % (k, *v) for k, v in one.items())))
 
 
+# -- 3l / 3m. the north star and quality parity ------------------------------
+# the kernels of the north-star fit (full-batch ELL, val-llk checks by K5;
+# K4 runs only where a train-llk check would) and those it must launch
+NS_KERNELS = ("ell_phi_sums", "segment_table_sums", "table_update", "table_derive",
+              "ell_llk", "coo_llk")
+NS_LAUNCHED = ("ell_phi_sums", "segment_table_sums", "table_update", "table_derive",
+               "coo_llk")
+# pairs of one predict_pairs call as the evaluation makes them
+# (utils.evaluation._score_pairs' chunk)
+EVAL_CHUNK = 4_000_000
+
+
+def load_twin(relpath):
+    """One of the port's twins of the JAX repo's examples and scripts, from
+    its path in this checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath)
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_3l(counters):
+    """The north star at full width through ``run_northstar`` with its
+    defaults (48,373,586 rows split 80/20, k=30, float32, val-llk every 10,
+    stop_thr 1e-3, maxiter 150, ncores=-1): its stop, checks, phases and
+    launches; ``evaluate`` on 20,000 held-out users; then K1-K6 and K11
+    against their plain versions at k=30 on the fit's shapes and state.
+    Returns (launches, {kernel name: result at k=30})."""
+    import torch
+
+    from hpfrec_tpu_torch.models.state import state_from_numpy
+    from hpfrec_tpu_torch.ops import metrics as M
+    from hpfrec_tpu_torch.ops.cavi import device_blocked_coo
+    from hpfrec_tpu_torch.ops.ell import build_layouts, layout_slots, to_device
+    from hpfrec_tpu_torch.utils.data import process_data, process_valset
+    from hpfrec_tpu_torch.utils.evaluation import evaluate
+
+    ns = load_twin("example/northstar_e2e_torch.py")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    train, val = ns.split_80_20(*ns.synth_tasteprofile())
+    print("[3l] data: %d rows (%d users x %d items, Zipf items, repeated pairs), train %d, "
+          "val %d, generated in %.1f s"
+          % (ns.N_ROWS, ns.N_USERS, ns.N_ITEMS, len(train), len(val),
+             time.perf_counter() - t0))
+    reset_counters(counters)
+    model, checks, st, wall, _ = ns.run_northstar(data=(train, val), verbose=False)
+    launches = read_counters(counters)
+    iters = model.niter + 1
+    stopped = iters < model.maxiter
+    print("[3l] fit: k=%d, %s, %s every %d, stop_thr %g, maxiter %d, ncores %d: %d iterations, "
+          "%s" % (model.k, model._dtype.__name__, model.stop_crit, model.check_every,
+                  model.stop_thr, model.maxiter, model.ncores, iters,
+                  "stopped by the val-llk criterion" if stopped else
+                  "reached maxiter WITHOUT the val-llk stop"))
+    print("[3l] val llk at the checks (iteration, llk):", json.dumps(checks))
+    print("[3l] fit phases (s):", json.dumps({k: round(v, 4) for k, v in st.phases.items()}))
+    print("[3l] wall %.3f s (fit_stats_ %.3f), %.5f s/iteration (iterations phase), %.4g "
+          "nonzero-updates/s over the iterations, %.4g end to end"
+          % (wall, st.wall_seconds, st.phases["iterations"] / iters,
+             st.nnz * iters / st.phases["iterations"], st.nnz_per_second))
+    print("[3l] launches of K1-K5 (path ns):",
+          json.dumps({n: launches[n] for n in NS_KERNELS}))
+    llk = np.array([v for _, v in checks])
+    if not (len(llk) and np.all(np.isfinite(llk))):
+        raise AssertionError(f"north-star val llk not finite: {checks}")
+    if min(launches[n] for n in NS_LAUNCHED) <= 0:
+        raise AssertionError(f"a kernel of the north-star path never launched: {launches}")
+
+    t0 = time.perf_counter()
+    ev = evaluate(model, val, k=10, exclude_seen=True, rank_users=20_000)
+    print("[3l] evaluate on the held-out split (k=10, 20,000 ranked users; %.1f s): %s"
+          % (time.perf_counter() - t0, json.dumps({k: float(v) for k, v in ev.items()})))
+    if not (all(np.isfinite(float(v)) for v in ev.values()) and ev["roc_auc"] > 0.5
+            and ev["lift"] > 1):
+        raise AssertionError(f"north-star quality: {ev}")
+
+    # the fit's layouts (the same reindex) and its fitted state
+    pdata = process_data(train, "val-llk", True, np.float32)
+    if not (np.array_equal(pdata.user_mapping, model.user_mapping_)
+            and np.array_equal(pdata.item_mapping, model.item_mapping_)):
+        raise AssertionError("the rebuilt layouts index the users or items otherwise")
+    host_u, host_i = build_layouts(pdata, np.float32)
+    slots = layout_slots(host_u) + layout_slots(host_i)
+    lay_u, lay_i = to_device(host_u, dev), to_device(host_i, dev)
+    fitted = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
+                               model.Lambda_rte, model.k_rte, model.t_rte], dev)
+    print("[3l] kernel checks at k=%d on the fit's shapes and state (float32, %d slots; times "
+          "per iteration, both sides; ell_llk per check)" % (model.k, slots))
+    real = kernel_suite(lay_u, lay_i, fitted, "float32", reps=3)
+    del lay_u, lay_i, host_u, host_i, fitted
+
+    vy, viu, vii = process_valset(val, "val-llk", True, model.user_mapping_,
+                                  model.item_mapping_, model.nusers, model.nitems, np.float32)
+    vdata = device_blocked_coo(vy, viu, vii, dev)[0]
+    Theta, Beta = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in (model.Theta, model.Beta))
+    real.update(run_cases({"coo_llk": coo_llk_case(Theta, Beta, vdata)}, "float32", 3,
+                          ", the validation set (%d triplets)" % len(vy)))
+    # K5's (ll, se, sp) against the float64 sums of the same triplets
+    iu, ii = (torch.from_numpy(a).to(dev) for a in (viu, vii))
+    ref64 = M._coo_llk_plain(Theta.double(), Beta.double(),
+                             torch.from_numpy(vy).to(dev, torch.float64), iu, ii, False)[0]
+    got = M.llk_rmse_sums(Theta, Beta, vdata).sum(0)
+    err_abs, err_rel = compare("coo_llk vs float64", got, ref64, "float32")
+    print("  %-20s float32, the validation set: (ll, se, sp) %s against the float64 sums %s: "
+          "max abs %.3e, max rel %.3e" % ("coo_llk", got.tolist(), ref64.tolist(), err_abs,
+                                          err_rel))
+    real["coo_llk"]["max_rel_err_f64"] = err_rel
+    del vdata, iu, ii, Theta, Beta
+
+    # K6 on one 1,024-user chunk at n=10 (and K10, K11) on the fit's tables
+    counts = np.bincount(pdata.ix_u, minlength=model.nusers)
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    hist = [(pdata.ix_i[indptr[u]:indptr[u + 1]], pdata.y[indptr[u]:indptr[u + 1]])
+            for u in (int(np.argmax(counts)), int(np.argmin(np.abs(counts - 10))))]
+    print("[3l] serving kernels at k=%d on the fit's tables: one 1,024-user chunk at n=10, "
+          "the fold-in of the heaviest user and the user nearest 10 items, %d of the held-out "
+          "pairs (one evaluation call), the held-out set's %d" % (model.k, EVAL_CHUNK, len(vy)))
+    serving, _ = serving_suite(model, np.arange(1024), (model._st_ix_user, model.seen,
+                                                        model._n_seen_by_user), (10,), hist,
+                               (viu[:EVAL_CHUNK], vii[:EVAL_CHUNK]), (viu, vii), "float32",
+                               reps=3, label=" (k=30)")
+    real.update(serving)
+    return launches, real
+
+
+def phase_3m():
+    """Quality parity at the ml100k shape (``quality_oracle_parity_torch``'s
+    function under its limits), then ``quickstart_torch.main()`` on the card."""
+    import torch
+
+    pq = load_twin("scripts/quality_oracle_parity_torch.py")
+    cfg = pq.SCALES["ml100k"]
+    res = pq.run_parity(**cfg, device="cuda")
+    failed = pq.report("ml100k", cfg, res, torch.cuda.get_device_name(0))
+    if failed:
+        raise AssertionError(f"quality parity with the oracle failed: {failed}")
+    qs = load_twin("example/quickstart_torch.py")
+    t0 = time.perf_counter()
+    model = qs.main([])
+    if not (model.is_fitted and model._torch_device().type == "cuda"):
+        raise AssertionError("the quickstart did not fit on the card")
+    print("[3m] quickstart_torch.main() ran to its end on the card in %.1f s"
+          % (time.perf_counter() - t0))
+
+
 def main():
     import torch
 
@@ -2388,9 +2562,15 @@ def main():
     t0 = time.perf_counter()
     _cuda.load()
     print("[1] kernels built/loaded in %.1f s" % (time.perf_counter() - t0))
-    print("[1] native host helpers loaded:", _native.available(),
-          "with OpenMP" if _native.get() else "without OpenMP",
-          "" if _native.available() else "(%s)" % _native.load_error())
+    built = _native.build_info()
+    if built is None:
+        raise AssertionError("the native host helpers did not load: %s" % _native.load_error())
+    print("[1] native host helpers: runtime %s, %d threads a loop (nproc %d, %d CPUs usable); "
+          "OpenMP library %s; flags %s; routes passed over: %s"
+          % (built.runtime, _native.num_threads(), os.cpu_count(), len(os.sched_getaffinity(0)),
+             built.omp_lib, " ".join(built.flags), json.dumps(built.passed_over)))
+    if not _native.get() or _native.num_threads() < 2:
+        raise AssertionError("the native host helpers loaded single-threaded on this machine")
 
     # -- 2. kernel checks at ~1M nonzeros, k=50, f32 and f64 ---------------
     stamp("phase 2")
@@ -2468,6 +2648,22 @@ def main():
     if pred.shape != (3,) or not np.all(np.isfinite(pred)) or np.any(pred < 0):
         raise AssertionError(f"predict gave {pred}")
     print("[3] predict(users %s, items [0, 7, 100]):" % users, pred.tolist())
+    print("[3] digests of the fitted state:", json.dumps(array_digests(model)))
+    # the host phases of the same fit with the helpers on one thread and on
+    # every core (HPF's default ncores=-1), in turns; the factors bit-equal
+    phases = {"default (the fit above)": st.phases}
+    for label, ncores in (("ncores=1", 1), ("ncores=1 again", 1), ("default again", -1)):
+        m = HPF(k=K, stop_crit="train-llk", check_every=5, maxiter=10, random_seed=1,
+                device="cuda", ncores=ncores, verbose=False)
+        m.fit(coo)
+        phases[label] = m.fit_stats_.phases
+        if not (np.array_equal(m.Theta, model.Theta) and np.array_equal(m.Beta, model.Beta)):
+            raise AssertionError(f"phase 3's fit with {label} differs from the first in bits")
+        del m
+    print("[3] host phases by native thread count (s; %d threads by default), factors "
+          "bit-equal: %s" % (os.cpu_count(), json.dumps(
+              {label: {p: round(ph[p], 4) for p in ("reindex", "host_pack", "transfer")}
+               for label, ph in phases.items()})))
     ell_fit = dict(llk=list(model.llk_trace), niter=model.niter,
                    s_per_it=st.phases["iterations"] / iters,
                    arrays={n: getattr(model, n) for n in STATE_NAMES})
@@ -2941,6 +3137,15 @@ def main():
         shutil.rmtree(data_root, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # -- 3l. the north star at full width -------------------------------------
+    stamp("phase 3l")
+    launches_ns, ns_real = phase_3l(counters)
+    torch.cuda.empty_cache()
+
+    # -- 3m. quality parity at the ml100k shape, the quickstart ---------------
+    stamp("phase 3m")
+    phase_3m()
+
     # -- 4. agreement and determinism at a small size -----------------------
     stamp("phase 4")
     small = counts_coo(120, 80, 2000, seed=42)
@@ -3002,7 +3207,7 @@ def main():
              "svi_maxiter_val": launches_mv, "serving": launches_serving,
              "online": launches_online, "coo": launches_coo, "bf16": launches_bf16,
              "resume": launches_resume, "dp": launches_dp, "dp_gloo": launches_dp_gloo,
-             "ts": launches_ts}
+             "ts": launches_ts, "ns": launches_ns}
     if launches_ts_cards is not None:
         paths["ts_cards"] = launches_ts_cards
     for name, r in real.items():
@@ -3014,7 +3219,10 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "bytes": r["bytes"], "ops": r["ops"],
-                        **{key: r[key] for key in ("coo_train_stream",) if key in r}})
+                        **{key: r[key] for key in ("coo_train_stream",) if key in r},
+                        **({"k30": {key: ns_real[name][key] for key in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "bytes", "ops")}} if name in ns_real else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 ELL fill, in-row column sort, integer factorize).
 
 The library is built on first use from ``csr_ops.cpp`` beside this file
-(see ``build.py``).  If no toolchain is present, ``available()`` is False and
+(see ``build.py``), threaded by OpenMP (PyTorch's own runtime) or by
+``std::thread``; ``build_info()`` says which, and ``num_threads()`` how
+many a loop runs.  If no toolchain is present, ``available()`` is False and
 each function raises; the data layer then takes its numpy path, which
 gives the same arrays, only slower.
 """
@@ -16,14 +18,17 @@ import numpy as np
 
 _lib = None
 _load_error: Exception | None = None
+_build = None  # build.NativeBuild of the loaded library
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 
 
 def _declare(lib):
-    lib.has_openmp.argtypes = []
-    lib.has_openmp.restype = ctypes.c_int
+    lib.threads_runtime.argtypes = []
+    lib.threads_runtime.restype = ctypes.c_int
+    lib.num_threads.argtypes = []
+    lib.num_threads.restype = ctypes.c_int
     lib.set_num_threads.argtypes = [ctypes.c_int]
     lib.set_num_threads.restype = None
     lib.gather_starts.argtypes = [_P, _P, _I64, _P]
@@ -42,15 +47,16 @@ def _declare(lib):
 
 
 def _load():
-    global _lib, _load_error
+    global _lib, _load_error, _build
     if _lib is not None or _load_error is not None:
         return _lib
     try:
         from .build import build_native
 
-        lib = ctypes.CDLL(build_native())
+        built = build_native()
+        lib = ctypes.CDLL(built.path)
         _declare(lib)
-        _lib = lib
+        _lib, _build = lib, built
     except (OSError, RuntimeError, subprocess.SubprocessError) as e:
         _load_error = e
     return _lib
@@ -67,12 +73,30 @@ def load_error():
 
 
 def get() -> int:
-    """1 if the library was built with OpenMP, 0 otherwise."""
+    """1 if the library runs its loops on threads (OpenMP or
+    ``std::thread``), 0 if it was built serial or did not load."""
     lib = _load()
-    return int(lib.has_openmp()) if lib is not None else 0
+    return int(lib.threads_runtime() != 0) if lib is not None else 0
+
+
+def build_info():
+    """The loaded library's ``build.NativeBuild`` (path, thread runtime,
+    flags, the OpenMP library linked, and why a preferred route failed), or
+    None when it did not load."""
+    _load()
+    return _build
+
+
+def num_threads() -> int:
+    """Threads a parallel loop of the library runs (0 if it did not load)."""
+    lib = _load()
+    return int(lib.num_threads()) if lib is not None else 0
 
 
 def set_num_threads(n: int) -> None:
+    """Threads of every later parallel loop; n <= 0 restores the runtime's
+    default.  Kept by the library, so PyTorch's own OpenMP threads are
+    untouched."""
     lib = _load()
     if lib is not None:
         lib.set_num_threads(int(n))

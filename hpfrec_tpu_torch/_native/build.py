@@ -4,8 +4,15 @@ The C++ source is the port's own ``csr_ops.cpp`` beside this file: a
 framework-free copy of the JAX package's host kernels (CSR build, ELL
 fill, in-row column sort, integer factorize), so that the port builds from
 nothing outside its own package.  Flags are probed as in the JAX package's
-builder (``-march=native``, OpenMP spellings), and the library is cached
-under a hash of the source and the flags in the port's build directory.
+build script (``-march=native``), and the library is cached under a hash of the
+source, the flags and the thread runtime in the port's build directory.
+
+Threads, in order of preference: ``-fopenmp`` linked against the OpenMP
+runtime that PyTorch has already loaded into the process (one runtime in
+the process, found even where the compiler's own ``libgomp.so`` is
+missing); else the same loops on ``std::thread`` (``-DHPF_STD_THREADS``);
+else serial.  ``build_native`` says which it took and why it passed over
+the others.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,15 +32,16 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SRC = os.path.join(_PKG, "_native", "csr_ops.cpp")
 
 
-def _probe_flag(cxx: str, flag: str) -> bool:
-    """Can the compiler build a trivial translation unit with this flag?"""
+def _probe(cxx: str, flag: str) -> str:
+    """Build a trivial program with this flag: "" if it builds, else the
+    compiler's own error."""
     with tempfile.TemporaryDirectory(dir=build_dir()) as td:
         src = os.path.join(td, "t.cpp")
         with open(src, "w") as f:
             f.write("int main(){return 0;}\n")
         r = subprocess.run([cxx, flag, "-o", os.path.join(td, "t.out"), src],
-                           capture_output=True)
-        return r.returncode == 0
+                           capture_output=True, text=True)
+        return "" if r.returncode == 0 else (r.stdout + r.stderr).strip()[-2000:] or "failed"
 
 
 def build_dir() -> str:
@@ -85,17 +94,76 @@ def _cpu_model() -> str:
     return platform.processor() or platform.machine()
 
 
-def build_native() -> str:
-    """Compile ``csr_ops.cpp`` into a shared library; returns its path."""
+class NativeBuild(NamedTuple):
+    """What ``build_native`` built: the library, its thread runtime
+    (``"openmp"``, ``"threads"`` or ``"serial"``), the compiler flags, the
+    OpenMP library linked (or None), and why each route preferred to the
+    one taken failed (route -> the compiler's error)."""
+
+    path: str
+    runtime: str
+    flags: tuple
+    omp_lib: str | None
+    passed_over: dict
+
+
+def torch_openmp() -> str | None:
+    """The path of the GNU OpenMP runtime loaded in this process (PyTorch's
+    Linux wheels load their own with ``libtorch_cpu``), or None."""
+    import torch  # noqa: F401  (loads the runtime PyTorch links)
+
+    try:
+        with open("/proc/self/maps") as f:
+            for line in f:
+                path = line.split()[-1]
+                if os.path.basename(path).startswith("libgomp") and ".so" in path:
+                    return os.path.realpath(path)
+    except OSError:
+        pass
+    return None
+
+
+def _flags(cxx: str) -> list:
+    flags = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+    for f in ("-march=native", "-fno-math-errno", "-fno-trapping-math"):
+        if not _probe(cxx, f):
+            flags.append(f)
+    return flags
+
+
+def build_route(runtime: str) -> NativeBuild:
+    """Compile ``csr_ops.cpp`` with one thread runtime (``"openmp"``,
+    ``"threads"`` or ``"serial"``); raises RuntimeError, with the
+    compiler's error, where it does not build."""
     if not os.path.exists(SRC):
         raise FileNotFoundError(f"host helper source not found: {SRC}")
     cxx = os.environ.get("CXX", "g++")
-    flags = ["-O3", "-shared", "-fPIC", "-std=c++17"]
-    if _probe_flag(cxx, "-march=native"):
-        flags.append("-march=native")
-    for f in ("-fno-math-errno", "-fno-trapping-math"):
-        if _probe_flag(cxx, f):
-            flags.append(f)
-    if _probe_flag(cxx, "-fopenmp"):
-        flags.append("-fopenmp")
-    return cached_build([cxx, *flags], [SRC], "csr_ops", key=_cpu_model())
+    flags, key = _flags(cxx), _cpu_model()
+    if runtime == "openmp":
+        omp_lib = torch_openmp()
+        if omp_lib is None:
+            raise RuntimeError("no GNU OpenMP runtime (libgomp) is loaded in the process")
+        # compiled with -fopenmp, linked without it against omp_lib by path:
+        # the link needs neither the compiler's libgomp.so nor its
+        # libgomp.spec, and -z defs fails it on any symbol omp_lib lacks
+        compile_flags = [f for f in flags if f != "-shared"] + ["-fopenmp", "-c"]
+        link_flags = ["-shared", "-pthread", "-Wl,-z,defs",
+                      "-Wl,-rpath," + os.path.dirname(omp_lib)]
+        obj = cached_build([cxx, *compile_flags], [SRC], "csr_ops_omp", key=key, suffix=".o")
+        path = cached_build([cxx, *link_flags], [obj, omp_lib], "csr_ops_omp", key=key)
+        return NativeBuild(path, runtime, (*compile_flags, *link_flags), omp_lib, {})
+    extra = {"threads": ["-pthread", "-DHPF_STD_THREADS"], "serial": []}[runtime]
+    path = cached_build([cxx, *flags, *extra], [SRC], f"csr_ops_{runtime}", key=key)
+    return NativeBuild(path, runtime, (*flags, *extra), None, {})
+
+
+def build_native() -> NativeBuild:
+    """The host helpers with the first thread runtime that builds (see the
+    module's docstring); ``passed_over`` holds the others' errors."""
+    passed_over = {}
+    for runtime in ("openmp", "threads"):
+        try:
+            return build_route(runtime)._replace(passed_over=passed_over)
+        except RuntimeError as e:
+            passed_over[runtime] = str(e)[-2000:]
+    return build_route("serial")._replace(passed_over=passed_over)

@@ -1,14 +1,17 @@
-// Native host-side data-layer kernels for hpfrec_tpu.
+// Native host-side data-layer helpers of hpfrec_tpu_torch.
 //
 // The reference implements its hot loops as Cython->C with OpenMP
-// (reference hpfrec/cython_loops.pxi:547-825).  In the TPU framework
-// the per-nonzero math lives on the device (XLA/Pallas); what remains
+// (reference hpfrec/cython_loops.pxi:547-825).  In the port the
+// per-nonzero math lives on the device (CUDA kernels); what remains
 // host-bound at 48M+ nonzeros is the data layer: COO->CSR conversion,
 // user-sorted layout construction, and the per-batch ragged gather used by
 // SVI epochs (the reference's get_i_batch_pass1/2, pxi:770-797).  Those are
-// the C++/OpenMP kernels here, exposed through ctypes (see __init__.py).
+// the C++ loops here, exposed through ctypes (see __init__.py).
 //
-// Build: g++ -O3 -fopenmp -shared -fPIC (flags probed in build.py).
+// Build (build.py): g++ -O3 -shared -fPIC -fopenmp against the OpenMP
+// runtime that PyTorch has loaded, else -pthread -DHPF_STD_THREADS (the same
+// loops on std::thread), else serial.  Every parallel loop owns its rows, so
+// every output is the same whatever the thread count.
 
 #include <algorithm>
 #include <cstdint>
@@ -17,55 +20,118 @@
 #include <utility>
 #include <vector>
 
-#ifdef _OPENMP
-#include <omp.h>
+#if defined(_OPENMP)
+// The runtime's one entry point used here; declared rather than taken from
+// omp.h, which a compiler with OpenMP support may still lack.
+extern "C" int omp_get_max_threads(void);
+#elif defined(HPF_STD_THREADS)
+#include <atomic>
+#include <thread>
 #endif
+
+// Threads of a parallel loop; 0: the runtime's default.
+static int g_threads = 0;
+
+static int loop_threads() {
+#if defined(_OPENMP)
+    return g_threads > 0 ? g_threads : omp_get_max_threads();
+#elif defined(HPF_STD_THREADS)
+    const unsigned n = std::thread::hardware_concurrency();
+    return g_threads > 0 ? g_threads : (n > 0 ? (int)n : 1);
+#else
+    return 1;
+#endif
+}
+
+// body(lo, hi) over [0, n) in chunks of `chunk` rows, each chunk taken by the
+// next free thread (OpenMP's schedule(dynamic, chunk)).
+template <typename F>
+static void parallel_chunks(int64_t n, int64_t chunk, F body) {
+    const int64_t nchunks = (n + chunk - 1) / chunk;
+#if defined(_OPENMP)
+#pragma omp parallel for schedule(dynamic, 1) num_threads(loop_threads())
+    for (int64_t c = 0; c < nchunks; ++c) {
+        body(c * chunk, std::min(n, (c + 1) * chunk));
+    }
+#elif defined(HPF_STD_THREADS)
+    const int64_t nt = std::min<int64_t>(loop_threads(), nchunks);
+    std::atomic<int64_t> next{0};
+    auto work = [&]() {
+        for (int64_t c = next++; c < nchunks; c = next++) {
+            body(c * chunk, std::min(n, (c + 1) * chunk));
+        }
+    };
+    std::vector<std::thread> pool;
+    for (int64_t t = 1; t < nt; ++t) pool.emplace_back(work);
+    work();
+    for (auto& t : pool) t.join();
+#else
+    for (int64_t c = 0; c < nchunks; ++c) {
+        body(c * chunk, std::min(n, (c + 1) * chunk));
+    }
+#endif
+}
 
 extern "C" {
 
-int has_openmp() {
-#ifdef _OPENMP
+// 0: serial, 1: OpenMP, 2: std::thread
+int threads_runtime() {
+#if defined(_OPENMP)
     return 1;
+#elif defined(HPF_STD_THREADS)
+    return 2;
 #else
     return 0;
 #endif
 }
 
-void set_num_threads(int n) {
-#ifdef _OPENMP
-    if (n > 0) omp_set_num_threads(n);
-#else
-    (void)n;
-#endif
-}
+int num_threads() { return loop_threads(); }
+
+void set_num_threads(int n) { g_threads = n > 0 ? n : 0; }
 
 }  // extern "C"
 
 // ---------------------------------------------------------------------
 // COO -> CSR via counting sort (stable in column order of appearance).
-// indptr must have nrows+1 slots.  O(nnz + nrows).
+// indptr must have nrows+1 slots.  O(nnz + nrows * chunks).  The input is
+// cut into one contiguous chunk a thread (at most 16, each of 64K entries
+// or more); each chunk counts its rows, a serial pass turns the counts
+// into indptr and each chunk's first slot in each row, and each chunk
+// places its entries from there.  A row's entries keep their input order,
+// so the result is the one-thread result bit for bit.
 // ---------------------------------------------------------------------
 template <typename T>
 static void coo_to_csr_impl(const int32_t* rows, const int32_t* cols,
                             const T* vals, int64_t nnz, int64_t nrows,
                             int64_t* indptr, int32_t* out_cols, T* out_vals) {
-    std::memset(indptr, 0, sizeof(int64_t) * (nrows + 1));
-    // histogram (counts into indptr[1..nrows])
-    for (int64_t i = 0; i < nnz; ++i) {
-        ++indptr[(int64_t)rows[i] + 1];
-    }
+    const int64_t nchunk = std::max<int64_t>(
+        1, std::min<int64_t>(std::min<int64_t>(loop_threads(), 16), nnz >> 16));
+    const int64_t per = (nnz + nchunk - 1) / nchunk;
+    std::vector<int64_t> cursor((size_t)(nchunk * nrows), 0);
+    parallel_chunks(nchunk, 1, [&](int64_t c, int64_t) {
+        int64_t* count = cursor.data() + c * nrows;
+        for (int64_t i = c * per, end = std::min(nnz, (c + 1) * per); i < end; ++i) {
+            ++count[rows[i]];
+        }
+    });
+    indptr[0] = 0;
     for (int64_t r = 0; r < nrows; ++r) {
-        indptr[r + 1] += indptr[r];
+        int64_t pos = indptr[r];
+        for (int64_t c = 0; c < nchunk; ++c) {
+            const int64_t n = cursor[(size_t)(c * nrows + r)];
+            cursor[(size_t)(c * nrows + r)] = pos;
+            pos += n;
+        }
+        indptr[r + 1] = pos;
     }
-    // stable placement using a scratch cursor
-    int64_t* cursor = new int64_t[nrows];
-    std::memcpy(cursor, indptr, sizeof(int64_t) * nrows);
-    for (int64_t i = 0; i < nnz; ++i) {
-        const int64_t pos = cursor[rows[i]]++;
-        out_cols[pos] = cols[i];
-        out_vals[pos] = vals[i];
-    }
-    delete[] cursor;
+    parallel_chunks(nchunk, 1, [&](int64_t c, int64_t) {
+        int64_t* cur = cursor.data() + c * nrows;
+        for (int64_t i = c * per, end = std::min(nnz, (c + 1) * per); i < end; ++i) {
+            const int64_t pos = cur[rows[i]]++;
+            out_cols[pos] = cols[i];
+            out_vals[pos] = vals[i];
+        }
+    });
 }
 
 extern "C" {
@@ -104,18 +170,19 @@ static void gather_rows_impl(const int64_t* indptr, const int32_t* indices,
                              const T* data, const int64_t* rows, int64_t nbatch,
                              const int64_t* out_starts, int32_t* out_rows,
                              int32_t* out_cols, T* out_vals) {
-#pragma omp parallel for schedule(dynamic, 64)
-    for (int64_t b = 0; b < nbatch; ++b) {
-        const int64_t r = rows[b];
-        const int64_t st_in = indptr[r];
-        const int64_t st_out = out_starts[b];
-        const int64_t deg = indptr[r + 1] - st_in;
-        for (int64_t j = 0; j < deg; ++j) {
-            out_rows[st_out + j] = (int32_t)r;
-            out_cols[st_out + j] = indices[st_in + j];
-            out_vals[st_out + j] = data[st_in + j];
+    parallel_chunks(nbatch, 64, [&](int64_t lo, int64_t hi) {
+        for (int64_t b = lo; b < hi; ++b) {
+            const int64_t r = rows[b];
+            const int64_t st_in = indptr[r];
+            const int64_t st_out = out_starts[b];
+            const int64_t deg = indptr[r + 1] - st_in;
+            for (int64_t j = 0; j < deg; ++j) {
+                out_rows[st_out + j] = (int32_t)r;
+                out_cols[st_out + j] = indices[st_in + j];
+                out_vals[st_out + j] = data[st_in + j];
+            }
         }
-    }
+    });
 }
 
 extern "C" {
@@ -148,17 +215,18 @@ template <typename T>
 static void ell_fill_impl(const int64_t* seg_start, const int64_t* seg_len,
                           const int32_t* indices, const T* data, int64_t nseg,
                           int64_t w, int32_t* out_cols, T* out_vals) {
-#pragma omp parallel for schedule(dynamic, 256)
-    for (int64_t s = 0; s < nseg; ++s) {
-        const int64_t st = seg_start[s];
-        const int64_t len = seg_len[s];
-        int32_t* oc = out_cols + s * w;
-        T* ov = out_vals + s * w;
-        for (int64_t j = 0; j < len; ++j) {
-            oc[j] = indices[st + j];
-            ov[j] = data[st + j];
+    parallel_chunks(nseg, 256, [&](int64_t lo, int64_t hi) {
+        for (int64_t s = lo; s < hi; ++s) {
+            const int64_t st = seg_start[s];
+            const int64_t len = seg_len[s];
+            int32_t* oc = out_cols + s * w;
+            T* ov = out_vals + s * w;
+            for (int64_t j = 0; j < len; ++j) {
+                oc[j] = indices[st + j];
+                ov[j] = data[st + j];
+            }
         }
-    }
+    });
 }
 
 extern "C" {
@@ -189,15 +257,9 @@ void ell_fill_f64(const int64_t* seg_start, const int64_t* seg_len,
 template <typename T>
 static void sort_csr_cols_impl(const int64_t* indptr, int64_t nrows,
                                int32_t* indices, T* data) {
-#ifdef _OPENMP
-#pragma omp parallel
-#endif
-    {
+    parallel_chunks(nrows, 64, [&](int64_t lo, int64_t hi) {
         std::vector<std::pair<int32_t, T>> buf;
-#ifdef _OPENMP
-#pragma omp for schedule(dynamic, 64)
-#endif
-        for (int64_t r = 0; r < nrows; ++r) {
+        for (int64_t r = lo; r < hi; ++r) {
             const int64_t st = indptr[r], en = indptr[r + 1];
             if (en - st <= 1) continue;
             bool sorted = true;
@@ -219,7 +281,7 @@ static void sort_csr_cols_impl(const int64_t* indptr, int64_t nrows,
                 data[j] = buf[(size_t)(j - st)].second;
             }
         }
-    }
+    });
 }
 
 extern "C" {

@@ -152,12 +152,15 @@ class HPF:
             from .. import _native
 
             if not _native.get():
+                built = _native.build_info()
+                why = ("; ".join(f"{route}: {err}" for route, err in built.passed_over.items())
+                       if built is not None else str(_native.load_error()))
                 warnings.warn(
                     "Attempting to use more than 1 thread, but the native "
                     "host-side data kernels were built without "
                     "multi-threading support - host preprocessing "
                     "(reindex/CSR/ELL packing) will run single-threaded; "
-                    "device compute is unaffected.")
+                    "device compute is unaffected. (%s)" % why)
 
         if random_seed is not None:
             assert isinstance(random_seed, int)

@@ -118,17 +118,22 @@ def test_no_path_into_the_jax_package(path):
 
 def test_native_build_reads_only_the_ports_source(monkeypatch):
     """The host helpers are compiled from the port's own csr_ops.cpp and
-    nothing else."""
+    nothing else; with OpenMP the object is linked against the runtime
+    that PyTorch loaded, by its path."""
     from hpfrec_tpu_torch._native import build
 
     seen = []
     monkeypatch.setattr(build, "cached_build",
-                        lambda cmd, sources, stem, key="": seen.append(list(sources))
-                        or "x.so")
-    build.build_native()
+                        lambda cmd, sources, stem, key="", suffix=".so":
+                        seen.append(list(sources)) or stem + suffix)
+    built = build.build_native()
     src = PKG / "_native" / "csr_ops.cpp"
-    assert seen == [[str(src)]]
+    assert seen[0] == [str(src)]
     assert src.is_file()
+    if built.runtime == "openmp":
+        assert seen[1:] == [["csr_ops_omp.o", build.torch_openmp()]]
+    else:
+        assert seen[1:] == []
 
 
 def test_cuda_build_reads_only_the_ports_sources():
@@ -136,3 +141,40 @@ def test_cuda_build_reads_only_the_ports_sources():
 
     assert pathlib.Path(build.CSRC).resolve() == PKG / "csrc"
     assert {p.suffix for p in (PKG / "csrc").iterdir()} <= {".cu", ".cuh"}
+
+
+TWINS = ["example/northstar_e2e_torch.py", "example/millionsong_scale_torch.py",
+         "example/quickstart_torch.py", "scripts/quality_oracle_parity_torch.py"]
+# what each twin runs in the subprocess check, at a tiny size on the CPU
+_TWIN_CALLS = {
+    "northstar_e2e_torch": "m.run_northstar(300, 200, 4_000, k=4, maxiter=4, device='cpu', "
+                           "check_every=2, verbose=False)",
+    "millionsong_scale_torch": "m.synth_tasteprofile(300, 200, 4_000)",
+    "quickstart_torch": "m.sample_split(m.make_synthetic(300, 200, 4_000))",
+    "quality_oracle_parity_torch": "m.run_parity(300, 200, 4_000, 4, 2, None, device='cpu')",
+}
+
+
+@pytest.mark.parametrize("relpath", TWINS)
+def test_entry_point_twins_load_neither_jax_nor_the_jax_package(relpath):
+    """The port's twins of the JAX repo's examples and quality script import
+    no jax and no hpfrec_tpu, by their source and when run in a fresh
+    interpreter."""
+    import subprocess
+    import sys
+
+    path = PKG.parent / relpath
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for mod in _imported_modules(tree):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "hpfrec_tpu"), mod
+    code = (
+        "import sys, importlib.util\n"
+        "before = set(sys.modules)\n"
+        f"spec = importlib.util.spec_from_file_location('twin', {str(path)!r})\n"
+        "m = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(m)\n"
+        f"{_TWIN_CALLS[path.stem]}\n"
+        "bad = [n for n in set(sys.modules) - before\n"
+        "       if n.split('.')[0] in ('jax', 'jaxlib', 'hpfrec_tpu')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=PKG.parent, timeout=300)
