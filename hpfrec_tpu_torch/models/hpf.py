@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..utils import data as data_utils
+from ..utils.profiling import FitStats, TopNStats, device_bytes, maybe_trace
 from .state import (Hyperparams, VariationalState, initialize_extra_rows,
                     initialize_state)
 
@@ -285,6 +286,7 @@ class HPF:
         self.gather_dtype = gather_dtype
         self.device = device
         self.fit_stats_ = None
+        self.topn_stats_ = None
 
         if not self.reindex:
             self.produce_dicts = False
@@ -488,16 +490,25 @@ class HPF:
         dev = self._torch_device()
 
         from .. import _native
-        from ..utils.profiling import FitStats, maybe_trace
 
         if _native.available():
             _native.set_num_threads(self.ncores)
         if self.verbose:
             self._print_st_msg()
 
-        stats = FitStats(device=dev).start()
+        stats = FitStats(device=dev)
         self.fit_stats_ = stats
+        with maybe_trace(self.profile_dir if self._shard[0] == 0 else None), stats.run():
+            self._fit(counts_df, val_set, resume, svi_mode, dev, stats)
+        if self.profile_dir and self.mesh is not None:
+            self._on_rank0(lambda: None)  # the trace is on disk when fit returns
+        if self.verbose:
+            self._print_fit_stats()
+        return self
 
+    def _fit(self, counts_df, val_set, resume, svi_mode, dev, stats):
+        """The whole of a ``fit`` call after its checks, each step in a
+        phase of ``stats``."""
         with stats.phase("reindex"):
             pdata = data_utils.process_data(
                 counts_df, self.stop_crit, self.reindex, self._dtype,
@@ -513,7 +524,8 @@ class HPF:
             self._print_data_info()
 
         if self.save_folder is not None:
-            self._on_rank0(self._save_mappings)
+            with stats.phase("save"):
+                self._on_rank0(self._save_mappings)
 
         val_arrays = None
         if (val_set is not None) and (self.stop_crit not in ("diff-norm", "train-llk")):
@@ -537,13 +549,14 @@ class HPF:
         hp = self._hp()
         if self.verbose:
             print("Initializing parameters...")
-        self._fit_seed = self._agreed_seed(self.random_seed)
-        self._resume_meta = None
-        if resume:
-            state = self._resume_state()
-        else:
-            state = initialize_state(self.nusers, self.nitems, hp, self._fit_seed,
-                                     self._dtype)
+        with stats.phase("init_state"):
+            self._fit_seed = self._agreed_seed(self.random_seed)
+            self._resume_meta = None
+            if resume:
+                state = self._resume_state()
+            else:
+                state = initialize_state(self.nusers, self.nitems, hp, self._fit_seed,
+                                         self._dtype)
         nnz = int(pdata.y.shape[0])
         stats.nnz = nnz
         self._nnz = nnz
@@ -554,37 +567,40 @@ class HPF:
         if val_arrays is not None:
             with stats.phase("valset"):
                 self._val = self._device_valset(val_arrays, dev)
+            stats.bytes_to_device += device_bytes(dev, self._val.data)
 
         if self.verbose:
             print("Initializing optimization procedure...")
         st_time = time.time()
-        with maybe_trace(self.profile_dir if self._shard[0] == 0 else None):
-            if svi_mode:
-                state, colsums = self._run_svi(state, pdata, hp, dev, stats)
-            else:
-                state, colsums = self._run_full_batch(state, pdata, hp, dev, stats)
-        if self.profile_dir and self.mesh is not None:
-            self._on_rank0(lambda: None)  # the trace is on disk when fit returns
+        if svi_mode:
+            state, colsums = self._run_svi(state, pdata, hp, dev, stats)
+        else:
+            state, colsums = self._run_full_batch(state, pdata, hp, dev, stats)
         end_tm = (time.time() - st_time) / 60.0
         with stats.phase("metric_checks"):
             self._final_eval(state, colsums)
             state = self._real_state(state)
         # per-fit device buffers
         self._metric_ell = self._metric_coo = self._val = self._table_shard = None
-        stats.stop(self.niter + 1)
+        stats.iterations = self.niter + 1
         if self.verbose:
             self._print_final_msg(self.niter + 1, self._last_llk, self._last_rmse, end_tm)
 
-        self._state_to_host(state)
+        with stats.phase("copy_back"):
+            self._state_to_host(state)
+        stats.bytes_to_host += sum(a.numel() * a.element_size() for a in state)
         if self.save_folder is not None:
-            self._on_rank0(lambda: self._save_parameters(state))
-        if self.keep_data and (not svi_mode or not hasattr(self, "seen")):
-            self._store_metadata(pdata)
-        if self.produce_dicts and self.reindex:
-            self.user_dict_ = {self.user_mapping_[i]: i for i in range(self.user_mapping_.shape[0])}
-            self.item_dict_ = {self.item_mapping_[i]: i for i in range(self.item_mapping_.shape[0])}
+            with stats.phase("save"):
+                self._on_rank0(lambda: self._save_parameters(state))
+        with stats.phase("metadata"):
+            if self.keep_data and (not svi_mode or not hasattr(self, "seen")):
+                self._store_metadata(pdata)
+            if self.produce_dicts and self.reindex:
+                self.user_dict_ = {self.user_mapping_[i]: i
+                                   for i in range(self.user_mapping_.shape[0])}
+                self.item_dict_ = {self.item_mapping_[i]: i
+                                   for i in range(self.item_mapping_.shape[0])}
         self.is_fitted = True
-        return self
 
     def _save_mappings(self):
         from ..utils.io import series_csv
@@ -752,6 +768,7 @@ class HPF:
         if self.engine == "coo":
             with stats.phase("host_pack"):
                 coo = coo_stream(pdata, dev, self.block_size, self._shard)
+            stats.bytes_to_device += device_bytes(dev, coo)
             self._metric_coo = coo.data
             self._load_kernels(dev, stats)
         elif self._table_sharded:
@@ -774,6 +791,7 @@ class HPF:
                 ts = self._table_shard = TableSharded(self.mesh, plan, self.nusers,
                                                       self.nitems, dev)
                 del plan
+            stats.bytes_to_device += device_bytes(dev, ts.u, ts.i, ts.slots_dev)
         else:
             gd = gather_table_dtype(self.gather_dtype)
             with stats.phase("host_pack"):
@@ -782,10 +800,12 @@ class HPF:
             with stats.phase("transfer"):
                 lay_u = to_device(ell_u, dev, self._shard)
                 lay_i = to_device(ell_i, dev, self._shard)
+            stats.bytes_to_device += device_bytes(dev, lay_u, lay_i)
             self._metric_ell = lay_u
         with stats.phase("transfer"):
             state = (ts.shard_state(state) if ts is not None
                      else VariationalState(*[a.to(dev) for a in state]))
+        stats.bytes_to_device += device_bytes(dev, state)
 
         self._last_llk = 0.0
         self._last_rmse = 0.0
@@ -814,6 +834,7 @@ class HPF:
             iters_done += n
             stop = False
             if self.check_every > 0 and n == self.check_every:
+                stats.checks += 1
                 with stats.phase("metric_checks"):
                     stop, last_crit, Theta_prev = self._evaluate_criterion(
                         carry.state, iters_done, last_crit, Theta_prev,
@@ -872,6 +893,7 @@ class HPF:
             with stats.phase("host_pack"):
                 self._metric_coo = device_blocked_coo(pdata.y, pdata.ix_u, pdata.ix_i, dev,
                                                       self.block_size, self._shard)[0]
+            stats.bytes_to_device += device_bytes(dev, self._metric_coo)
         elif need_metric:
             with stats.phase("host_pack"):
                 ell_m = build_ell(indptr_u, indices_u, data_u, self.nusers, dtype=dt,
@@ -883,6 +905,7 @@ class HPF:
             side_u = epoch_side(indptr_u, indices_u, data_u, dt, dev) if use_users else None
             side_i = epoch_side(indptr_i, indices_i, data_i, dt, dev) if use_items else None
             state = VariationalState(*[a.to(dev) for a in state])
+        stats.bytes_to_device += device_bytes(dev, self._metric_ell, side_u, side_i, state)
 
         def colsums(st):
             return lambda: (side_derive(st.G_shp, st.G_rte)[1],
@@ -929,6 +952,7 @@ class HPF:
                                           phi_sums=svi_sums, shard=self._shard)
             stop = False
             if self.check_every > 0 and ((i + 1) % self.check_every) == 0:
+                stats.checks += 1
                 with stats.phase("metric_checks"):
                     stop, last_crit, Theta_prev = self._evaluate_criterion(
                         state, i + 1, last_crit, Theta_prev, colsums(state))
@@ -1263,24 +1287,37 @@ class HPF:
         from ..ops.topk import topn_batch
 
         assert self.is_fitted
-        users = np.asarray(users).reshape(-1)
-        if self.reindex:
-            rows = self._map_ids(users, self.user_mapping_, None)
-            if (rows == -1).any():
-                raise ValueError("Can only predict for users who were in the training set.")
-        else:
-            rows = users.astype(np.int64)
-        if exclude_seen and not self.keep_data:
-            raise Exception("Can only exclude seen items when passing 'keep_data=True' to .fit")
-        Beta_dev = self._beta_device()
-        if exclude_seen:
-            idx = topn_batch(self.Theta, Beta_dev, rows, n,
-                             seen_indptr=self._st_ix_user, seen_indices=self.seen,
-                             n_seen=self._n_seen_by_user)
-        else:
-            idx = topn_batch(self.Theta, Beta_dev, rows, n)
-        if self.reindex:
-            return self.item_mapping_[idx]
+        stats = TopNStats()
+        self.topn_stats_ = stats
+        with stats.run():
+            with stats.phase("rows"):
+                users = np.asarray(users).reshape(-1)
+                if self.reindex:
+                    rows = self._map_ids(users, self.user_mapping_, None)
+                    if (rows == -1).any():
+                        raise ValueError(
+                            "Can only predict for users who were in the training set.")
+                else:
+                    rows = users.astype(np.int64)
+            if exclude_seen and not self.keep_data:
+                raise Exception(
+                    "Can only exclude seen items when passing 'keep_data=True' to .fit")
+            with stats.phase("beta"):
+                # a weak reference, so that a replaced copy is freed as before
+                cached = self._beta_dev_cache
+                cached = None if cached is None else weakref.ref(cached[1])
+                Beta_dev = self._beta_device()
+                if cached is None or cached() is not Beta_dev:
+                    stats.bytes_to_device += Beta_dev.nbytes
+            if exclude_seen:
+                idx = topn_batch(self.Theta, Beta_dev, rows, n,
+                                 seen_indptr=self._st_ix_user, seen_indices=self.seen,
+                                 n_seen=self._n_seen_by_user, stats=stats)
+            else:
+                idx = topn_batch(self.Theta, Beta_dev, rows, n, stats=stats)
+            if self.reindex:
+                with stats.phase("rows"):
+                    idx = self.item_mapping_[idx]
         return idx
 
     # ------------------------------------------------------------------
@@ -1692,11 +1729,16 @@ class HPF:
         print("Final log-likelihood: %d" % int(llk))
         print("Final RMSE: %.4f" % rmse)
         print("Minutes taken (optimization part): %.1f" % end_tm)
-        if self.fit_stats_ is not None and self.fit_stats_.nnz_per_second > 0:
-            print("Nonzero updates per second (end-to-end): %.3g"
-                  % self.fit_stats_.nnz_per_second)
-            report = self.fit_stats_.phase_report()
+        print("")
+
+    def _print_fit_stats(self):
+        """The whole fit's throughput and wall-time breakdown, printed when
+        ``fit`` returns."""
+        st = self.fit_stats_
+        if st is not None and st.nnz_per_second > 0:
+            print("Nonzero updates per second (end-to-end): %.3g" % st.nnz_per_second)
+            report = st.phase_report()
             if report:
                 print("Wall-time breakdown:")
                 print(report)
-        print("")
+            print("")

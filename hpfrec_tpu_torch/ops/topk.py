@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import TopNStats
+
 # Device bytes of one chunk of users: 16,384 users at 376,768 items on the
 # fused path (n <= _FUSED_MAX_N; bitmask and candidates), 1,024 on the
 # three-kernel path at n <= 4,096 (scores and select scratch).
@@ -225,7 +227,7 @@ def _to(a, device):
 
 
 def topn_batch(Theta, Beta, users, n, seen_indptr=None, seen_indices=None,
-               n_seen=None):
+               n_seen=None, stats=None):
     """Top-n item rows for each user row in ``users``.
 
     ``Theta`` is the host (nU, k) table; ``Beta`` the (nI, k) table as a
@@ -234,13 +236,16 @@ def topn_batch(Theta, Beta, users, n, seen_indptr=None, seen_indices=None,
     ``_st_ix_user``/``seen``/``_n_seen_by_user`` metadata), those items are
     masked out on the device before ranking — the same exclusion as the
     reference ``topN``.  Returns a ``(len(users), min(n, nI))`` int32 array
-    of item rows.
+    of item rows.  ``stats`` (a ``utils.profiling.TopNStats``) takes the
+    call's phases and counters.
     """
+    stats = TopNStats() if stats is None else stats
     device = Beta.device
     users = np.asarray(users, dtype=np.int64)
     b = len(users)
     nI = Beta.shape[0]
     k_eff = min(n, nI)
+    stats.users += b
     if b == 0 or k_eff <= 0:
         return np.zeros((b, max(k_eff, 0)), dtype=np.int32)
     dt = Beta.dtype
@@ -248,29 +253,37 @@ def topn_batch(Theta, Beta, users, n, seen_indptr=None, seen_indices=None,
     masked = seen_indptr is not None
     if masked:
         # ragged gather of the batch's seen items (host, vectorized)
-        starts = np.asarray(seen_indptr)[users]
-        counts = np.asarray(n_seen)[users].astype(np.int64)
-        ends = np.cumsum(counts)
-        gx = (np.repeat(starts - (ends - counts), counts)
-              + np.arange(int(ends[-1]), dtype=np.int64))
-        items = np.asarray(seen_indices)[gx].astype(np.int32)
+        with stats.phase("rows"):
+            starts = np.asarray(seen_indptr)[users]
+            counts = np.asarray(n_seen)[users].astype(np.int64)
+            ends = np.cumsum(counts)
+            gx = (np.repeat(starts - (ends - counts), counts)
+                  + np.arange(int(ends[-1]), dtype=np.int64))
+            items = np.asarray(seen_indices)[gx].astype(np.int32)
 
     idx = np.empty((b, k_eff), dtype=np.int32)
     vals = np.empty((b, k_eff), dtype=np.float32)
     step = _chunk_rows(b, nI, k_eff)
     for r0 in range(0, b, step):
         r1 = min(b, r0 + step)
-        rows_t = _to(np.asarray(Theta[users[r0:r1]]), device)
-        mask_rows = mask_items = None
-        if masked:
-            p0 = int(ends[r0 - 1]) if r0 else 0
-            p1 = int(ends[r1 - 1])
-            mask_rows = _to(np.repeat(np.arange(r1 - r0, dtype=np.int32), counts[r0:r1]),
-                            device)
-            mask_items = _to(items[p0:p1], device)
-        v, i = topn_rows(rows_t.to(dt), Beta, mask_rows, mask_items, k_eff)
-        vals[r0:r1] = v.cpu().numpy()
-        idx[r0:r1] = i.cpu().numpy()
+        stats.chunks += 1
+        with stats.phase("gather"):
+            rows_t = _to(np.asarray(Theta[users[r0:r1]]), device)
+            mask_rows = mask_items = None
+            if masked:
+                p0 = int(ends[r0 - 1]) if r0 else 0
+                p1 = int(ends[r1 - 1])
+                mask_rows = _to(np.repeat(np.arange(r1 - r0, dtype=np.int32),
+                                          counts[r0:r1]), device)
+                mask_items = _to(items[p0:p1], device)
+                stats.bytes_to_device += mask_rows.nbytes + mask_items.nbytes
+            stats.bytes_to_device += rows_t.nbytes
+        with stats.phase("rank"):
+            v, i = topn_rows(rows_t.to(dt), Beta, mask_rows, mask_items, k_eff)
+        with stats.phase("fetch"):
+            vals[r0:r1] = v.cpu().numpy()
+            idx[r0:r1] = i.cpu().numpy()
+            stats.bytes_to_host += v.nbytes + i.nbytes
     if not masked:
         return idx
 

@@ -1,10 +1,18 @@
-"""Per-fit accounting (``FitStats``, surfaced on the model as
-``fit_stats_``) and the fit's trace (``maybe_trace``).
+"""Per-call accounting (``FitStats``, surfaced on the model as
+``fit_stats_``; ``TopNStats``, as ``topn_stats_``) and the fit's trace
+(``maybe_trace``).
 
 Port of ``hpfrec_tpu/utils/profiling.py:FitStats`` and ``maybe_trace``.
-Device work is asynchronous, so on a CUDA device every phase ends with
-``torch.cuda.synchronize()``: a phase then owns the device time of the
-work it enqueued.
+A call's phases are timed on the host clock, always.  While a
+``torch.profiler`` records, the call and each of its phases also open a
+``torch.profiler.record_function`` of a fixed name (``<root>`` and
+``<root>.<phase>``: ``hpf.fit.transfer``, ``hpf.topN_batch.gather``), so
+they land on the profiler's timeline, the clock of its kernels and
+copies, nested as they run; when none records, no annotation is entered.
+Device work is asynchronous, so on a CUDA device every phase of a fit
+ends with ``torch.cuda.synchronize()``: a phase then owns the device time
+of the work it enqueued.  ``TopNStats`` takes no device and adds no
+synchronize: a ``topN_batch`` call waits on its answers' copy back.
 """
 
 from __future__ import annotations
@@ -12,9 +20,10 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Optional
 
+import torch
 
 TRACE_FILE = "trace.json"
 
@@ -29,7 +38,6 @@ def maybe_trace(profile_dir):
     if not profile_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -41,48 +49,64 @@ def maybe_trace(profile_dir):
     prof.export_chrome_trace(os.path.join(profile_dir, TRACE_FILE))
 
 
+def annotate(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records
+    in this process, else a context that does nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def device_bytes(device, *objs) -> int:
+    """Bytes of the distinct storages of the tensors on ``device``'s type
+    held in ``objs`` (tensors, and tuples, lists and dataclasses of them):
+    what an upload placed there."""
+    seen, todo, total = set(), list(objs), 0
+    while todo:
+        o = todo.pop()
+        if isinstance(o, torch.Tensor):
+            if o.device.type == device.type:
+                s = o.untyped_storage()
+                if s.data_ptr() not in seen:
+                    seen.add(s.data_ptr())
+                    total += s.nbytes()
+        elif isinstance(o, (tuple, list)):
+            todo.extend(o)
+        elif is_dataclass(o):
+            todo.extend(getattr(o, f.name) for f in fields(o))
+    return total
+
+
 @dataclass
-class FitStats:
-    """End-to-end fit statistics.
+class CallStats:
+    """The wall and the phases of one call, and what it moved.
 
-    ``wall_seconds`` spans the whole ``fit`` call, host data layer and
-    kernel build included, so ``nnz_per_second`` is an end-to-end figure.
-    ``phases`` attributes the wall time (seconds):
+    ``wall_seconds`` spans the whole call; ``phases`` maps a phase's name
+    to its seconds (a phase run twice adds up), and ``wall_seconds -
+    sum(phases.values())`` is unattributed glue.  ``bytes_to_device`` /
+    ``bytes_to_host`` count the call's copies between host and device."""
 
-    - ``reindex``        host triplet ingest, filtering and reindexing
-    - ``host_pack``      CSR builds + ELL packing (full batch: both sides
-      concurrently, this is the span; SVI: the CSR/CSC and the metric
-      layout)
-    - ``kernel_build``   building or loading the CUDA kernels (0 on CPU)
-    - ``valset``         validation-set ingest and upload
-    - ``transfer``       host->device upload of the layouts and the state
-    - ``iterations``     the CAVI iteration blocks (full batch)
-    - ``user_epochs`` / ``item_epochs``  the SVI epochs of each side
-    - ``metric_checks``  convergence checks + the final metric
+    ROOT = "call"  # the call's annotation; its phases' are ROOT + "." + name
+    COUNTERS = ("bytes_to_device", "bytes_to_host")
 
-    ``wall_seconds - sum(phases.values())`` is unattributed glue.
-    """
-
-    nnz: int = 0
-    iterations: int = 0
     wall_seconds: float = 0.0
     phases: dict = field(default_factory=dict)
     device: Optional[object] = None  # a torch.device; CUDA phases synchronize
-    _t0: float = field(default=0.0, repr=False)
+    bytes_to_device: int = 0
+    bytes_to_host: int = 0
 
-    def start(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def stop(self, iterations: int):
-        self.wall_seconds = time.perf_counter() - self._t0
-        self.iterations = iterations
-        return self
+    @contextlib.contextmanager
+    def run(self):
+        """Time the wrapped call into ``wall_seconds``, under ``ROOT``."""
+        t0 = time.perf_counter()
+        try:
+            with annotate(self.ROOT):
+                yield self
+        finally:
+            self.wall_seconds = time.perf_counter() - t0
 
     def _sync(self):
         if self.device is not None and self.device.type == "cuda":
-            import torch
-
             torch.cuda.synchronize(self.device)
 
     @contextlib.contextmanager
@@ -90,22 +114,18 @@ class FitStats:
         """Accumulate the wrapped region's wall time under ``name``."""
         t0 = time.perf_counter()
         try:
-            yield
-            self._sync()
+            with annotate(self.ROOT + "." + name):
+                yield
+                self._sync()
         finally:
             self.add_phase(name, time.perf_counter() - t0)
 
     def add_phase(self, name: str, seconds: float):
         self.phases[name] = self.phases.get(name, 0.0) + seconds
 
-    @property
-    def nnz_per_second(self) -> float:
-        if self.wall_seconds <= 0:
-            return 0.0
-        return self.nnz * self.iterations / self.wall_seconds
-
     def phase_report(self) -> str:
-        """One line per phase, largest first, with share of wall time."""
+        """One line per phase, largest first, with share of wall time, then
+        the counters."""
         if not self.phases or self.wall_seconds <= 0:
             return ""
         lines = []
@@ -115,4 +135,74 @@ class FitStats:
         other = self.wall_seconds - sum(self.phases.values())
         lines.append("  %-20s %8.2fs  (%4.1f%%)"
                      % ("(unattributed)", other, 100.0 * other / self.wall_seconds))
+        lines.append("  " + ", ".join("%s %d" % (c, getattr(self, c)) for c in self.COUNTERS))
         return "\n".join(lines)
+
+
+@dataclass
+class FitStats(CallStats):
+    """End-to-end fit statistics (``HPF.fit``).
+
+    ``wall_seconds`` spans the whole ``fit`` call, from the triplets'
+    ingest to the fitted attributes on the host, so ``nnz_per_second`` is
+    an end-to-end figure.  ``phases`` attributes the wall time (seconds):
+
+    - ``reindex``        host triplet ingest, filtering and reindexing
+    - ``valset``         validation-set ingest and upload
+    - ``init_state``     the state's seeded start on the host (or the
+      checkpoint's, on resume)
+    - ``host_pack``      CSR builds + ELL packing (full batch: both sides
+      concurrently, this is the span; SVI: the CSR/CSC and the metric
+      layout)
+    - ``kernel_build``   building or loading the CUDA kernels (0 on CPU)
+    - ``transfer``       host->device upload of the layouts and the state
+    - ``iterations``     the CAVI iteration blocks (full batch)
+    - ``user_epochs`` / ``item_epochs``  the SVI epochs of each side
+    - ``metric_checks``  convergence checks + the final metric
+    - ``checkpoints``    checkpoint writes
+    - ``copy_back``      the state's copy to the host, Theta and Beta
+    - ``save``           ``save_folder``'s files
+    - ``metadata``       the seen-items CSR (``keep_data``) and the id dicts
+
+    Counters: ``nnz``, ``iterations``, ``checks`` (convergence checks
+    run), ``bytes_to_device`` (the layouts, the validation set and the
+    state) and ``bytes_to_host`` (the state's copy back).
+    """
+
+    ROOT = "hpf.fit"
+    COUNTERS = ("nnz", "iterations", "checks", "bytes_to_device", "bytes_to_host")
+
+    nnz: int = 0
+    iterations: int = 0
+    checks: int = 0
+
+    @property
+    def nnz_per_second(self) -> float:
+        if self.wall_seconds <= 0:
+            return 0.0
+        return self.nnz * self.iterations / self.wall_seconds
+
+
+@dataclass
+class TopNStats(CallStats):
+    """One ``HPF.topN_batch`` call.  ``phases``:
+
+    - ``rows``    the ids' mapping to rows and back, and the seen lists'
+      gather when they are masked
+    - ``beta``    Beta's device copy, from the model's cache (uploaded
+      where the cache misses)
+    - ``gather``  a chunk's Theta rows indexed on the host and copied to
+      the device (with its seen pairs when masked)
+    - ``rank``    K6 and its merge enqueued
+    - ``fetch``   the wait for a chunk's answers and their copy back
+
+    Counters: ``users``, ``chunks``, ``bytes_to_device`` (Theta rows, seen
+    pairs, and Beta where it was uploaded) and ``bytes_to_host`` (the
+    answers).
+    """
+
+    ROOT = "hpf.topN_batch"
+    COUNTERS = ("users", "chunks", "bytes_to_device", "bytes_to_host")
+
+    users: int = 0
+    chunks: int = 0

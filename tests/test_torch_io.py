@@ -274,3 +274,7 @@ def test_profile_dir_writes_a_trace(tmp_path):
     assert trace.stat().st_size > 0
     events = json.loads(trace.read_text())["traceEvents"]
     assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    # the trace covers the whole fit: the pre-loop and the copy back too
+    names = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    assert {"hpf.fit", "hpf.fit.reindex", "hpf.fit.init_state", "hpf.fit.copy_back",
+            "hpf.fit.metadata"} <= names
