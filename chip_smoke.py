@@ -26,7 +26,11 @@ non-zero, with no result line):
    kernel checked and
    timed against its plain version at the shapes of that fit, and the
    kernels' digamma against scipy's (and the stepwise form it replaced)
-   on a log sweep of [1e-4, 1e7] and on the fit's shapes;
+   on a log sweep of [1e-4, 1e7] and on the fit's shapes; then the seeded
+   start drawn on the card (K14) at that shape in float32 and at phase 2's
+   in float64: bit-equal to numpy's draw, the kernel's time beside its
+   bound and beside the plain figure (numpy's draw and affine passes and
+   the state's upload), and ``initialize_state``'s wall on the card;
 3b. the SVI path at the same shape, 1% of the triplets held out as a
    validation set: ``HPF(users_per_batch=100_000, items_per_batch=40_000,
    stop_crit='val-llk', ...).fit(train, val_set=val)``, ``eval_llk``,
@@ -146,6 +150,11 @@ non-zero, with no result line):
    on the main paths, in all and by path; ``k30``: the same figures from
    phase 3l), and the result line.
 
+``python3 chip_smoke.py --seeded-start`` runs phase 1's build and the seeded
+start alone: K14's checks and times as in phase 3, then the full-batch fit
+of phase 3 from the card's start and from the host's (its phases,
+``device_draws``, ``bytes_to_device``; the factors bit-equal).
+
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
 
@@ -249,6 +258,8 @@ REPLACES = {
                            "hpfrec_tpu/parallel/table_sharded.py:357"),
     "table_sharded_llk_parts": ("hpfrec_tpu_torch/parallel/table_sharded.py",
                                 "hpfrec_tpu/parallel/table_sharded.py:566"),
+    "mt19937_init": ("hpfrec_tpu_torch/csrc/mt19937_init.cu",
+                     "none (hpfrec_tpu/models/state.py:initialize_state draws on the host)"),
 }
 STATE_NAMES = ("Theta", "Beta", "Gamma_shp", "Gamma_rte", "Lambda_shp", "Lambda_rte", "k_rte",
                "t_rte")
@@ -1194,6 +1205,135 @@ def persistence_small(small):
             raise AssertionError("profile_dir: the trace names no port kernel")
 
 
+def seeded_start_suite(dev, reps=3):
+    """K14, the seeded start drawn on the card: at the MillionSong
+    TasteProfile shape in float32 and at phase 2's shape in float64, the
+    six tensors of ``initialize_state`` on the card against numpy's draw on
+    the host, bit for bit; the kernel alone (CUDA events, one launch into
+    preallocated tables) beside its bound (the tables' bytes written) and
+    its ns a recurrence step; the plain figure, numpy's draw and affine
+    passes (``initialize_state`` on the CPU) plus the state's upload, and
+    ``initialize_state``'s wall on the card (the host's seeding, the key's
+    copy, the launch, the fills), each on the host clock.  Returns the
+    float32 figures, with the float64 ones under "float64"."""
+    import torch
+
+    from hpfrec_tpu_torch import _cuda
+    from hpfrec_tpu_torch.models.state import Hyperparams, initialize_state
+    from hpfrec_tpu_torch.ops import mt19937 as MT
+
+    hp = Hyperparams(k=K)
+    out = {}
+    for dtype, (nU, nI) in ((np.float32, (MILLIONSONG["nU"], MILLIONSONG["nI"])),
+                            (np.float64, (26_000, 9_700))):
+        name = np.dtype(dtype).name
+        tdt = torch.float32 if dtype == np.float32 else torch.float64
+        walls = {}
+        for label, fn in (("card", lambda: initialize_state(nU, nI, hp, 123, dtype, dev)),
+                          ("card again", lambda: initialize_state(nU, nI, hp, 123, dtype, dev)),
+                          ("host draw", lambda: initialize_state(nU, nI, hp, 123, dtype))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = fn()
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+            if label == "card":
+                card = st
+        host = st
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up = [a.to(dev) for a in host]
+        torch.cuda.synchronize()
+        walls["upload"] = time.perf_counter() - t0
+        if not all(torch.equal(c, u) for c, u in zip(card, up)):
+            raise AssertionError(f"K14 {name}: the card's start differs from numpy's")
+        del card, up, host, st
+
+        g = np.random.Generator(np.random.MT19937(seed=123))
+        mt = g.bit_generator.state["state"]
+        key = torch.from_numpy(mt["key"].view(np.int32)).to(dev)
+        tables = [torch.empty(n * K, dtype=tdt, device=dev) for n in (nU, nI, nU, nI)]
+        scratch = torch.empty(2 * (nU + nI) * K * MT.words_per_value(tdt), dtype=torch.int32,
+                              device=dev)
+
+        def kern():
+            _cuda.launch("mt19937_init", tdt, None, key, int(mt["pos"]), scratch, *tables,
+                         nU * K, nI * K, hp.a_prime, hp.c_prime)
+
+        ms = cuda_ms(kern, reps)
+        split = {kernel_name(key_): round(t, 4) for t, key_ in kernel_split(kern, reps)}
+        words = 2 * (nU + nI) * K * MT.words_per_value(tdt)
+        steps = -(-words // (MT.MT_LAG - MT.words_per_value(tdt) + 1))
+        written = nbytes(*tables)
+        b_ms, b_by = bound(written + key.numel() * 4, 0, name)
+        plain_ms = (walls["host draw"] + walls["upload"]) * 1e3
+        out[name] = dict(max_abs_err=0.0, max_rel_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         bytes=int(written + key.numel() * 4), ops=0, words=int(words),
+                         steps=int(steps), ns_per_step=ms * 1e6 / steps,
+                         init_state_card_s=walls["card again"],
+                         init_state_card_first_s=walls["card"],
+                         host_draw_s=walls["host draw"], upload_s=walls["upload"],
+                         split_ms=split)
+        print("  mt19937_init         %s: %d x %d x %d, bit-equal to numpy's draw  kernel %.4f ms"
+              " (%d words, %d steps, %.1f ns a step)  bound %.4f ms (%s; %d bytes written)  "
+              "plain %.1f ms (numpy draw and affine passes %.1f ms, upload %.1f ms)  "
+              "initialize_state on the card %.1f ms (first call %.1f ms)"
+              % (name, nU, nI, K, ms, words, steps, ms * 1e6 / steps, b_ms, b_by, written,
+                 plain_ms, walls["host draw"] * 1e3, walls["upload"] * 1e3,
+                 walls["card again"] * 1e3, walls["card"] * 1e3))
+        print("    by kernel (ms, torch.profiler):", json.dumps(split))
+        del tables, scratch, key
+        torch.cuda.empty_cache()
+    return dict(out["float32"], float64=out["float64"])
+
+
+def seeded_start_main():
+    """``--seeded-start``: the build, K14's checks and times, and phase 3's
+    fit from the card's start and from the host's."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --seeded-start: needs a CUDA card", file=sys.stderr)
+        return 1
+    from hpfrec_tpu_torch import HPF, _cuda
+    from hpfrec_tpu_torch.models import hpf as H
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print("[1] card (nvidia-smi name, power.limit):", smi.splitlines()[0])
+    t0 = time.perf_counter()
+    _cuda.load()
+    print("[1] kernels built/loaded in %.1f s" % (time.perf_counter() - t0))
+    dev = torch.device("cuda")
+    print("[K14] the seeded start on the card")
+    res = seeded_start_suite(dev)
+    coo = powerlaw_coo(**MILLIONSONG, seed=0)
+    orig = H.initialize_state
+    fits = {}
+    for label in ("card", "host", "card again"):
+        if label == "host":
+            H.initialize_state = lambda nU, nI, hp, seed, dtype, device: orig(nU, nI, hp, seed,
+                                                                             dtype)
+        m = HPF(k=K, stop_crit="train-llk", check_every=5, maxiter=10, random_seed=1,
+                device="cuda", verbose=False).fit(coo)
+        H.initialize_state = orig
+        st = m.fit_stats_
+        fits[label] = m
+        print("[K14] fit from the %s start: wall %.3f s, device_draws %d, bytes_to_device %d, "
+              "phases (s) %s" % (label, st.wall_seconds, st.device_draws, st.bytes_to_device,
+                                 json.dumps({k: round(v, 4) for k, v in st.phases.items()})))
+    a, b = fits["card"], fits["host"]
+    if not (np.array_equal(a.Theta, b.Theta) and np.array_equal(a.Beta, b.Beta)):
+        raise AssertionError("the fits from the card's and the host's start differ in bits")
+    print("[K14] the fits' Theta and Beta bit-equal")
+    print(json.dumps({"mt19937_init": res}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def layouts_for(coo, dtype, device):
     from hpfrec_tpu_torch.ops.ell import build_layouts, layout_slots, to_device
     from hpfrec_tpu_torch.utils.data import process_data
@@ -1239,6 +1379,7 @@ def kernel_counters():
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as E
     from hpfrec_tpu_torch.ops import metrics as M
+    from hpfrec_tpu_torch.ops import mt19937 as MT
     from hpfrec_tpu_torch.ops import svi as S
     from hpfrec_tpu_torch.ops import topk as T
     from hpfrec_tpu_torch.parallel import engine as P
@@ -1260,7 +1401,8 @@ def kernel_counters():
                 "ring_table_sums": TS.ring_table_sums,
                 "table_sharded_step": TS.table_sharded_step,
                 "table_sharded_llk_parts": TS.table_sharded_llk_parts,
-                "cross_rank_colsum": TS.cross_rank_colsum}
+                "cross_rank_colsum": TS.cross_rank_colsum,
+                "mt19937_init": MT.mt19937_tables}
     counters = {name: (w, "launches") for name, w in wrappers.items()}
     counters.update({"ell_phi_sums_bf16": (E.all_bucket_sums, "launches_bf16"),
                      "ell_phi_sums_offset": (E.all_bucket_sums, "launches_offset"),
@@ -2626,6 +2768,8 @@ def main():
     st = model.fit_stats_
     iters = model.niter + 1
     print("[3] fit phases (s):", json.dumps({k: round(v, 3) for k, v in st.phases.items()}))
+    print("[3] device_draws %d, bytes_to_device %d, bytes_to_host %d"
+          % (st.device_draws, st.bytes_to_device, st.bytes_to_host))
     print("[3] wall %.3f s, %d iterations, %.4f s/iteration (iterations phase), "
           "%.4g nonzero-updates/s (iterations phase), %.4g end to end"
           % (st.wall_seconds, iters, st.phases["iterations"] / iters,
@@ -2681,6 +2825,8 @@ def main():
                   dev, "3")
     del lay_u, lay_i, fitted, model
     torch.cuda.empty_cache()
+    print("[3] the seeded start on the card (K14)")
+    real["mt19937_init"] = seeded_start_suite(dev)
 
     # -- 3b. the SVI path at the MillionSong shape ----------------------------
     stamp("phase 3b")
@@ -3219,7 +3365,7 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "bytes": r["bytes"], "ops": r["ops"],
-                        **{key: r[key] for key in ("coo_train_stream",) if key in r},
+                        **{key: r[key] for key in ("coo_train_stream", "float64") if key in r},
                         **({"k30": {key: ns_real[name][key] for key in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "bytes", "ops")}} if name in ns_real else {})})
@@ -3276,4 +3422,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(sys.argv[2]))
     if sys.argv[1:] == ["--ts-cards"]:
         sys.exit(ts_cards_main())
+    if sys.argv[1:] == ["--seeded-start"]:
+        sys.exit(seeded_start_main())
     sys.exit(main())

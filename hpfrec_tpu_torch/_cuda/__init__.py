@@ -85,6 +85,10 @@ _SIGNATURES = {
     # add_k_rte, maxiter, stop_thr, P, k, out (Theta, G_shp, G_rte, count),
     # phi (or NULL)
     "fold_in": [_P, _P, _P, _P, _P, _P, _D, _D, _D, _D, _I32, _D, _I64, _I32, _P, _P],
+    # key (624 uint32), pos, words (uint32 scratch, a word a float32 value,
+    # two a float64 value), g_rte, l_rte, g_shp, l_shp, n_u, n_i, prior_u,
+    # prior_i: a state's seeded start
+    "mt19937_init": [_P, _I32, _P, _P, _P, _P, _P, _I64, _I64, _D, _D],
 }
 # entry points without a float type: name -> argument types before the stream
 _UNTYPED = {

@@ -554,6 +554,10 @@ class HPF:
             self._resume_meta = None
             if resume:
                 state = self._resume_state()
+            elif dev.type == "cuda" and not (self._table_sharded and not svi_mode):
+                # drawn on the card (K14) by _place_state; the table-sharded
+                # engine splits a host start over its ranks
+                state = None
             else:
                 state = initialize_state(self.nusers, self.nitems, hp, self._fit_seed,
                                          self._dtype)
@@ -743,6 +747,26 @@ class HPF:
                     self.checkpoint_folder, state, iters_done, rng=rng, extra=extra,
                     extra_arrays=extra_arrays))
 
+    def _place_state(self, state, hp, dev, stats) -> VariationalState:
+        """The fit's start on ``dev``, right before its loop: the host state
+        uploaded (``transfer``, counted in ``bytes_to_device``), or where
+        ``_fit`` left none, drawn on the card by K14 from the fit's seed
+        (``init_state``, its words counted in ``device_draws``; nothing
+        uploaded).  Drawn here, after the layouts' uploads, the start is the
+        card's first work of a fit and runs next to the loop."""
+        if state is None:
+            with stats.phase("init_state"):
+                state = initialize_state(self.nusers, self.nitems, hp, self._fit_seed,
+                                         self._dtype, dev)
+            if state.G_shp.is_cuda:
+                stats.device_draws += (2 * (self.nusers + self.nitems) * self.k
+                                       * (np.dtype(self._dtype).itemsize // 4))
+                return state
+        with stats.phase("transfer"):
+            state = VariationalState(*[a.to(dev) for a in state])
+        stats.bytes_to_device += device_bytes(dev, state)
+        return state
+
     def _load_kernels(self, dev, stats):
         with stats.phase("kernel_build"):
             if dev.type == "cuda":
@@ -755,7 +779,8 @@ class HPF:
         with ``gather_dtype='bfloat16'``) or the blocked-COO engine (K7c,
         K3); with a mesh, on the rank's share of the layouts or of the
         stream (K12a, K12c), or with ``shard_tables=True`` on the rank's
-        rows of both tables (K13, ``parallel/table_sharded.py``).  Returns
+        rows of both tables (K13, ``parallel/table_sharded.py``), from the
+        host ``state`` (None: drawn on the card, ``_place_state``).  Returns
         the final state (table-sharded: the rank's padded rows, which
         ``_real_state`` gathers) and a function giving its mean colsums (for
         the train metric)."""
@@ -802,10 +827,12 @@ class HPF:
                 lay_i = to_device(ell_i, dev, self._shard)
             stats.bytes_to_device += device_bytes(dev, lay_u, lay_i)
             self._metric_ell = lay_u
-        with stats.phase("transfer"):
-            state = (ts.shard_state(state) if ts is not None
-                     else VariationalState(*[a.to(dev) for a in state]))
-        stats.bytes_to_device += device_bytes(dev, state)
+        if ts is not None:
+            with stats.phase("transfer"):
+                state = ts.shard_state(state)
+            stats.bytes_to_device += device_bytes(dev, state)
+        else:
+            state = self._place_state(state, hp, dev, stats)
 
         self._last_llk = 0.0
         self._last_rmse = 0.0
@@ -851,8 +878,9 @@ class HPF:
         when both batch sizes are set (item epoch first, the reference's
         parity rule at ``pxi:265-273``).  The numeration arrays are
         shuffled on the host by ``np.random.default_rng(random_seed)``, as
-        in ``hpfrec_tpu``, so the epoch schedule is the same.  Returns the
-        final state and a function giving its mean colsums."""
+        in ``hpfrec_tpu``, so the epoch schedule is the same.  ``state`` is
+        the host start (None: drawn on the card, ``_place_state``).  Returns
+        the final state and a function giving its mean colsums."""
         from ..ops.cavi import side_derive
         from ..ops.ell import build_ell, to_device
         from ..ops.svi import epoch_side, svi_run_epoch
@@ -904,8 +932,8 @@ class HPF:
                 self._metric_ell = to_device(ell_m, dev, self._shard)
             side_u = epoch_side(indptr_u, indices_u, data_u, dt, dev) if use_users else None
             side_i = epoch_side(indptr_i, indices_i, data_i, dt, dev) if use_items else None
-            state = VariationalState(*[a.to(dev) for a in state])
-        stats.bytes_to_device += device_bytes(dev, self._metric_ell, side_u, side_i, state)
+        stats.bytes_to_device += device_bytes(dev, self._metric_ell, side_u, side_i)
+        state = self._place_state(state, hp, dev, stats)
 
         def colsums(st):
             return lambda: (side_derive(st.G_shp, st.G_rte)[1],

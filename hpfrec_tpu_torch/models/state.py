@@ -1,10 +1,15 @@
 """Variational state for Hierarchical Poisson Factorization (torch).
 
 Port of ``hpfrec_tpu/models/state.py``: the same ``Hyperparams``, a
-``VariationalState`` of six tensors, and the seeded MT19937 init drawn on
-the host with numpy in the reference's order, so that a seed and dtype
-give bit-identical starting parameters in both packages; and the
-``default_rng`` draws of the rows that ``partial_fit`` grows.
+``VariationalState`` of six tensors, and the seeded MT19937 init in the
+reference's order, so that a seed and dtype give bit-identical starting
+parameters in both packages; and the ``default_rng`` draws of the rows
+that ``partial_fit`` grows.  Where the start is drawn: for a CUDA device,
+on the card (K14, ``ops/mt19937.py``), from the key of the generator that
+numpy seeds on the host; for the CPU, on the host with numpy, as the JAX
+package draws it.  ``HPF.fit`` asks for the card on a CUDA device, but in
+the table-sharded engine, which splits a host state over its ranks; the
+rows that ``partial_fit`` grows are drawn on the host.
 """
 
 from __future__ import annotations
@@ -97,11 +102,27 @@ def initialize_state(nusers: int, nitems: int, hp: Hyperparams,
     """Seeded random initialization (reference
     ``cython_loops.pxi:117-143``): the MT19937 bitstream and draw order
     (G_rte, L_rte, G_shp, L_shp as ``prior + 0.01*U(0,1)``) of
-    ``hpfrec_tpu.models.state.initialize_state``, drawn on the host and
-    then moved to ``device``."""
+    ``hpfrec_tpu.models.state.initialize_state``.  Numpy seeds the
+    generator on the host either way; on a CUDA ``device`` the kernel
+    draws the four tables there from the generator's key (nothing is
+    drawn or uploaded but the 2.5 KB key), elsewhere numpy draws them on
+    the host and they are moved to ``device``.  Both give the same bits."""
     seed = random_seed if (random_seed is not None and random_seed > 0) else None
     rng = np.random.Generator(np.random.MT19937(seed=seed))
     k = hp.k
+
+    if torch.device(device).type == "cuda":
+        from ..ops.mt19937 import mt19937_tables
+
+        tdt = torch.float32 if np.dtype(dtype) == np.float32 else torch.float64
+        mt = rng.bit_generator.state["state"]
+        G_rte, L_rte, G_shp, L_shp = mt19937_tables(
+            mt["key"], mt["pos"], nusers * k, nitems * k, hp.a_prime, hp.c_prime, tdt, device)
+        return VariationalState(
+            G_shp.view(nusers, k), G_rte.view(nusers, k), L_shp.view(nitems, k),
+            L_rte.view(nitems, k),
+            torch.full((nusers, 1), hp.b_prime, dtype=tdt, device=G_rte.device),
+            torch.full((nitems, 1), hp.d_prime, dtype=tdt, device=G_rte.device))
 
     k_rte = np.full((nusers, 1), hp.b_prime, dtype=dtype)
     t_rte = np.full((nitems, 1), hp.d_prime, dtype=dtype)

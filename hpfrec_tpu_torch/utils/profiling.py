@@ -149,8 +149,10 @@ class FitStats(CallStats):
 
     - ``reindex``        host triplet ingest, filtering and reindexing
     - ``valset``         validation-set ingest and upload
-    - ``init_state``     the state's seeded start on the host (or the
-      checkpoint's, on resume)
+    - ``init_state``     the state's seeded start: on a CUDA device drawn
+      on the card by K14 from numpy's seeded key (the host draw in the
+      table-sharded engine), on the CPU drawn by numpy; or the
+      checkpoint's, on resume
     - ``host_pack``      CSR builds + ELL packing (full batch: both sides
       concurrently, this is the span; SVI: the CSR/CSC and the metric
       layout)
@@ -165,16 +167,22 @@ class FitStats(CallStats):
     - ``metadata``       the seen-items CSR (``keep_data``) and the id dicts
 
     Counters: ``nnz``, ``iterations``, ``checks`` (convergence checks
-    run), ``bytes_to_device`` (the layouts, the validation set and the
-    state) and ``bytes_to_host`` (the state's copy back).
+    run), ``bytes_to_device`` (the layouts, the validation set and a
+    state drawn on the host; not a start drawn on the card, nor the 2.5
+    KB key it is drawn from), ``bytes_to_host`` (the state's copy back)
+    and ``device_draws`` (the MT19937 words drawn on the card for the
+    start: ``2 (nU + nI) k``, twice that in float64; 0 where the host drew
+    it).
     """
 
     ROOT = "hpf.fit"
-    COUNTERS = ("nnz", "iterations", "checks", "bytes_to_device", "bytes_to_host")
+    COUNTERS = ("nnz", "iterations", "checks", "bytes_to_device", "bytes_to_host",
+                "device_draws")
 
     nnz: int = 0
     iterations: int = 0
     checks: int = 0
+    device_draws: int = 0
 
     @property
     def nnz_per_second(self) -> float:

@@ -15,8 +15,15 @@ ranges too), fully masked rows, rows with fewer unseen items than n and
 every size class of n on both paths, the fused path bit-equal to the
 three-kernel path, the large-n select on crowded, tied and -inf rows
 against a stable sort, the fold-in loop (K10, also from and to host
-arrays as HPF calls it) and the pair reductions (K11; rowsum_dot_rows'
-device finish also over blocks past the last pair).
+arrays as HPF calls it), the pair reductions (K11; rowsum_dot_rows'
+device finish also over blocks past the last pair) and the seeded MT19937
+start drawn on the card (K14): the six tensors of ``initialize_state`` on
+the card equal to the CPU's numpy draw bit for bit, in float32 and
+float64, for seed 123 and a pinned None / 0, at k = 1 and 7, tables under
+one twist, ending in mid-step and mid-twist, odd value counts in float64,
+and at the TasteProfile shape (1,019,318 x 376,768 x 50, float32); and a
+CUDA fit that takes the card's start, with factors equal to the same fit
+from the host's draw.
 
 The ``gpu`` tests skip without a CUDA device; the card runs them with
 ``python -m pytest tests/test_torch_kernels.py -q --noconftest``
@@ -1731,3 +1738,91 @@ def test_predict_pairs_every_grid(cuda, dtype, k, n):
         off = torch.empty(500 * k + 1, dtype=dtype, device=cuda)[1:].view(500, k)
         off.copy_(th)
         assert torch.equal(M.predict_pairs(off, be, iu, ii), got)
+
+
+# (nU, nI, k): k = 1 and 7; nU k under one 624-word twist; tables that end
+# in mid-step (227 words) and mid-twist; odd nU k, so odd float64 value
+# counts; several twists
+MT_SHAPES = [(5, 3, 1), (100, 37, 1), (31, 17, 7), (113, 61, 7), (89, 227, 7), (1000, 613, 7)]
+
+
+def _pin_unseeded(monkeypatch, seed):
+    """Seeds None and 0 draw fresh OS entropy; pin the generator so that
+    the card's and the host's starts can be compared."""
+    if seed is None or seed <= 0:
+        orig = np.random.MT19937
+        monkeypatch.setattr(np.random, "MT19937",
+                            lambda seed=None: orig(seed=99 if seed is None else seed))
+
+
+def _assert_state_bits(got, ref):
+    for g, r in zip(got, ref):
+        assert g.is_cuda and not r.is_cuda and g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("seed", [None, 0, 123])
+@pytest.mark.parametrize("nU,nI,k", MT_SHAPES)
+def test_seeded_start_on_the_card_equals_numpy(cuda, monkeypatch, dtype, seed, nU, nI, k):
+    from hpfrec_tpu_torch.models import state as ST
+    from hpfrec_tpu_torch.ops import mt19937 as MT
+
+    _pin_unseeded(monkeypatch, seed)
+    hp = ST.Hyperparams(a=0.4, a_prime=0.2, b_prime=1.5, c=0.35, c_prime=0.25, d_prime=0.9,
+                        k=k)
+    n0 = MT.mt19937_tables.launches
+    got = ST.initialize_state(nU, nI, hp, seed, dtype, device="cuda")
+    assert MT.mt19937_tables.launches == n0 + 1
+    _assert_state_bits(got, ST.initialize_state(nU, nI, hp, seed, dtype, device="cpu"))
+    # and the plain version, from the same key
+    g = np.random.Generator(np.random.MT19937(seed=seed if seed else None))
+    mt = g.bit_generator.state["state"]
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    plain = MT.mt19937_tables(mt["key"], mt["pos"], nU * k, nI * k, 0.2, 0.25, tdt, "cpu")
+    for a, b in zip((got.G_rte, got.L_rte, got.G_shp, got.L_shp), plain):
+        assert torch.equal(a.reshape(-1).cpu(), b)
+
+
+@pytest.mark.gpu
+def test_seeded_start_on_the_card_at_the_tasteprofile_shape(cuda):
+    from hpfrec_tpu_torch.models import state as ST
+
+    hp = ST.Hyperparams(k=50)
+    got = ST.initialize_state(1_019_318, 376_768, hp, 123, np.float32, device="cuda")
+    _assert_state_bits(got, ST.initialize_state(1_019_318, 376_768, hp, 123, np.float32,
+                                                device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_float", [True, False])
+def test_a_cuda_fit_starts_on_the_card(cuda, monkeypatch, use_float):
+    """A CUDA fit draws its start with one K14 launch, counts its words in
+    ``device_draws`` and does not upload it; its factors equal those of
+    the same fit started from the host's draw."""
+    from scipy.sparse import coo_array
+
+    from hpfrec_tpu_torch import HPF
+    from hpfrec_tpu_torch.models import hpf as H
+    from hpfrec_tpu_torch.ops import mt19937 as MT
+
+    y, iu, ii = _counts(300, 120, 4000, seed=1)
+    X = coo_array((y, (iu, ii)), shape=(300, 120))
+    kw = dict(k=7, maxiter=20, check_every=10, stop_crit="train-llk", random_seed=5,
+              use_float=use_float, verbose=False, device="cuda")
+    n0 = MT.mt19937_tables.launches
+    card = HPF(**kw).fit(X)
+    assert MT.mt19937_tables.launches == n0 + 1
+    nU, nI = card.nusers, card.nitems
+    assert card.fit_stats_.device_draws == 2 * (nU + nI) * 7 * (1 if use_float else 2)
+
+    orig = H.initialize_state
+    monkeypatch.setattr(H, "initialize_state",
+                        lambda nU, nI, hp, seed, dtype, device: orig(nU, nI, hp, seed, dtype))
+    host = HPF(**kw).fit(X)
+    assert MT.mt19937_tables.launches == n0 + 1
+    assert host.fit_stats_.device_draws == 0
+    state_bytes = (2 * (nU + nI) * 7 + nU + nI) * (4 if use_float else 8)
+    assert host.fit_stats_.bytes_to_device - card.fit_stats_.bytes_to_device == state_bytes
+    assert np.array_equal(card.Theta, host.Theta) and np.array_equal(card.Beta, host.Beta)
