@@ -878,12 +878,15 @@ class HPF:
         when both batch sizes are set (item epoch first, the reference's
         parity rule at ``pxi:265-273``).  The numeration arrays are
         shuffled on the host by ``np.random.default_rng(random_seed)``, as
-        in ``hpfrec_tpu``, so the epoch schedule is the same.  ``state`` is
-        the host start (None: drawn on the card, ``_place_state``).  Returns
-        the final state and a function giving its mean colsums."""
+        in ``hpfrec_tpu``, so the epoch schedule is the same; an epoch's
+        shuffle and ``epoch_order`` run in the ``epoch_offsets`` phase
+        inside the epoch's, and ``stats.batches`` counts its batches.
+        ``state`` is the host start (None: drawn on the card,
+        ``_place_state``).  Returns the final state and a function giving
+        its mean colsums."""
         from ..ops.cavi import side_derive
         from ..ops.ell import build_ell, to_device
-        from ..ops.svi import epoch_side, svi_run_epoch
+        from ..ops.svi import epoch_order, epoch_side, svi_run_epoch
 
         dt = self._dtype
         use_users = self.users_per_batch > 0
@@ -967,17 +970,18 @@ class HPF:
             else:
                 user_epoch = use_users
             if user_epoch:
-                with stats.phase("user_epochs"):
-                    rng.shuffle(users_numeration)
-                    state = svi_run_epoch(state, side_u, users_numeration,
-                                          self.users_per_batch, step, hp, True,
-                                          phi_sums=svi_sums, shard=self._shard)
+                name, side, numeration, rows = ("user_epochs", side_u, users_numeration,
+                                                self.users_per_batch)
             else:
-                with stats.phase("item_epochs"):
-                    rng.shuffle(items_numeration)
-                    state = svi_run_epoch(state, side_i, items_numeration,
-                                          self.items_per_batch, step, hp, False,
-                                          phi_sums=svi_sums, shard=self._shard)
+                name, side, numeration, rows = ("item_epochs", side_i, items_numeration,
+                                                self.items_per_batch)
+            with stats.phase(name):
+                with stats.phase("epoch_offsets"):
+                    rng.shuffle(numeration)
+                    order = epoch_order(side, numeration, dev)
+                state = svi_run_epoch(state, side, order, rows, step, hp, user_epoch,
+                                      phi_sums=svi_sums, shard=self._shard)
+            stats.batches += -(-side.n_rows // rows)
             stop = False
             if self.check_every > 0 and ((i + 1) % self.check_every) == 0:
                 stats.checks += 1

@@ -6,7 +6,8 @@ items) runs, with no host synchronization:
 
 - **K9** ``build_epoch_buffers`` (``csrc/svi_epoch.cu``): the side's
   nonzeros in shuffled-row order, gathered from its CSR arrays, which stay
-  on the device; the host ships the permutation and its row offsets.
+  on the device; the host ships the permutation and its row offsets
+  (``epoch_order``, the epoch's host part, which the caller runs first).
 - per batch of ``batch_rows`` shuffled rows: both sides' exp tables and
   mean colsums from K3's derive form (``ops/cavi.py:side_derive``);
 - **K7** ``batch_phi_sums`` (``csrc/svi_phi_sums.cu``): the batch's phi
@@ -32,6 +33,7 @@ row offsets that the host computes with numpy while it shuffles.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -320,30 +322,45 @@ def batch_multipliers(n_rows: int, batch_rows: int, dtype) -> np.ndarray:
     return (float(n_rows) / sizes).astype(dtype)
 
 
-def svi_run_epoch(state: VariationalState, side: EpochSide, perm: np.ndarray,
+class EpochOrder(NamedTuple):
+    """An epoch's shuffled row order: the permuted rows' offsets on the host
+    (``epoch_offsets``), the permutation and the offsets on the device
+    (int32)."""
+
+    offsets: np.ndarray
+    perm_d: torch.Tensor
+    offsets_d: torch.Tensor
+
+
+def epoch_order(side: EpochSide, perm: np.ndarray, device) -> EpochOrder:
+    """The host's part of an epoch over ``side``'s rows in the order
+    ``perm``: the offsets, and the permutation's and the offsets' uploads."""
+    device = torch.device(device)
+    offsets = epoch_offsets(side.deg, perm)
+    return EpochOrder(offsets, _upload(perm, np.int32, device),
+                      _upload(offsets, np.int32, device))
+
+
+def svi_run_epoch(state: VariationalState, side: EpochSide, order: EpochOrder,
                   batch_rows: int, step: float, hp: Hyperparams,
                   user_side: bool, mark=None, phi_sums=batch_phi_sums,
                   shard=(0, 1)) -> VariationalState:
-    """One epoch over ``side``'s rows in the shuffled order ``perm``
-    (reference ``pxi:275-377``; JAX ``svi_run_batches``): K9 once, then for
-    each batch K3 derive on both sides, K7, the row mask and K8.  The host
-    issues the launches and never waits on the device.  ``mark``, if given,
-    is called with a stage's name as soon as the stage is issued (the
-    profile script records a CUDA event there).  In a data-parallel fit
-    every rank runs the epoch on its replicated state, ``phi_sums`` is K12b
-    (``parallel.engine.sharded_svi_phi_sums``), and it gets the share of
-    each batch's rows that falls to rank ``shard[0]`` of ``shard[1]``
-    (``utils.data.share``)."""
+    """One epoch over ``side``'s rows in the shuffled order ``order``
+    (``epoch_order``; reference ``pxi:275-377``; JAX ``svi_run_batches``):
+    K9 once, then for each batch K3 derive on both sides, K7, the row mask
+    and K8.  The host issues the launches and never waits on the device.
+    ``mark``, if given, is called with a stage's name as soon as the stage
+    is issued (the profile script records a CUDA event there).  In a
+    data-parallel fit every rank runs the epoch on its replicated state,
+    ``phi_sums`` is K12b (``parallel.engine.sharded_svi_phi_sums``), and it
+    gets the share of each batch's rows that falls to rank ``shard[0]`` of
+    ``shard[1]`` (``utils.data.share``)."""
     from ..utils.data import share
 
     mark = mark or (lambda stage: None)
-    device = state.G_shp.device
     dt = state.G_shp.dtype
     n_rows = side.n_rows
-    offsets_h = epoch_offsets(side.deg, perm)
-    perm_d = _upload(perm, np.int32, device)
-    offsets_d = _upload(offsets_h, np.int32, device)
-    mark("host offsets + upload")
+    offsets_h, perm_d, offsets_d = order
     e_y, e_row, e_col = build_epoch_buffers(side.y, side.cols, side.indptr, perm_d,
                                             offsets_d)
     mark("K9 epoch gather")

@@ -82,12 +82,14 @@ class CallStats:
     """The wall and the phases of one call, and what it moved.
 
     ``wall_seconds`` spans the whole call; ``phases`` maps a phase's name
-    to its seconds (a phase run twice adds up), and ``wall_seconds -
-    sum(phases.values())`` is unattributed glue.  ``bytes_to_device`` /
+    to its seconds (a phase run twice adds up), and ``unattributed_seconds``
+    is the glue outside every phase.  A phase named in ``NESTED`` runs
+    inside another phase, whose seconds hold its own.  ``bytes_to_device`` /
     ``bytes_to_host`` count the call's copies between host and device."""
 
     ROOT = "call"  # the call's annotation; its phases' are ROOT + "." + name
     COUNTERS = ("bytes_to_device", "bytes_to_host")
+    NESTED = ()
 
     wall_seconds: float = 0.0
     phases: dict = field(default_factory=dict)
@@ -123,6 +125,13 @@ class CallStats:
     def add_phase(self, name: str, seconds: float):
         self.phases[name] = self.phases.get(name, 0.0) + seconds
 
+    @property
+    def unattributed_seconds(self) -> float:
+        """``wall_seconds`` less the seconds of the phases that no other
+        phase holds."""
+        return self.wall_seconds - sum(s for name, s in self.phases.items()
+                                       if name not in self.NESTED)
+
     def phase_report(self) -> str:
         """One line per phase, largest first, with share of wall time, then
         the counters."""
@@ -132,7 +141,7 @@ class CallStats:
         for name, s in sorted(self.phases.items(), key=lambda kv: -kv[1]):
             lines.append("  %-20s %8.2fs  (%4.1f%%)"
                          % (name, s, 100.0 * s / self.wall_seconds))
-        other = self.wall_seconds - sum(self.phases.values())
+        other = self.unattributed_seconds
         lines.append("  %-20s %8.2fs  (%4.1f%%)"
                      % ("(unattributed)", other, 100.0 * other / self.wall_seconds))
         lines.append("  " + ", ".join("%s %d" % (c, getattr(self, c)) for c in self.COUNTERS))
@@ -160,6 +169,9 @@ class FitStats(CallStats):
     - ``transfer``       host->device upload of the layouts and the state
     - ``iterations``     the CAVI iteration blocks (full batch)
     - ``user_epochs`` / ``item_epochs``  the SVI epochs of each side
+    - ``epoch_offsets``  inside each SVI epoch's phase: the host's part of
+      the epoch (the shuffle, the permuted rows' offsets, the permutation's
+      and the offsets' uploads), before K9 and the batches are issued
     - ``metric_checks``  convergence checks + the final metric
     - ``checkpoints``    checkpoint writes
     - ``copy_back``      the state's copy to the host, Theta and Beta
@@ -172,17 +184,20 @@ class FitStats(CallStats):
     KB key it is drawn from), ``bytes_to_host`` (the state's copy back)
     and ``device_draws`` (the MT19937 words drawn on the card for the
     start: ``2 (nU + nI) k``, twice that in float64; 0 where the host drew
-    it).
+    it) and ``batches`` (the SVI batches run, each epoch's row count over
+    its batch size rounded up; 0 in full batch).
     """
 
     ROOT = "hpf.fit"
     COUNTERS = ("nnz", "iterations", "checks", "bytes_to_device", "bytes_to_host",
-                "device_draws")
+                "device_draws", "batches")
+    NESTED = ("epoch_offsets",)
 
     nnz: int = 0
     iterations: int = 0
     checks: int = 0
     device_draws: int = 0
+    batches: int = 0
 
     @property
     def nnz_per_second(self) -> float:

@@ -6,10 +6,11 @@ At the MillionSong TasteProfile shape (chip_smoke.py's data, k=50,
 float32, batches of 100,000 users / 40,000 items) it runs one user epoch
 and one item epoch of ``ops.svi.svi_run_epoch`` as a warm-up, then:
 
-1. the same two epochs stage by stage: ``svi_run_epoch``'s ``mark`` hook
-   records a CUDA event after each stage it issues (the host offsets and
-   upload and K9 once per epoch; per batch: K3 derive of both sides, K7
-   with its sort, the row mask, K8), and the epoch's wall time on the host
+1. the same two epochs stage by stage: a CUDA event after the epoch's
+   host part (``ops.svi.epoch_order``: the offsets and their upload), then
+   ``svi_run_epoch``'s ``mark`` hook records one after each stage it
+   issues (K9 once per epoch; per batch: K3 derive of both sides, K7 with
+   its sort, the row mask, K8), and the epoch's wall time on the host
    clock (ending in a synchronize);
 2. the two epochs under ``torch.profiler``: device time by kernel name and
    the device's busy share of the window (the sum of the device-side
@@ -36,7 +37,7 @@ def stage_times(state, side, perm, batch_rows, hp, user_side):
     stage it issues; returns (state, {stage: ms}, wall seconds)."""
     import torch
 
-    from hpfrec_tpu_torch.ops.svi import svi_run_epoch
+    from hpfrec_tpu_torch.ops.svi import epoch_order, svi_run_epoch
 
     events = []
 
@@ -48,7 +49,9 @@ def stage_times(state, side, perm, batch_rows, hp, user_side):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mark("start")
-    state = svi_run_epoch(state, side, perm, batch_rows, 0.4, hp, user_side, mark=mark)
+    order = epoch_order(side, perm, state.G_shp.device)
+    mark("host offsets + upload")
+    state = svi_run_epoch(state, side, order, batch_rows, 0.4, hp, user_side, mark=mark)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = {}
@@ -65,7 +68,7 @@ def main():
         return 1
     from hpfrec_tpu_torch import _cuda
     from hpfrec_tpu_torch.models.state import Hyperparams, initialize_state
-    from hpfrec_tpu_torch.ops.svi import epoch_side, svi_run_epoch
+    from hpfrec_tpu_torch.ops.svi import epoch_order, epoch_side, svi_run_epoch
     from hpfrec_tpu_torch.utils.data import build_csr, process_data
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,8 +86,8 @@ def main():
     epochs = ((side_u, SVI_BATCHES["users_per_batch"], True, "user"),
               (side_i, SVI_BATCHES["items_per_batch"], False, "item"))
     for side, rows, user_side, _ in epochs:  # warm-up
-        state = svi_run_epoch(state, side, rng.permutation(side.n_rows), rows, 0.5, hp,
-                              user_side)
+        state = svi_run_epoch(state, side, epoch_order(side, rng.permutation(side.n_rows), dev),
+                              rows, 0.5, hp, user_side)
     torch.cuda.synchronize()
 
     print("nonzeros %d, k=%d, float32, batches %s" % (p.y.shape[0], K, SVI_BATCHES))
@@ -92,7 +95,8 @@ def main():
         perm = rng.permutation(side.n_rows)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = svi_run_epoch(state, side, perm, rows, 0.4, hp, user_side)
+        state = svi_run_epoch(state, side, epoch_order(side, perm, dev), rows, 0.4, hp,
+                              user_side)
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
         state, stages, wall = stage_times(state, side, perm, rows, hp, user_side)
@@ -111,7 +115,8 @@ def main():
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for (side, rows, user_side, _), perm in zip(epochs, perms):
-            state = svi_run_epoch(state, side, perm, rows, 0.3, hp, user_side)
+            state = svi_run_epoch(state, side, epoch_order(side, perm, dev), rows, 0.3, hp,
+                                  user_side)
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
     # device-side events only (kernels, copies, fills): a host op's self

@@ -13,7 +13,7 @@ commit unpacked, e.g. ``git archive <commit> | tar -x -C _cmp/parent``) and
 of this tree, in the order DIR, this, this, DIR, and ends with a table of
 every figure side by side.  Only public signatures are used
 (``epoch_side``, ``epoch_offsets``, ``build_epoch_buffers``,
-``svi_run_epoch``, ``llk_rmse_sums``, ``predict_pairs``, ``coo_stream``,
+``epoch_order``, ``svi_run_epoch``, ``llk_rmse_sums``, ``predict_pairs``, ``coo_stream``,
 ``device_blocked_coo``, ``HPF``), so a parent tree times the same way.
 
 Each turn builds chip_smoke.py's MillionSong TasteProfile data (its seed;
@@ -26,9 +26,9 @@ Each turn builds chip_smoke.py's MillionSong TasteProfile data (its seed;
    s/iteration and factor digest;
 2. K9 over a user epoch and an item epoch of the training set (a seeded
    permutation each), float32 and float64: both sides and each side alone,
-   CUDA events, and a digest of the three outputs' bits; then the ``host
-   offsets + upload`` stage of ``svi_run_epoch`` on the host clock (from
-   the call to its first ``mark``, median of N warm epochs a side);
+   CUDA events, and a digest of the three outputs' bits; then the epoch's
+   host stage, ``epoch_order`` (the offsets and both uploads), on the host
+   clock (median of N warm epochs a side);
 3. K5 on the fitted factors, float32 and float64, ``full_llk`` both ways:
    the validation set (the SVI fit's factors; the plain version's time
    beside) and the COO engine's train stream (38.7M triplets, the COO
@@ -156,9 +156,8 @@ def k9(CS, train, reps, res):
         del sides
         torch.cuda.empty_cache()
 
-    # the host stage beside K9, as svi_run_epoch runs it: from the call to
-    # its first mark, which it calls once the offsets are computed and both
-    # arrays are uploaded
+    # the host stage beside K9, as the fit runs it before svi_run_epoch:
+    # epoch_order, the offsets computed and both arrays uploaded
     state = CS.random_state(pdata.nusers, pdata.nitems, np.float32, dev, seed=3)
     hp = Hyperparams(k=CS.K)
     for (name, indptr, ind, dat, perm), per_batch in zip(
@@ -168,10 +167,9 @@ def k9(CS, train, reps, res):
 
         def epoch():
             t0 = time.perf_counter()
-            marks = []
-            S.svi_run_epoch(state, side, perm, per_batch, 0.5, hp, name == "user",
-                            mark=lambda s: marks.append(time.perf_counter()))
-            stage.append((marks[0] - t0) * 1e3)
+            order = S.epoch_order(side, perm, dev)
+            stage.append((time.perf_counter() - t0) * 1e3)
+            S.svi_run_epoch(state, side, order, per_batch, 0.5, hp, name == "user")
         host_ms(epoch, 10)
         key = "host offsets + upload, %s epoch ms" % name
         res[key] = float(np.median(stage[1:]))

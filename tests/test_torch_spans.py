@@ -61,7 +61,7 @@ def test_a_fit_is_accounted_from_entry_to_return(mode):
     m = _model(**FITS[mode]).fit(_counts())
     st = m.fit_stats_
     assert set(st.phases) >= NEW_PHASES | {"reindex", "transfer", "metric_checks"}
-    assert sum(st.phases.values()) <= st.wall_seconds
+    assert st.unattributed_seconds >= 0
     assert st.iterations == m.niter + 1 and st.nnz == _counts().nnz
     assert st.checks == 3
     state = (m.Gamma_shp, m.Gamma_rte, m.Lambda_shp, m.Lambda_rte, m.k_rte, m.t_rte)

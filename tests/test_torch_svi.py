@@ -244,9 +244,9 @@ def test_one_epoch_matches_svi_run_batches(dtype, user_side):
     arrays = _state_arrays(nU, nI, k, dtype, 8)
     perm = np.random.default_rng(9).permutation(n_loc)
     step = 0.37
-    got = S.svi_run_epoch(state_from_numpy(arrays, "cpu"),
-                          S.epoch_side(indptr, cols, y, dtype, "cpu"), perm, B, step,
-                          Hyperparams(k=k), user_side)
+    side = S.epoch_side(indptr, cols, y, dtype, "cpu")
+    got = S.svi_run_epoch(state_from_numpy(arrays, "cpu"), side,
+                          S.epoch_order(side, perm, "cpu"), B, step, Hyperparams(k=k), user_side)
 
     nb = -(-n_loc // B)
     perm_p = np.full(nb * B, perm[-1], dtype=np.int32)
