@@ -30,7 +30,11 @@ non-zero, with no result line):
    start drawn on the card (K14) at that shape in float32 and at phase 2's
    in float64: bit-equal to numpy's draw, the kernel's time beside its
    bound and beside the plain figure (numpy's draw and affine passes and
-   the state's upload), and ``initialize_state``'s wall on the card;
+   the state's upload), and ``initialize_state``'s wall on the card; then
+   a fit's ingest on the card (``ingest_suite``: K15 a side against its
+   bound and its plain version, the two stable key sorts, K15a, K15b, the
+   layouts equal to the host path's, a fit with its ingest on the card and
+   on the host, the factors bit-equal);
 3b. the SVI path at the same shape, 1% of the triplets held out as a
    validation set: ``HPF(users_per_batch=100_000, items_per_batch=40_000,
    stop_crit='val-llk', ...).fit(train, val_set=val)``, ``eval_llk``,
@@ -150,6 +154,11 @@ non-zero, with no result line):
    on the main paths, in all and by path; ``k30``: the same figures from
    phase 3l), and the result line.
 
+``python3 chip_smoke.py --ingest`` runs phase 1's build and phase 3's
+ingest suite alone: K15 (and K15a, K15b, the two stable key sorts) at the
+MillionSong shape, the card's layouts against the host path's, and a fit
+with its ingest on the card and on the host (the factors bit-equal).
+
 ``python3 chip_smoke.py --seeded-start`` runs phase 1's build and the seeded
 start alone: K14's checks and times as in phase 3, then the full-batch fit
 of phase 3 from the card's start and from the host's (its phases,
@@ -260,6 +269,12 @@ REPLACES = {
                                 "hpfrec_tpu/parallel/table_sharded.py:566"),
     "mt19937_init": ("hpfrec_tpu_torch/csrc/mt19937_init.cu",
                      "none (hpfrec_tpu/models/state.py:initialize_state draws on the host)"),
+    "ell_fill": ("hpfrec_tpu_torch/csrc/ell_fill.cu",
+                 "none (hpfrec_tpu/ops/ell.py:build_ell packs on the host)"),
+    "ids_narrow": ("hpfrec_tpu_torch/csrc/ingest.cu",
+                   "none (hpfrec_tpu/utils/data.py:process_data casts on the host)"),
+    "csr_indptr": ("hpfrec_tpu_torch/csrc/ingest.cu",
+                   "none (hpfrec_tpu/utils/data.py:process_data sorts on the host)"),
 }
 STATE_NAMES = ("Theta", "Beta", "Gamma_shp", "Gamma_rte", "Lambda_shp", "Lambda_rte", "k_rte",
                "t_rte")
@@ -1334,6 +1349,189 @@ def seeded_start_main():
     return 0
 
 
+def ingest_suite(coo, dev, reps=3):
+    """K15 and the rest of a fit's ingest on the card at the MillionSong
+    TasteProfile shape (float32), from the triplets in a shuffled order:
+    the upload, filter and checks (K15a) and the two stable key sorts with
+    K15b on the host clock; each key sort alone (``torch.sort(...,
+    stable=True)`` of the int32 ids, CUDA events); K15 a side (one launch
+    into preallocated slabs, CUDA events) against its bound (the CSR read,
+    the segment table read, the slabs written, at 3.35 TB/s) and its plain
+    version on the card; both sides' layouts equal to the host path's
+    (``process_data``, ``build_layouts``, ``to_device``) and K15's slabs to
+    the plain version's, bit for bit; K15a on the shuffled triplets' int32
+    user ids (as a fit calls it) and on an int64 copy of them, and K15b on
+    both sides' sorted keys, each against its plain version on the card
+    (``torch.equal``), its time (CUDA events) beside its bytes bound; then
+    a fit of the shape with the ingest on the card and on the host
+    (phases, ``device_ingest``; the factors bit-equal).  Returns the
+    figures of ``ell_fill`` (K15, both sides summed, with a side's under
+    "user" / "item"), ``ids_narrow`` (K15a on int32 ids, the int64 form's
+    under "int64") and ``csr_indptr`` (K15b, both sides summed), under
+    those names."""
+    import torch
+    from scipy.sparse import coo_array
+
+    from hpfrec_tpu_torch import HPF
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.ops import ingest as G
+    from hpfrec_tpu_torch.utils.data import process_data
+
+    order = np.random.default_rng(11).permutation(coo.nnz)
+    shuffled = coo_array((coo.data[order], (coo.row[order], coo.col[order])), shape=coo.shape)
+    walls = {}
+
+    def clock(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        return out
+
+    for _ in range(2):  # the second pass with the host allocator's pinned blocks warm
+        trip = clock("upload", lambda: G.upload_triplets(shuffled, "train-llk", False,
+                                                          np.float32, dev))
+        sort_ms = {"user": cuda_ms(lambda: torch.sort(trip.ix_u, stable=True), reps)}
+        user, item = clock("sort_sides", lambda: G.sort_sides(trip))
+        sort_ms["item"] = cuda_ms(lambda: torch.sort(user.cols, stable=True), reps)
+        packs = clock("pack_ell", lambda: [E.pack_ell(c.indptr, c.cols, c.vals)
+                                           for c in (user, item)])
+        lays = clock("device_ell", lambda: [E.device_ell(p) for p in packs])
+    host = process_data(shuffled, "train-llk", False, np.float32)
+    ref = clock("host build_layouts", lambda: E.build_layouts(host, np.float32))
+    ref = clock("host to_device", lambda: [E.to_device(lay, dev) for lay in ref])
+    del host
+    for got, want in zip(lays, ref):
+        same = all(torch.equal(x, z) for a, b in zip(want.buckets, got.buckets)
+                   for x, z in zip(a[:3], b[:3]))
+        same &= all(torch.equal(getattr(want, f), getattr(got, f))
+                    for f in ("inv_perm", "split_seg_pos", "split_indptr"))
+        if not same or len(want.buckets) != len(got.buckets):
+            raise AssertionError("K15: the card's layout differs from the host path's")
+    del ref, lays
+    out = {}
+    for side, csr, pack in (("user", user, packs[0]), ("item", item, packs[1])):
+        plan = pack.plan
+        slots = plan.m_pads * plan.widths
+        btab = torch.from_numpy(np.stack([plan.first[:-1], np.cumsum(slots) - slots,
+                                          plan.widths], axis=1)).to(dev)
+        src = torch.from_numpy(plan.seg_start.astype(np.int32)).to(dev)
+        lens = torch.from_numpy(plan.seg_len.astype(np.int32)).to(dev)
+        oc, ov = torch.empty_like(pack.cols), torch.empty_like(pack.vals)
+        ms = cuda_ms(lambda: E.ell_fill(csr.cols, csr.vals, src, lens, btab, oc, ov), reps)
+        pc, pv = torch.empty_like(oc), torch.empty_like(ov)
+        plain_ms = cuda_ms(lambda: E._ell_fill_plain(csr.cols, csr.vals, src, lens, btab,
+                                                     pc, pv), 1)
+        if not (torch.equal(oc, pc) and torch.equal(ov, pv) and torch.equal(oc, pack.cols)):
+            raise AssertionError(f"K15 {side}: the kernel differs from its plain version")
+        read = nbytes(csr.cols, csr.vals, src, lens, btab)
+        written = nbytes(oc, ov)
+        b_ms, b_by = bound(read + written, 0)
+        n_segs = int(plan.first[-1])
+        out[side] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes=int(read + written), slots=int(slots.sum()), segments=n_segs,
+                         buckets=int(len(plan.widths)), sort_ms=sort_ms[side])
+        print("  ell_fill  %s side: %d segments in %d buckets, %d slots  kernel %.4f ms  "
+              "bound %.4f ms (%s; %d bytes)  plain %.3f ms  stable key sort %.4f ms"
+              % (side, n_segs, len(plan.widths), int(slots.sum()), ms, b_ms, b_by,
+                 read + written, plain_ms, sort_ms[side]))
+        del oc, ov, pc, pv
+    del user, item, packs, trip
+    torch.cuda.empty_cache()
+    # K15a and K15b against their plain versions on the card
+    ids32 = torch.from_numpy(np.ascontiguousarray(shuffled.row, dtype=np.int32)).to(dev)
+    k15a = {}
+    for name, ids in (("int32", ids32), ("int64", ids32.to(torch.int64))):
+        out_k, mm_k = G.narrow_ids(ids)
+        out_p, mm_p = G._narrow_ids_plain(ids)
+        if not (torch.equal(out_k, out_p) and torch.equal(mm_k, mm_p)):
+            raise AssertionError(f"K15a ({name} ids): the kernel differs from its plain version")
+        ms = cuda_ms(lambda: G.narrow_ids(ids), reps)
+        plain_ms = cuda_ms(lambda: G._narrow_ids_plain(ids), reps)
+        by = nbytes(ids, mm_k) + (0 if ids.dtype == torch.int32 else nbytes(out_k))
+        b_ms, b_by = bound(by, 0)
+        k15a[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=int(by),
+                          max_abs_err=0.0, library_ms=None, ops=0)
+        print("  ids_narrow (K15a) %s ids, %d: min/max %s, equal to its plain version  kernel "
+              "%.4f ms  bound %.4f ms (%s; %d bytes)  plain %.3f ms"
+              % (name, ids.numel(), mm_k.tolist(), ms, b_ms, b_by, by, plain_ms))
+        del out_k, mm_k, out_p, mm_p
+    k15b = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0)
+    for side, keys, n_rows in (("user", ids32, coo.shape[0]),
+                               ("item", torch.from_numpy(np.ascontiguousarray(
+                                   shuffled.col, dtype=np.int32)).to(dev), coo.shape[1])):
+        keys = torch.sort(keys, stable=True)[0]
+        got, want = G.csr_indptr(keys, n_rows), G._csr_indptr_plain(keys, n_rows)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K15b {side}: the kernel differs from its plain version")
+        ms = cuda_ms(lambda: G.csr_indptr(keys, n_rows), reps)
+        plain_ms = cuda_ms(lambda: G._csr_indptr_plain(keys, n_rows), reps)
+        by = nbytes(keys, got)
+        b_ms, b_by = bound(by, 0)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms), ("bytes", by)):
+            k15b[key] += v
+        print("  csr_indptr (K15b) %s side, %d keys into %d rows: equal to its plain version  "
+              "kernel %.4f ms  bound %.4f ms (%s; %d bytes)  plain %.3f ms"
+              % (side, keys.numel(), n_rows, ms, b_ms, b_by, by, plain_ms))
+        del keys, got, want
+    del ids32
+    torch.cuda.empty_cache()
+    print("  host clock (s):", json.dumps({k: round(v, 4) for k, v in walls.items()}))
+
+    from hpfrec_tpu_torch.models import hpf as H
+
+    fits, on_card = {}, H.HPF._ingest_on_card
+    for label in ("card", "host", "card again"):
+        if label == "host":
+            H.HPF._ingest_on_card = lambda self, dev: False
+        m = HPF(k=K, stop_crit="train-llk", check_every=5, maxiter=10, random_seed=1,
+                device="cuda", verbose=False).fit(shuffled)
+        H.HPF._ingest_on_card = on_card
+        st = m.fit_stats_
+        fits[label] = m
+        print("  fit with the ingest on the %s: wall %.3f s, device_ingest %d, bytes_to_device "
+              "%d, phases (s) %s" % (label.split()[0], st.wall_seconds, st.device_ingest,
+                                     st.bytes_to_device,
+                                     json.dumps({k: round(v, 4) for k, v in st.phases.items()})))
+    a, b = fits["card"], fits["host"]
+    if not (np.array_equal(a.Theta, b.Theta) and np.array_equal(a.Beta, b.Beta)
+            and np.array_equal(a.seen, b.seen)
+            and np.array_equal(a._st_ix_user, b._st_ix_user)):
+        raise AssertionError("the fits with the ingest on the card and on the host differ")
+    print("  the fits' Theta, Beta and seen-items CSR bit-equal")
+    del fits, a, b, m
+    torch.cuda.empty_cache()
+    tot = {k: out["user"][k] + out["item"][k] for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+    return {"ell_fill": dict(tot, max_abs_err=0.0, bound_by="bytes", library_ms=None, ops=0,
+                             host_clock_s=walls, user=out["user"], item=out["item"]),
+            "ids_narrow": dict(k15a["int32"], int64=k15a["int64"]),
+            "csr_indptr": dict(k15b, bound_by="bytes", max_abs_err=0.0, library_ms=None, ops=0)}
+
+
+def ingest_main():
+    """``--ingest``: the build and ``ingest_suite`` alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --ingest: needs a CUDA card", file=sys.stderr)
+        return 1
+    from hpfrec_tpu_torch import _cuda
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print("[1] card (nvidia-smi name, power.limit):", smi.splitlines()[0])
+    t0 = time.perf_counter()
+    _cuda.load()
+    print("[1] kernels built/loaded in %.1f s" % (time.perf_counter() - t0))
+    print("[K15] a fit's ingest on the card")
+    print(json.dumps(ingest_suite(powerlaw_coo(**MILLIONSONG, seed=0), torch.device("cuda"))))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def layouts_for(coo, dtype, device):
     from hpfrec_tpu_torch.ops.ell import build_layouts, layout_slots, to_device
     from hpfrec_tpu_torch.utils.data import process_data
@@ -1378,6 +1576,7 @@ def kernel_counters():
     .launches_large."""
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.ops import ingest as G
     from hpfrec_tpu_torch.ops import metrics as M
     from hpfrec_tpu_torch.ops import mt19937 as MT
     from hpfrec_tpu_torch.ops import svi as S
@@ -1402,7 +1601,8 @@ def kernel_counters():
                 "table_sharded_step": TS.table_sharded_step,
                 "table_sharded_llk_parts": TS.table_sharded_llk_parts,
                 "cross_rank_colsum": TS.cross_rank_colsum,
-                "mt19937_init": MT.mt19937_tables}
+                "mt19937_init": MT.mt19937_tables, "ell_fill": E.ell_fill,
+                "ids_narrow": G.narrow_ids, "csr_indptr": G.csr_indptr}
     counters = {name: (w, "launches") for name, w in wrappers.items()}
     counters.update({"ell_phi_sums_bf16": (E.all_bucket_sums, "launches_bf16"),
                      "ell_phi_sums_offset": (E.all_bucket_sums, "launches_offset"),
@@ -2782,6 +2982,10 @@ def main():
     fb_kernels = ("ell_phi_sums", "segment_table_sums", "table_update", "table_derive", "ell_llk")
     if min(launches_fb[n] for n in fb_kernels) <= 0:
         raise AssertionError(f"a kernel of the full-batch path never launched: {launches_fb}")
+    # the ingest on the card: K15a a side's ids, K15b and K15 a side
+    if any(launches_fb[n] != 2 for n in ("ids_narrow", "csr_indptr", "ell_fill")):
+        raise AssertionError(f"the full-batch fit's ingest did not launch K15a, K15b and K15 "
+                             f"twice each: {launches_fb}")
     users = [0, 1, 12345]
     for u in users:
         rec = model.topN(u, n=5)
@@ -2827,6 +3031,8 @@ def main():
     torch.cuda.empty_cache()
     print("[3] the seeded start on the card (K14)")
     real["mt19937_init"] = seeded_start_suite(dev)
+    print("[3] a fit's ingest on the card (K15)")
+    real.update(ingest_suite(coo, dev))
 
     # -- 3b. the SVI path at the MillionSong shape ----------------------------
     stamp("phase 3b")
@@ -3424,4 +3630,6 @@ if __name__ == "__main__":
         sys.exit(ts_cards_main())
     if sys.argv[1:] == ["--seeded-start"]:
         sys.exit(seeded_start_main())
+    if sys.argv[1:] == ["--ingest"]:
+        sys.exit(ingest_main())
     sys.exit(main())

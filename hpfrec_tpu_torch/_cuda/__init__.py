@@ -89,6 +89,9 @@ _SIGNATURES = {
     # two a float64 value), g_rte, l_rte, g_shp, l_shp, n_u, n_i, prior_u,
     # prior_i: a state's seeded start
     "mt19937_init": [_P, _I32, _P, _P, _P, _P, _P, _I64, _I64, _D, _D],
+    # cols, vals (a side's CSR), seg_src, seg_len, btab (nb x 3: first
+    # segment, first slot, width), nb, n_segs, out_cols, out_vals: K15
+    "ell_fill": [_P, _P, _P, _P, _P, _I32, _I64, _P, _P],
 }
 # entry points without a float type: name -> argument types before the stream
 _UNTYPED = {
@@ -105,6 +108,11 @@ _UNTYPED = {
     "topn_bitmask": [_P, _P, _P, _I64, _I32, _I64, _I64],
     # cand, vals, idx, b, m, n
     "topn_merge": [_P, _P, _P, _I32, _I32, _I32],
+    # ids (int32 / int64), n, out (int32, or NULL), minmax (int64 x 2): K15a
+    "ids_narrow_i32": [_P, _I64, _P, _P],
+    "ids_narrow_i64": [_P, _I64, _P, _P],
+    # keys (sorted int32), n, n_rows, indptr (int32, n_rows + 1): K15b
+    "csr_indptr": [_P, _I64, _I64, _P],
 }
 
 _lib = None

@@ -48,6 +48,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..ops.ingest import csr_sides, epoch_sides, pack_layouts, pack_side, upload_triplets
 from ..utils import data as data_utils
 from ..utils.profiling import FitStats, TopNStats, device_bytes, maybe_trace
 from .state import (Hyperparams, VariationalState, initialize_extra_rows,
@@ -509,10 +510,20 @@ class HPF:
     def _fit(self, counts_df, val_set, resume, svi_mode, dev, stats):
         """The whole of a ``fit`` call after its checks, each step in a
         phase of ``stats``."""
-        with stats.phase("reindex"):
-            pdata = data_utils.process_data(
-                counts_df, self.stop_crit, self.reindex, self._dtype,
-                sort_by_user=True)
+        self._load_kernels(dev, stats)
+        pdata = None
+        if self._ingest_on_card(dev):
+            with stats.phase("reindex"):
+                pdata = upload_triplets(counts_df, self.stop_crit, self.reindex, self._dtype,
+                                        dev)
+        if pdata is None:
+            with stats.phase("reindex"):
+                pdata = data_utils.process_data(
+                    counts_df, self.stop_crit, self.reindex, self._dtype,
+                    sort_by_user=True)
+        else:
+            stats.device_ingest = pdata.nnz
+            stats.bytes_to_device += pdata.bytes_to_device
         if pdata.user_mapping is None:
             self.reindex = False
             self.produce_dicts = False
@@ -561,7 +572,7 @@ class HPF:
             else:
                 state = initialize_state(self.nusers, self.nitems, hp, self._fit_seed,
                                          self._dtype)
-        nnz = int(pdata.y.shape[0])
+        nnz = pdata.nnz
         stats.nnz = nnz
         self._nnz = nnz
         self._metric_ell = None
@@ -577,9 +588,9 @@ class HPF:
             print("Initializing optimization procedure...")
         st_time = time.time()
         if svi_mode:
-            state, colsums = self._run_svi(state, pdata, hp, dev, stats)
+            state, colsums, seen = self._run_svi(state, pdata, hp, dev, stats)
         else:
-            state, colsums = self._run_full_batch(state, pdata, hp, dev, stats)
+            state, colsums, seen = self._run_full_batch(state, pdata, hp, dev, stats)
         end_tm = (time.time() - st_time) / 60.0
         with stats.phase("metric_checks"):
             self._final_eval(state, colsums)
@@ -597,8 +608,11 @@ class HPF:
             with stats.phase("save"):
                 self._on_rank0(lambda: self._save_parameters(state))
         with stats.phase("metadata"):
-            if self.keep_data and (not svi_mode or not hasattr(self, "seen")):
-                self._store_metadata(pdata)
+            # SVI stores the seen-items CSR whatever keep_data; the user
+            # side a run kept, else a host sort of the triplets
+            if self.keep_data or svi_mode:
+                self._store_metadata(seen if seen is not None
+                                     else csr_sides(pdata, items=False)[0])
             if self.produce_dicts and self.reindex:
                 self.user_dict_ = {self.user_mapping_[i]: i
                                    for i in range(self.user_mapping_.shape[0])}
@@ -629,6 +643,14 @@ class HPF:
         ``hpf.py:925``): ``shard_tables=True``, the ELL engine, more than one
         rank."""
         return self.shard_tables and self.engine == "ell" and self._n_ranks > 1
+
+    def _ingest_on_card(self, dev) -> bool:
+        """Whether a fit sorts and packs its triplets on the card
+        (``ops/ingest.py``, K15): a CUDA device, the ELL engine, one rank.
+        The COO engine, data-parallel meshes and the table-sharded engine
+        ingest and pack on the host, as every CPU fit does."""
+        return (dev.type == "cuda" and self.engine == "ell" and self._n_ranks == 1
+                and not self._table_sharded)
 
     def _real_state(self, state):
         """The fit's whole state, real rows in their original order, from
@@ -782,20 +804,19 @@ class HPF:
         rows of both tables (K13, ``parallel/table_sharded.py``), from the
         host ``state`` (None: drawn on the card, ``_place_state``).  Returns
         the final state (table-sharded: the rank's padded rows, which
-        ``_real_state`` gathers) and a function giving its mean colsums (for
-        the train metric)."""
+        ``_real_state`` gathers), a function giving its mean colsums (for
+        the train metric) and the user side's ``Csr`` where the layouts
+        were packed on the card and ``keep_data`` (else None)."""
         from ..ops.cavi import _carry_init, coo_stream, run_cavi_block_coo
-        from ..ops.ell import (build_layouts, gather_table_dtype, run_cavi_block_ell,
-                               to_device)
+        from ..ops.ell import ell_to_device, gather_table_dtype, run_cavi_block_ell
 
-        coo = ts = None
+        coo = ts = seen = None
         gd = None
         if self.engine == "coo":
             with stats.phase("host_pack"):
                 coo = coo_stream(pdata, dev, self.block_size, self._shard)
             stats.bytes_to_device += device_bytes(dev, coo)
             self._metric_coo = coo.data
-            self._load_kernels(dev, stats)
         elif self._table_sharded:
             from ..parallel.table_sharded import (CARD_WINDOW_BYTES, TableSharded,
                                                   prepare_table_sharded)
@@ -811,7 +832,6 @@ class HPF:
                                              self._n_ranks, g_item, dtype=self._dtype,
                                              window_bytes=CARD_WINDOW_BYTES)
                 del csr_u, csr_i
-            self._load_kernels(dev, stats)
             with stats.phase("transfer"):
                 ts = self._table_shard = TableSharded(self.mesh, plan, self.nusers,
                                                       self.nitems, dev)
@@ -820,12 +840,15 @@ class HPF:
         else:
             gd = gather_table_dtype(self.gather_dtype)
             with stats.phase("host_pack"):
-                ell_u, ell_i = build_layouts(pdata, self._dtype, self._n_ranks)
-            self._load_kernels(dev, stats)
+                packs, user = pack_layouts(pdata, self._dtype, self._n_ranks)
+                if user is not None and self.keep_data:
+                    seen = user._replace(vals=None)  # the seen-items CSR, copied back last
+                del user
             with stats.phase("transfer"):
-                lay_u = to_device(ell_u, dev, self._shard)
-                lay_i = to_device(ell_i, dev, self._shard)
-            stats.bytes_to_device += device_bytes(dev, lay_u, lay_i)
+                (lay_u, sent_u), (lay_i, sent_i) = (ell_to_device(p, dev, self._shard)
+                                                    for p in packs)
+            stats.bytes_to_device += sent_u + sent_i
+            del packs
             self._metric_ell = lay_u
         if ts is not None:
             with stats.phase("transfer"):
@@ -870,7 +893,7 @@ class HPF:
             if stop:
                 break
         self.niter = iters_done - 1
-        return carry.state, lambda: (carry.theta_colsum, carry.beta_colsum)
+        return carry.state, lambda: (carry.theta_colsum, carry.beta_colsum), seen
 
     def _run_svi(self, state, pdata, hp, dev, stats):
         """Mini-batch SVI epochs (reference ``cython_loops.pxi:261-377``):
@@ -882,27 +905,19 @@ class HPF:
         shuffle and ``epoch_order`` run in the ``epoch_offsets`` phase
         inside the epoch's, and ``stats.batches`` counts its batches.
         ``state`` is the host start (None: drawn on the card,
-        ``_place_state``).  Returns the final state and a function giving
-        its mean colsums."""
+        ``_place_state``).  Returns the final state, a function giving its
+        mean colsums and the user side's ``Csr`` (the seen-items CSR)."""
         from ..ops.cavi import side_derive
-        from ..ops.ell import build_ell, to_device
-        from ..ops.svi import epoch_order, epoch_side, svi_run_epoch
+        from ..ops.ell import ell_to_device
+        from ..ops.svi import epoch_order, svi_run_epoch
 
         dt = self._dtype
         use_users = self.users_per_batch > 0
         use_items = self.items_per_batch > 0
+        if use_items and self.verbose:
+            print("Creating item indices for stochastic optimization...")
         with stats.phase("host_pack"):
-            indptr_u, indices_u, data_u = data_utils.build_csr(
-                pdata.ix_u, pdata.ix_i, pdata.y, self.nusers, self.nitems)
-        self._st_ix_user = indptr_u
-        self._n_seen_by_user = (indptr_u[1:] - indptr_u[:-1]).astype(np.int64)
-        self.seen = indices_u
-        if use_items:
-            if self.verbose:
-                print("Creating item indices for stochastic optimization...")
-            with stats.phase("host_pack"):
-                indptr_i, indices_i, data_i = data_utils.build_csr(
-                    pdata.ix_i, pdata.ix_u, pdata.y, self.nitems, self.nusers)
+            csr_u, csr_i = csr_sides(pdata, items=use_items)
 
         seed = self._fit_seed
         rng = np.random.default_rng(seed=seed if (seed is not None and seed > 0) else None)
@@ -927,15 +942,15 @@ class HPF:
             stats.bytes_to_device += device_bytes(dev, self._metric_coo)
         elif need_metric:
             with stats.phase("host_pack"):
-                ell_m = build_ell(indptr_u, indices_u, data_u, self.nusers, dtype=dt,
-                                  pad_shards=self._n_ranks)
-        self._load_kernels(dev, stats)
+                ell_m = pack_side(csr_u, dt, self._n_ranks)
         with stats.phase("transfer"):
             if ell_m is not None:
-                self._metric_ell = to_device(ell_m, dev, self._shard)
-            side_u = epoch_side(indptr_u, indices_u, data_u, dt, dev) if use_users else None
-            side_i = epoch_side(indptr_i, indices_i, data_i, dt, dev) if use_items else None
-        stats.bytes_to_device += device_bytes(dev, self._metric_ell, side_u, side_i)
+                self._metric_ell, sent = ell_to_device(ell_m, dev, self._shard)
+                stats.bytes_to_device += sent
+            side_u, side_i, sent = epoch_sides(csr_u if use_users else None, csr_i, dt, dev)
+        stats.bytes_to_device += sent
+        seen = csr_u._replace(vals=None)  # the seen-items CSR, copied back last
+        del csr_u, csr_i, ell_m
         state = self._place_state(state, hp, dev, stats)
 
         def colsums(st):
@@ -998,10 +1013,7 @@ class HPF:
             if stop:
                 break
         self.niter = i
-        # serve-time metadata keeps the truncated indptr like the reference
-        # (hpfrec/__init__.py:424)
-        self._st_ix_user = self._st_ix_user[:-1]
-        return state, colsums(state)
+        return state, colsums(state), seen
 
     def _criterion_metric(self, state, colsums, use_val=True):
         """(llk, rmse, name) of one check: over the validation set when
@@ -1121,11 +1133,13 @@ class HPF:
         for name, obj in zip(names, objs):
             np.savetxt(os.path.join(self.save_folder, name), obj, fmt="%.10f", delimiter=',')
 
-    def _store_metadata(self, pdata):
+    def _store_metadata(self, user):
         """Seen-items CSR for ``topN(exclude_seen=True)`` (reference
-        ``_store_metadata``, ``hpfrec/__init__.py:587-606``)."""
-        indptr, indices, _ = data_utils.build_csr(
-            pdata.ix_u, pdata.ix_i, pdata.y, self.nusers, self.nitems)
+        ``_store_metadata``, ``hpfrec/__init__.py:587-606``) from the user
+        side's ``Csr`` (copied back where it was sorted on the card); the
+        serve-time metadata keeps the truncated indptr like the reference
+        (``hpfrec/__init__.py:424``)."""
+        indptr, indices = user.seen()
         self._n_seen_by_user = (indptr[1:] - indptr[:-1]).astype(np.int64)
         self._st_ix_user = indptr[:-1]
         self.seen = indices

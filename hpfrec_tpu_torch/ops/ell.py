@@ -20,6 +20,12 @@ The device half runs two hand-written CUDA kernels:
 - **K2** ``segment_table_sums`` (``csrc/segment_sums.cu``): segment sums
   to table order, split rows added in a fixed order (no atomics).
 
+A fit on one card packs its layouts there: ``plan_ell`` (shared with
+``build_ell``) plans a side on the host from its row pointers, and **K15**
+``ell_fill`` (``csrc/ell_fill.cu``, through ``pack_ell``) fills every
+bucket from the side's CSR on the card into one slab of cols and one of
+vals that ``device_ell``'s buckets view.
+
 Each wrapper takes its plain PyTorch version for CPU tensors, launches the
 kernel for CUDA tensors, and counts its launches in ``.launches`` (K1's
 bfloat16-table forms in ``.launches_bf16``).
@@ -38,6 +44,7 @@ layout (``col_chunk_rows``) runs too.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional, Tuple
@@ -143,61 +150,90 @@ def _sort_rows(indptr, indices, data, row_of, n_cols, nnz):
     return indices, data
 
 
-def build_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
-              n_rows: int, max_width: int = 8192, dtype=np.float32,
-              pad_shards: int = 1, col_chunk_rows: Optional[int] = None,
-              n_cols: Optional[int] = None) -> EllLayout:
-    """Pack a CSR side into degree buckets (host, O(nnz)); the same layout
-    as ``hpfrec_tpu.ops.ell.build_ell`` for the same arguments (and its
-    default ``min_width=8``).  ``pad_shards`` pads every bucket's segment
-    count to a multiple of the number of ranks with inert segments (row 0,
-    zero vals), so that each rank takes an equal slice of every bucket
-    (``to_device(..., shard=...)``); segment positions count the padding.
-    ``col_chunk_rows`` (with ``n_cols``) enables column tiling: each row's
-    sorted cols are partitioned at chunk boundaries into per-(row, chunk)
-    segments whose cols are stored chunk-local, and each bucket carries its
-    span."""
-    deg = np.diff(indptr).astype(np.int64)
-    nnz = int(indices.shape[0])
+class EllPlan(NamedTuple):
+    """Where every segment of a side's layout comes from and goes: the
+    O(rows) half of ``build_ell``, which ``plan_ell`` makes from the side's
+    row degrees (or column-tiled runs).  The segments are listed bucket
+    after bucket, in each bucket in its row order; ``first`` bounds each
+    bucket's real segments in those lists, and a bucket holds ``m_pads[b]
+    - (first[b + 1] - first[b])`` inert padding segments after them."""
 
-    if col_chunk_rows is not None:
-        if n_cols is None:
-            raise ValueError("col tiling needs n_cols")
-        row_of = np.repeat(np.arange(n_rows, dtype=np.int64), deg)
-        indices, data = _sort_rows(indptr, indices, data, row_of, n_cols, nnz)
-        chunk_of = indices.astype(np.int64) // col_chunk_rows
-        key = row_of * ((n_cols // col_chunk_rows) + 1) + chunk_of
-        boundaries = np.flatnonzero(np.diff(key) != 0) + 1
-        run_start = np.concatenate([[0], boundaries]) if nnz else np.zeros(0, np.int64)
-        run_len = np.diff(np.concatenate([run_start, [nnz]]))
-        run_row = row_of[run_start] if nnz else np.zeros(0, np.int64)
-        run_chunk = chunk_of[run_start] if nnz else np.zeros(0, np.int64)
-        # rows with zero degree still need one (empty -> width-min) segment
-        empty = np.flatnonzero(deg == 0)
-        if len(empty):
-            run_start = np.concatenate([run_start, indptr[empty]])
-            run_len = np.concatenate([run_len, np.zeros(len(empty), np.int64)])
-            run_row = np.concatenate([run_row, empty])
-            run_chunk = np.concatenate([run_chunk, np.zeros(len(empty), np.int64)])
-            order = np.argsort(run_row, kind="stable")
-            run_start, run_len = run_start[order], run_len[order]
-            run_row, run_chunk = run_row[order], run_chunk[order]
-    else:
-        run_start = indptr[:-1].astype(np.int64)
-        run_len = deg
-        run_row = np.arange(n_rows, dtype=np.int64)
-        run_chunk = np.zeros(n_rows, dtype=np.int64)
+    widths: np.ndarray  # (nb,) int64, a bucket's width w
+    m_pads: np.ndarray  # (nb,) int64, a bucket's segments with its padding
+    first: np.ndarray  # (nb + 1,) int64, the buckets' bounds in seg_*
+    col_offs: np.ndarray  # (nb,) int64, first opposite row a bucket's cols index
+    seg_row: np.ndarray  # (n_real,) int64, a segment's table row
+    seg_start: np.ndarray  # (n_real,) int64, its first CSR position
+    seg_len: np.ndarray  # (n_real,) int64, its entries (at most its width)
+    inv_perm: np.ndarray
+    split_rows: np.ndarray
+    split_seg_pos: np.ndarray
+    n_rows: int
+    col_spans: Optional[Tuple[Optional[Tuple[int, int]], ...]]
 
+
+def untiled_runs(indptr: np.ndarray):
+    """The runs of an untiled side, one a row: ``plan_ell``'s first four
+    arguments from the CSR row pointers alone."""
+    n_rows = int(indptr.shape[0]) - 1
+    return (indptr[:-1].astype(np.int64), np.diff(indptr).astype(np.int64),
+            np.arange(n_rows, dtype=np.int64), np.zeros(n_rows, dtype=np.int64))
+
+
+@functools.lru_cache(maxsize=8)
+def _widths_of(max_width: int) -> np.ndarray:
+    """(max_width + 1,) int64: the bucket width of a segment of n entries
+    (0 taken as 1), the ladder rung at or above n within [MIN_WIDTH,
+    max_width]; read by index in place of a search a segment."""
+    n = np.arange(max_width + 1, dtype=np.int64)
+    width = _LADDER[np.searchsorted(_LADDER, np.maximum(n, 1))]
+    return np.minimum(np.maximum(width, MIN_WIDTH), max_width)
+
+
+def _merge_rungs(width: np.ndarray, max_width: int) -> np.ndarray:
+    """Small buckets merged into the next rung (per hop, gated at 1.5x;
+    merges may cascade: a rung's count holds what merged into it), for the
+    widths of one column chunk."""
+    counts = np.bincount(width, minlength=max_width + 1)
+    ws = np.flatnonzero(counts)
+    counts = counts[ws]
+    to = np.arange(len(ws))  # the rung each width is on now
+    for j in range(len(ws) - 1):
+        if counts[j] * ws[j] < MERGE_SLOTS and 2 * ws[j + 1] <= 3 * ws[j]:
+            counts[j + 1] += counts[j]
+            to[to == j] = j + 1
+    if np.array_equal(to, np.arange(len(ws))):
+        return width
+    lut = np.zeros(max_width + 1, dtype=np.int64)
+    lut[ws] = ws[to]
+    return lut[width]
+
+
+def plan_ell(run_start, run_len, run_row, run_chunk, n_rows: int, max_width: int = 8192,
+             pad_shards: int = 1, col_chunk_rows: Optional[int] = None,
+             n_cols: Optional[int] = None) -> EllPlan:
+    """The layout of a side from its runs (``untiled_runs``, or a tiled
+    side's (row, column chunk) runs), without its cols and vals: runs split
+    into segments of at most ``max_width``, widths on the ladder and small
+    buckets merged, the buckets' sizes, ``inv_perm`` and the split-row
+    patch.  ``build_ell`` fills its buckets on the host from it, and a fit
+    on one card fills them there (``pack_ell``, K15), so the two cannot
+    pack different layouts.  On an untiled side every O(segments) step is
+    a pass or an index (the bucket order a radix sort of small keys), none
+    a comparison sort."""
     # split runs longer than max_width into bounded segments
     nseg_per_run = np.maximum(1, -(-run_len // max_width))
-    rep = np.repeat(np.arange(len(run_row), dtype=np.int64), nseg_per_run)
-    first_of_run = np.zeros(len(run_row) + 1, dtype=np.int64)
-    np.cumsum(nseg_per_run, out=first_of_run[1:])
-    idx_in_run = np.arange(len(rep), dtype=np.int64) - first_of_run[rep]
-    seg_row = run_row[rep]
-    seg_chunk = run_chunk[rep]
-    seg_start = run_start[rep] + idx_in_run * max_width
-    seg_len = np.minimum(run_len[rep] - idx_in_run * max_width, max_width)
+    if len(run_len) and int(nseg_per_run.max()) > 1:
+        rep = np.repeat(np.arange(len(run_row), dtype=np.int64), nseg_per_run)
+        first_of_run = np.zeros(len(run_row) + 1, dtype=np.int64)
+        np.cumsum(nseg_per_run, out=first_of_run[1:])
+        idx_in_run = np.arange(len(rep), dtype=np.int64) - first_of_run[rep]
+        seg_row = run_row[rep]
+        seg_chunk = run_chunk[rep]
+        seg_start = run_start[rep] + idx_in_run * max_width
+        seg_len = np.minimum(run_len[rep] - idx_in_run * max_width, max_width)
+    else:  # every run one segment
+        seg_row, seg_chunk, seg_start, seg_len = run_row, run_chunk, run_start, run_len
 
     # per-row segment counts/offsets (segments are row-contiguous)
     nseg_per_row = np.bincount(seg_row, minlength=n_rows).astype(np.int64)
@@ -205,51 +241,40 @@ def build_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
     np.cumsum(nseg_per_row, out=first_seg[1:])
 
     # bucket by (chunk, width >= MIN_WIDTH) on the width ladder, then merge
-    # small buckets into the next rung (per hop, gated at 1.5x; merges may
-    # cascade)
-    width = _LADDER[np.searchsorted(_LADDER, np.maximum(seg_len, 1))]
-    width = np.minimum(np.maximum(width, MIN_WIDTH), max_width)
+    # small buckets into the next rung
+    width = _widths_of(max_width)[seg_len]
     tiled = col_chunk_rows is not None
-    for c in np.unique(seg_chunk):
-        in_c = seg_chunk == c
-        ws = np.unique(width[in_c])
-        for j, w in enumerate(ws[:-1]):
-            sel = in_c & (width == w)
-            if sel.sum() * w < MERGE_SLOTS and 2 * ws[j + 1] <= 3 * w:
-                width[sel] = ws[j + 1]
-
-    bucket_key = seg_chunk * (2 * max_width) + width if tiled else width
-
-    buckets: List[EllBucket] = []
-    spans: List[Optional[Tuple[int, int]]] = []
+    if tiled:
+        for c in np.unique(seg_chunk):
+            in_c = np.flatnonzero(seg_chunk == c)
+            width[in_c] = _merge_rungs(width[in_c], max_width)
+        bucket_key = seg_chunk * (2 * max_width) + width
+        keys, at, ms = np.unique(bucket_key, return_inverse=True, return_counts=True)
+        at = at.reshape(-1)
+        chunks = keys // (2 * max_width)
+        widths = keys % (2 * max_width)
+        col_offs = chunks * col_chunk_rows
+        spans = tuple((int(o), min(int(o) + col_chunk_rows, int(n_cols))) for o in col_offs)
+    else:
+        width = _merge_rungs(width, max_width)
+        ms = np.bincount(width, minlength=max_width + 1)
+        widths = np.flatnonzero(ms)
+        ms = ms[widths]
+        lut = np.zeros(max_width + 1, dtype=np.int64)
+        lut[widths] = np.arange(len(widths))
+        at = lut[width]
+        col_offs = np.zeros(len(widths), dtype=np.int64)
+        spans = None
+    # bucket after bucket, rows ascending in each
+    order = np.argsort(at.astype(np.int16) if len(ms) < 2 ** 15 else at, kind="stable")
+    ms = ms.astype(np.int64)
+    m_pads = -(-ms // pad_shards) * pad_shards
+    first = np.zeros(len(ms) + 1, dtype=np.int64)
+    np.cumsum(ms, out=first[1:])
+    starts = np.cumsum(m_pads) - m_pads  # a bucket's first position
     seg_positions = np.empty(len(seg_row), dtype=np.int64)
-    pos = 0
-    for key_val in np.unique(bucket_key):
-        sel = np.flatnonzero(bucket_key == key_val)
-        if tiled:
-            c = int(key_val) // (2 * max_width)
-            w = int(key_val) % (2 * max_width)
-            off = c * col_chunk_rows
-            span = (off, min(off + col_chunk_rows, int(n_cols)))
-        else:
-            w = int(key_val)
-            span = None
-            off = 0
-        m = len(sel)
-        m_pad = -(-m // pad_shards) * pad_shards
-        cols = np.zeros((m_pad, w), dtype=np.int32)
-        vals = np.zeros((m_pad, w), dtype=dtype)
-        rows_arr = np.zeros(m_pad, dtype=np.int32)
-        rows_arr[:m] = seg_row[sel]
-        _ragged_fill(seg_start[sel], seg_len[sel], indices, data, cols[:m], vals[:m],
-                     dtype)
-        if off:
-            # store chunk-local ids; padding slots (cols 0) stay in-bounds
-            np.subtract(cols[:m], np.int32(off), out=cols[:m], where=vals[:m] != 0)
-        buckets.append(EllBucket(rows=rows_arr, cols=cols, vals=vals))
-        spans.append(span)
-        seg_positions[sel] = pos + np.arange(m, dtype=np.int64)
-        pos += m_pad
+    seg_positions[order] = (np.repeat(starts - first[:-1], ms)
+                            + np.arange(len(order), dtype=np.int64))
 
     inv_perm = seg_positions[first_seg[:-1]]
 
@@ -275,10 +300,75 @@ def build_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
     else:
         split_seg_pos = np.zeros((0, 1), dtype=np.int64)
 
-    return EllLayout(buckets=buckets, inv_perm=inv_perm,
-                     split_rows=split.astype(np.int64),
-                     split_seg_pos=split_seg_pos, n_rows=n_rows,
-                     col_spans=tuple(spans) if tiled else None)
+    return EllPlan(widths=widths.astype(np.int64), m_pads=m_pads, first=first,
+                   col_offs=col_offs.astype(np.int64), seg_row=seg_row[order],
+                   seg_start=seg_start[order], seg_len=seg_len[order], inv_perm=inv_perm,
+                   split_rows=split.astype(np.int64), split_seg_pos=split_seg_pos,
+                   n_rows=n_rows, col_spans=spans)
+
+
+def build_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
+              n_rows: int, max_width: int = 8192, dtype=np.float32,
+              pad_shards: int = 1, col_chunk_rows: Optional[int] = None,
+              n_cols: Optional[int] = None) -> EllLayout:
+    """Pack a CSR side into degree buckets (host, O(nnz)); the same layout
+    as ``hpfrec_tpu.ops.ell.build_ell`` for the same arguments (and its
+    default ``min_width=8``).  ``pad_shards`` pads every bucket's segment
+    count to a multiple of the number of ranks with inert segments (row 0,
+    zero vals), so that each rank takes an equal slice of every bucket
+    (``to_device(..., shard=...)``); segment positions count the padding.
+    ``col_chunk_rows`` (with ``n_cols``) enables column tiling: each row's
+    sorted cols are partitioned at chunk boundaries into per-(row, chunk)
+    segments whose cols are stored chunk-local, and each bucket carries its
+    span.  The layout is ``plan_ell``'s, filled here."""
+    deg = np.diff(indptr).astype(np.int64)
+    nnz = int(indices.shape[0])
+
+    if col_chunk_rows is not None:
+        if n_cols is None:
+            raise ValueError("col tiling needs n_cols")
+        row_of = np.repeat(np.arange(n_rows, dtype=np.int64), deg)
+        indices, data = _sort_rows(indptr, indices, data, row_of, n_cols, nnz)
+        chunk_of = indices.astype(np.int64) // col_chunk_rows
+        key = row_of * ((n_cols // col_chunk_rows) + 1) + chunk_of
+        boundaries = np.flatnonzero(np.diff(key) != 0) + 1
+        run_start = np.concatenate([[0], boundaries]) if nnz else np.zeros(0, np.int64)
+        run_len = np.diff(np.concatenate([run_start, [nnz]]))
+        run_row = row_of[run_start] if nnz else np.zeros(0, np.int64)
+        run_chunk = chunk_of[run_start] if nnz else np.zeros(0, np.int64)
+        # rows with zero degree still need one (empty -> width-min) segment
+        empty = np.flatnonzero(deg == 0)
+        if len(empty):
+            run_start = np.concatenate([run_start, indptr[empty]])
+            run_len = np.concatenate([run_len, np.zeros(len(empty), np.int64)])
+            run_row = np.concatenate([run_row, empty])
+            run_chunk = np.concatenate([run_chunk, np.zeros(len(empty), np.int64)])
+            order = np.argsort(run_row, kind="stable")
+            run_start, run_len = run_start[order], run_len[order]
+            run_row, run_chunk = run_row[order], run_chunk[order]
+        runs = (run_start, run_len, run_row, run_chunk)
+    else:
+        runs = untiled_runs(indptr)
+    plan = plan_ell(*runs, n_rows, max_width, pad_shards, col_chunk_rows, n_cols)
+
+    buckets: List[EllBucket] = []
+    for b, w in enumerate(plan.widths):
+        s0, s1 = int(plan.first[b]), int(plan.first[b + 1])
+        m, m_pad, off = s1 - s0, int(plan.m_pads[b]), int(plan.col_offs[b])
+        cols = np.zeros((m_pad, int(w)), dtype=np.int32)
+        vals = np.zeros((m_pad, int(w)), dtype=dtype)
+        rows_arr = np.zeros(m_pad, dtype=np.int32)
+        rows_arr[:m] = plan.seg_row[s0:s1]
+        _ragged_fill(plan.seg_start[s0:s1], plan.seg_len[s0:s1], indices, data, cols[:m],
+                     vals[:m], dtype)
+        if off:
+            # store chunk-local ids; padding slots (cols 0) stay in-bounds
+            np.subtract(cols[:m], np.int32(off), out=cols[:m], where=vals[:m] != 0)
+        buckets.append(EllBucket(rows=rows_arr, cols=cols, vals=vals))
+
+    return EllLayout(buckets=buckets, inv_perm=plan.inv_perm, split_rows=plan.split_rows,
+                     split_seg_pos=plan.split_seg_pos, n_rows=n_rows,
+                     col_spans=plan.col_spans)
 
 
 def build_layouts(pdata, dtype, pad_shards: int = 1) -> Tuple[EllLayout, EllLayout]:
@@ -402,15 +492,153 @@ def to_device(layout: EllLayout, device, shard: Tuple[int, int] = (0, 1)) -> Dev
             col_off=0 if span is None else int(span[0]),
             start=start))
         start += per
-    split_indptr = np.zeros(layout.n_rows + 1, dtype=np.int64)
-    np.cumsum(np.bincount(layout.split_rows, minlength=layout.n_rows),
-              out=split_indptr[1:])
+    return _device_ell(buckets, inv_perm, layout.split_rows, split_seg_pos, layout.n_rows,
+                       start, n_shards, device)
+
+
+def _device_ell(buckets, inv_perm, split_rows, split_seg_pos, n_rows, n_segs, n_shards,
+                device) -> DeviceEll:
+    """A ``DeviceEll`` of device buckets, with its reassembly arrays
+    uploaded: ``inv_perm``, the split-row patch and its per-row CSR."""
+    split_indptr = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(np.bincount(split_rows, minlength=n_rows), out=split_indptr[1:])
     return DeviceEll(
         buckets=buckets,
         inv_perm=_upload(inv_perm, np.int32, device),
         split_seg_pos=_upload(split_seg_pos, np.int32, device),
         split_indptr=_upload(split_indptr, np.int32, device),
-        n_rows=layout.n_rows, n_segs=start, n_shards=n_shards)
+        n_rows=n_rows, n_segs=n_segs, n_shards=n_shards)
+
+
+# ---- K15: a side's layout filled on the card ---------------------------
+
+class EllPack(NamedTuple):
+    """A side's layout on the device before its upload of row ids and
+    reassembly arrays: the plan, and the slabs of every bucket's cols and
+    vals, bucket after bucket, that K15 filled (``pack_ell``)."""
+
+    plan: EllPlan
+    cols: torch.Tensor  # (slots,) int32
+    vals: torch.Tensor  # (slots,) the CSR's dtype
+    bytes_to_device: int  # the segment table K15 read
+
+
+def _ell_fill_plain(cols, vals, seg_src, seg_len, btab, out_cols, out_vals):
+    """Plain version of K15: each segment's entries to its slots, the rest
+    of its width zero."""
+    out_cols.zero_()
+    out_vals.zero_()
+    n_segs = seg_src.shape[0]
+    if not n_segs:
+        return
+    first, base, w = (btab[:, c].contiguous() for c in range(3))
+    s = torch.arange(n_segs, dtype=torch.int64, device=cols.device)
+    b = torch.searchsorted(first, s, right=True) - 1
+    dst = base[b] + (s - first[b]) * w[b]
+    lens = seg_len.long()
+    total = int(lens.sum())
+    seg = torch.repeat_interleave(s, lens, output_size=total)
+    j = torch.arange(total, dtype=torch.int64, device=cols.device) - (torch.cumsum(lens, 0)
+                                                                      - lens)[seg]
+    src = seg_src.long()[seg] + j
+    out_cols[dst[seg] + j] = cols[src]
+    out_vals[dst[seg] + j] = vals[src]
+
+
+def ell_fill(cols, vals, seg_src, seg_len, btab, out_cols, out_vals):
+    """K15: write every segment of a layout into the slabs ``out_cols`` /
+    ``out_vals`` (each slot once, padding zero) from a side's CSR ``cols``
+    (int32) / ``vals``.  ``seg_src`` / ``seg_len`` (int32, a segment in
+    layout order) give a segment's first CSR position and its entries;
+    ``btab`` (nb, 3) int64 a bucket's first segment, first slot and width.
+    One launch for CUDA tensors (counted in ``.launches``); the plain
+    version for CPU tensors."""
+    if not cols.is_cuda:
+        _ell_fill_plain(cols, vals, seg_src, seg_len, btab, out_cols, out_vals)
+        return out_cols, out_vals
+    from .. import _cuda
+
+    _cuda.check(cols, seg_src, seg_len, out_cols, dtype=torch.int32)
+    _cuda.check(vals, out_vals, dtype=vals.dtype)
+    _cuda.check(btab, dtype=torch.int64)
+    if (btab.dim() != 2 or btab.shape[1] != 3 or seg_len.shape != seg_src.shape
+            or out_vals.shape != out_cols.shape or vals.shape != cols.shape):
+        raise ValueError("ell_fill: shape mismatch")
+    _cuda.launch("ell_fill", vals.dtype, None, cols, vals, seg_src, seg_len, btab,
+                 btab.shape[0], seg_src.shape[0], out_cols, out_vals)
+    ell_fill.launches += 1
+    return out_cols, out_vals
+
+
+ell_fill.launches = 0
+
+
+def pack_ell(indptr: np.ndarray, cols: torch.Tensor, vals: torch.Tensor,
+             max_width: int = 8192) -> EllPack:
+    """A side's untiled layout from its CSR on the device: ``plan_ell`` on
+    the host from the row pointers ``indptr`` ((n_rows + 1,) int64, host),
+    then K15 from ``cols`` / ``vals`` (the CSR's entries, on the device)
+    into the slabs.  The same layout as ``build_ell(indptr, cols, vals,
+    n_rows, max_width)`` then ``to_device``, element for element."""
+    n_rows = int(indptr.shape[0]) - 1
+    plan = plan_ell(*untiled_runs(indptr), n_rows, max_width)
+    if int(plan.first[-1]) > _INT32_MAX or int(indptr[-1]) > _INT32_MAX:
+        raise ValueError("pack_ell: %d segments over %d entries overflow int32"
+                         % (int(plan.first[-1]), int(indptr[-1])))
+    device = cols.device
+    slots = plan.m_pads * plan.widths
+    btab = np.stack([plan.first[:-1], np.cumsum(slots) - slots, plan.widths], axis=1)
+    seg_src = _upload(plan.seg_start, np.int32, device)
+    seg_len = _upload(plan.seg_len, np.int32, device)
+    btab_dev = _upload(btab, np.int64, device)
+    total = int(slots.sum())
+    out_cols = torch.empty(total, dtype=torch.int32, device=device)
+    out_vals = torch.empty(total, dtype=vals.dtype, device=device)
+    ell_fill(cols, vals, seg_src, seg_len, btab_dev, out_cols, out_vals)
+    return EllPack(plan=plan, cols=out_cols, vals=out_vals,
+                   bytes_to_device=_nbytes(seg_src, seg_len, btab_dev))
+
+
+def device_ell(pack: EllPack) -> DeviceEll:
+    """The ``DeviceEll`` of a packed side: its buckets view the slabs, and
+    their row ids and the reassembly arrays are uploaded."""
+    plan = pack.plan
+    device = pack.cols.device
+    rows = _upload(plan.seg_row, np.int32, device)
+    buckets, slot = [], 0
+    for b, w in enumerate(plan.widths.tolist()):
+        s0, s1 = int(plan.first[b]), int(plan.first[b + 1])
+        n = (s1 - s0) * w
+        buckets.append(DeviceBucket(rows=rows[s0:s1], cols=pack.cols[slot:slot + n].view(-1, w),
+                                    vals=pack.vals[slot:slot + n].view(-1, w), col_off=0,
+                                    start=s0))
+        slot += n
+    return _device_ell(buckets, plan.inv_perm, plan.split_rows, plan.split_seg_pos,
+                       plan.n_rows, int(plan.first[-1]), 1, device)
+
+
+def uploaded_bytes(pack: EllPack, layout: DeviceEll) -> int:
+    """Bytes a side packed on the device took from the host: K15's segment
+    table, then the row ids and reassembly arrays ``device_ell`` uploaded."""
+    return pack.bytes_to_device + _nbytes(*(b.rows for b in layout.buckets), layout.inv_perm,
+                                          layout.split_seg_pos, layout.split_indptr)
+
+
+def ell_to_device(packed, device, shard: Tuple[int, int] = (0, 1)):
+    """``(DeviceEll, bytes it took from the host)`` of a side packed on the
+    host (an ``EllLayout``: ``to_device`` uploads the rank's share) or on
+    the device (an ``EllPack``: ``device_ell`` views its slabs)."""
+    if isinstance(packed, EllPack):
+        layout = device_ell(packed)
+        return layout, uploaded_bytes(packed, layout)
+    from ..utils.profiling import device_bytes
+
+    layout = to_device(packed, device, shard)
+    return layout, device_bytes(torch.device(device), layout)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 # ---- K1: per-bucket phi sums -----------------------------------------

@@ -32,6 +32,10 @@ class ProcessedData(NamedTuple):
     item_mapping: Optional[np.ndarray]
     sorted_by_user: bool
 
+    @property
+    def nnz(self) -> int:
+        return int(self.y.shape[0])
+
 
 def _pandas():
     try:
@@ -68,15 +72,23 @@ def coerce_triplets(input_df):
         "'input_df' must be a pandas data frame, numpy array, or scipy sparse coo_array.")
 
 
+def low_count_threshold(stop_crit: str):
+    """Counts at or below this are dropped: 0 for maxiter/diff-norm, 0.9 for
+    likelihood criteria (reference ``hpfrec/__init__.py:462-475``)."""
+    return 0 if stop_crit in ("maxiter", "diff-norm") else 0.9
+
+
+def warn_low_counts(what: str = "counts_df"):
+    warnings.warn(
+        f"'{what}' contains observations with a count value less than 1, "
+        "these will be ignored.")
+
+
 def filter_low_counts(u, i, y, stop_crit: str, what: str = "counts_df"):
-    """Drop observations with Count <= thr; thr is 0 for maxiter/diff-norm and
-    0.9 for likelihood criteria (reference ``hpfrec/__init__.py:462-475``)."""
-    thr = 0 if stop_crit in ("maxiter", "diff-norm") else 0.9
-    low = y <= thr
+    """Drop observations with Count <= ``low_count_threshold(stop_crit)``."""
+    low = y <= low_count_threshold(stop_crit)
     if int(low.sum()) > 0:
-        warnings.warn(
-            f"'{what}' contains observations with a count value less than 1, "
-            "these will be ignored.")
+        warn_low_counts(what)
         keep = ~low
         u, i, y = u[keep], i[keep], y[keep]
     return u, i, y

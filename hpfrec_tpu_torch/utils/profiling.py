@@ -156,7 +156,9 @@ class FitStats(CallStats):
     ingest to the fitted attributes on the host, so ``nnz_per_second`` is
     an end-to-end figure.  ``phases`` attributes the wall time (seconds):
 
-    - ``reindex``        host triplet ingest, filtering and reindexing
+    - ``reindex``        triplet ingest, filtering and reindexing (a fit
+      that ingests on the card: the coercion, the upload, the filter and
+      the id checks there)
     - ``valset``         validation-set ingest and upload
     - ``init_state``     the state's seeded start: on a CUDA device drawn
       on the card by K14 from numpy's seeded key (the host draw in the
@@ -164,7 +166,8 @@ class FitStats(CallStats):
       checkpoint's, on resume
     - ``host_pack``      CSR builds + ELL packing (full batch: both sides
       concurrently, this is the span; SVI: the CSR/CSC and the metric
-      layout)
+      layout); on the card: the two key sorts, the host's plan of the
+      layouts and their fill (K15)
     - ``kernel_build``   building or loading the CUDA kernels (0 on CPU)
     - ``transfer``       host->device upload of the layouts and the state
     - ``iterations``     the CAVI iteration blocks (full batch)
@@ -185,12 +188,14 @@ class FitStats(CallStats):
     and ``device_draws`` (the MT19937 words drawn on the card for the
     start: ``2 (nU + nI) k``, twice that in float64; 0 where the host drew
     it) and ``batches`` (the SVI batches run, each epoch's row count over
-    its batch size rounded up; 0 in full batch).
+    its batch size rounded up; 0 in full batch) and ``device_ingest`` (the
+    nonzeros sorted into CSR, and in full batch packed, on the card:
+    ``nnz`` where the fit ingests there, 0 where the host does).
     """
 
     ROOT = "hpf.fit"
     COUNTERS = ("nnz", "iterations", "checks", "bytes_to_device", "bytes_to_host",
-                "device_draws", "batches")
+                "device_draws", "batches", "device_ingest")
     NESTED = ("epoch_offsets",)
 
     nnz: int = 0
@@ -198,6 +203,7 @@ class FitStats(CallStats):
     checks: int = 0
     device_draws: int = 0
     batches: int = 0
+    device_ingest: int = 0
 
     @property
     def nnz_per_second(self) -> float:

@@ -1826,3 +1826,145 @@ def test_a_cuda_fit_starts_on_the_card(cuda, monkeypatch, use_float):
     state_bytes = (2 * (nU + nI) * 7 + nU + nI) * (4 if use_float else 8)
     assert host.fit_stats_.bytes_to_device - card.fit_stats_.bytes_to_device == state_bytes
     assert np.array_equal(card.Theta, host.Theta) and np.array_equal(card.Beta, host.Beta)
+
+
+# ---- K15: a fit's ingest on the card ------------------------------------
+
+def _unsorted_counts(nU, nI, nnz, seed):
+    """``_counts`` in a shuffled order, with the heavy items that split at
+    a small width."""
+    y, iu, ii = _counts(nU, nI, nnz, seed)
+    order = np.random.default_rng(seed + 1).permutation(len(y))
+    return y[order], iu[order], ii[order]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("max_width", [8, 64, 8192])
+def test_ell_fill_vs_plain(cuda, dtype, max_width):
+    """K15 against its plain version, bit for bit, at widths that split
+    item rows and merge thin buckets; K15a and K15b beside it."""
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.ops import ingest as G
+    from hpfrec_tpu_torch.utils.data import build_csr
+
+    y, iu, ii = _unsorted_counts(3000, 700, 60_000, seed=4)
+    for rows, cols, n_rows, n_cols in ((iu, ii, 3000, 700), (ii, iu, 700, 3000)):
+        indptr, ind, dat = build_csr(rows, cols, y.astype(np.float64), n_rows, n_cols)
+        c = torch.from_numpy(ind).to(cuda)
+        v = torch.from_numpy(dat).to(cuda, dtype)
+        n0 = E.ell_fill.launches
+        got = E.pack_ell(indptr, c, v, max_width)
+        assert E.ell_fill.launches == n0 + 1
+        ref = E.pack_ell(indptr, c.cpu(), v.cpu(), max_width)
+        assert torch.equal(got.cols.cpu(), ref.cols) and torch.equal(got.vals.cpu(), ref.vals)
+        host = E.to_device(E.build_ell(indptr, ind, dat, n_rows, max_width,
+                                       dtype=np.dtype(str(dtype).split(".")[1])), cuda)
+        dev = E.device_ell(got)
+        for a, b in zip(host.buckets, dev.buckets):
+            assert all(torch.equal(x, z) for x, z in zip(a[:3], b[:3])) and a[3:] == b[3:]
+        for name in ("inv_perm", "split_seg_pos", "split_indptr"):
+            assert torch.equal(getattr(host, name), getattr(dev, name))
+        if max_width == 8 and n_rows == 700:
+            assert host.split_seg_pos.shape[0] > 0
+        keys = torch.from_numpy(np.sort(rows).astype(np.int32)).to(cuda)
+        assert torch.equal(G.csr_indptr(keys, n_rows).cpu(),
+                           torch.from_numpy(indptr.astype(np.int32)))
+    for ids in (torch.from_numpy(iu).to(cuda), torch.from_numpy(
+            np.random.default_rng(2).integers(-(2 ** 40), 2 ** 40, 100_003)).to(cuda)):
+        out, mm = G.narrow_ids(ids)
+        ref_out, ref_mm = G.narrow_ids(ids.cpu())
+        assert torch.equal(out.cpu(), ref_out) and torch.equal(mm.cpu(), ref_mm)
+
+
+def _spy(monkeypatch, module, name, seen):
+    orig = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        seen.append((a, out))
+        return out
+
+    monkeypatch.setattr(module, name, wrapped)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_float", [True, False])
+def test_a_cuda_fit_ingests_on_the_card(cuda, monkeypatch, use_float):
+    """A one-device CUDA fit sorts and packs on the card: its layouts equal
+    the host path's (``build_layouts`` then ``to_device``), its factors
+    and seen-items CSR equal a fit whose layouts the host built, and
+    ``device_ingest`` counts its nonzeros; under ``engine='coo'`` it is 0."""
+    from scipy.sparse import coo_array
+
+    from hpfrec_tpu_torch import HPF
+    from hpfrec_tpu_torch.ops import ell as E
+    from hpfrec_tpu_torch.utils.data import process_data
+
+    y, iu, ii = _unsorted_counts(900, 300, 20_000, seed=6)
+    X = coo_array((y, (iu, ii)), shape=(900, 300))
+    kw = dict(k=7, maxiter=20, check_every=10, stop_crit="train-llk", random_seed=5,
+              use_float=use_float, verbose=False, device="cuda")
+    packed = []
+    _spy(monkeypatch, E, "device_ell", packed)
+    card = HPF(**kw).fit(X)
+    assert card.fit_stats_.device_ingest == card.fit_stats_.nnz == X.nnz
+    dt = np.float32 if use_float else np.float64
+    host_lays = [E.to_device(lay, cuda)
+                 for lay in E.build_layouts(process_data(X, "train-llk", False, dt), dt)]
+    assert len(packed) == 2
+    for (_, got), ref in zip(packed, host_lays):
+        for a, b in zip(ref.buckets, got.buckets):
+            assert all(torch.equal(x, z) for x, z in zip(a[:3], b[:3])) and a[3:] == b[3:]
+        for name in ("inv_perm", "split_seg_pos", "split_indptr"):
+            assert torch.equal(getattr(ref, name), getattr(got, name))
+
+    monkeypatch.setattr(HPF, "_ingest_on_card", lambda self, dev: False)
+    host = HPF(**kw).fit(X)
+    assert host.fit_stats_.device_ingest == 0
+    assert np.array_equal(card.Theta, host.Theta) and np.array_equal(card.Beta, host.Beta)
+    for name in ("seen", "_st_ix_user", "_n_seen_by_user"):
+        a, b = getattr(card, name), getattr(host, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    monkeypatch.undo()
+    coo = HPF(**dict(kw, engine="coo")).fit(X)
+    assert coo.fit_stats_.device_ingest == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batches", [dict(users_per_batch=200, items_per_batch=90),
+                                     dict(users_per_batch=250)])
+def test_a_cuda_svi_fit_ingests_on_the_card(cuda, monkeypatch, batches):
+    """An SVI fit on the card takes its epoch sides from the card's sort:
+    equal to ``epoch_side`` of the host's CSR; the factors and seen-items
+    CSR equal the host path's fit."""
+    from scipy.sparse import coo_array
+
+    from hpfrec_tpu_torch import HPF
+    from hpfrec_tpu_torch.ops import svi as S
+    from hpfrec_tpu_torch.utils.data import build_csr, process_data
+
+    y, iu, ii = _unsorted_counts(900, 300, 20_000, seed=8)
+    X = coo_array((y, (iu, ii)), shape=(900, 300))
+    kw = dict(k=7, maxiter=4, check_every=2, stop_crit="train-llk", random_seed=5,
+              verbose=False, device="cuda", **batches)
+    epochs = []
+    _spy(monkeypatch, S, "svi_run_epoch", epochs)
+    card = HPF(**kw).fit(X)
+    assert card.fit_stats_.device_ingest == X.nnz
+    p = process_data(X, "train-llk", False, np.float32)
+    refs = {True: S.epoch_side(*build_csr(p.ix_u, p.ix_i, p.y, 900, 300), np.float32, cuda),
+            False: S.epoch_side(*build_csr(p.ix_i, p.ix_u, p.y, 300, 900), np.float32, cuda)}
+    for args, _ in epochs:
+        side, ref = args[1], refs[args[6]]
+        assert all(torch.equal(getattr(side, f), getattr(ref, f)) for f in ("y", "cols",
+                                                                          "indptr"))
+        assert np.array_equal(side.deg, ref.deg) and side.deg.dtype == ref.deg.dtype
+    monkeypatch.undo()
+    monkeypatch.setattr(HPF, "_ingest_on_card", lambda self, dev: False)
+    host = HPF(**kw).fit(X)
+    assert host.fit_stats_.device_ingest == 0
+    assert np.array_equal(card.Theta, host.Theta) and np.array_equal(card.Beta, host.Beta)
+    for name in ("seen", "_st_ix_user", "_n_seen_by_user"):
+        a, b = getattr(card, name), getattr(host, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
