@@ -712,7 +712,7 @@ def coo_suite(pdata, state, dtype_name, reps, label=""):
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops.svi import phi_sums_tables
 
-    coo = C.coo_stream(pdata, state.G_shp.device)
+    coo = C.coo_stream(user_side(pdata, state.G_shp.device), pdata.nitems)
     t_tab = C._side_derive_plain(state.G_shp, state.G_rte)[0]
     b_tab = C._side_derive_plain(state.L_shp, state.L_rte)[0]
     y, iu, ii = coo.flat()
@@ -1357,14 +1357,15 @@ def ingest_suite(coo, dev, reps=3):
     stable=True)`` of the int32 ids, CUDA events); K15 a side (one launch
     into preallocated slabs, CUDA events) against its bound (the CSR read,
     the segment table read, the slabs written, at 3.35 TB/s) and its plain
-    version on the card; both sides' layouts equal to the host path's
-    (``process_data``, ``build_layouts``, ``to_device``) and K15's slabs to
-    the plain version's, bit for bit; K15a on the shuffled triplets' int32
-    user ids (as a fit calls it) and on an int64 copy of them, and K15b on
-    both sides' sorted keys, each against its plain version on the card
+    version on the card; both sides' layouts equal to the host builders'
+    (``process_data``, ``build_ell`` over ``build_csr``, ``to_device``),
+    and each rank's slice at ``pad_shards=2`` to ``to_device(build_ell(...,
+    pad_shards=2), shard=(r, 2))``, and K15's slabs to the plain
+    version's, bit for bit; K15a on the shuffled triplets' int32 user ids
+    (as a fit calls it) and on an int64 copy of them, and K15b on both
+    sides' sorted keys, each against its plain version on the card
     (``torch.equal``), its time (CUDA events) beside its bytes bound; then
-    a fit of the shape with the ingest on the card and on the host
-    (phases, ``device_ingest``; the factors bit-equal).  Returns the
+    a fit of the shape (its wall and phases).  Returns the
     figures of ``ell_fill`` (K15, both sides summed, with a side's under
     "user" / "item"), ``ids_narrow`` (K15a on int32 ids, the int64 form's
     under "int64") and ``csr_indptr`` (K15b, both sides summed), under
@@ -1376,6 +1377,14 @@ def ingest_suite(coo, dev, reps=3):
     from hpfrec_tpu_torch.ops import ell as E
     from hpfrec_tpu_torch.ops import ingest as G
     from hpfrec_tpu_torch.utils.data import process_data
+
+    def same_layout(want, got):
+        return (len(want.buckets) == len(got.buckets)
+                and all(torch.equal(x, z) and a[3:] == b[3:]
+                        for a, b in zip(want.buckets, got.buckets) for x, z in zip(a[:3], b[:3]))
+                and all(torch.equal(getattr(want, f), getattr(got, f))
+                        for f in ("inv_perm", "split_seg_pos", "split_indptr"))
+                and (want.n_segs, want.n_shards) == (got.n_segs, got.n_shards))
 
     order = np.random.default_rng(11).permutation(coo.nnz)
     shuffled = coo_array((coo.data[order], (coo.row[order], coo.col[order])), shape=coo.shape)
@@ -1399,17 +1408,24 @@ def ingest_suite(coo, dev, reps=3):
                                            for c in (user, item)])
         lays = clock("device_ell", lambda: [E.device_ell(p) for p in packs])
     host = process_data(shuffled, "train-llk", False, np.float32)
-    ref = clock("host build_layouts", lambda: E.build_layouts(host, np.float32))
+    ref = clock("host build_ell", lambda: host_layouts(host, np.float32))
     ref = clock("host to_device", lambda: [E.to_device(lay, dev) for lay in ref])
-    del host
-    for got, want in zip(lays, ref):
-        same = all(torch.equal(x, z) for a, b in zip(want.buckets, got.buckets)
-                   for x, z in zip(a[:3], b[:3]))
-        same &= all(torch.equal(getattr(want, f), getattr(got, f))
-                    for f in ("inv_perm", "split_seg_pos", "split_indptr"))
-        if not same or len(want.buckets) != len(got.buckets):
-            raise AssertionError("K15: the card's layout differs from the host path's")
+    if not all(same_layout(want, got) for got, want in zip(lays, ref)):
+        raise AssertionError("K15: the card's layout differs from the host builders'")
     del ref, lays
+    # a rank's slice of every bucket, as a data-parallel fit of two ranks packs it
+    n0 = E.ell_fill.launches
+    for side, csr, lay in zip(("user", "item"), (user, item), host_layouts(host, np.float32, 2)):
+        for r in range(2):
+            got = E.device_ell(E.pack_ell(csr.indptr, csr.cols, csr.vals, shard=(r, 2)))
+            if not same_layout(E.to_device(lay, dev, (r, 2)), got):
+                raise AssertionError(f"K15 {side}: rank {r} of 2's slice differs from "
+                                     "to_device(build_ell(..., pad_shards=2), shard)")
+            print("  ell_fill  %s side, rank %d of 2: %d segments of the padded layout, equal "
+                  "to the host builders'" % (side, r, got.n_segs))
+    if E.ell_fill.launches != n0 + 4:
+        raise AssertionError("K15: a rank's slice did not take one launch a side")
+    del host, got
     out = {}
     for side, csr, pack in (("user", user, packs[0]), ("item", item, packs[1])):
         plan = pack.plan
@@ -1479,28 +1495,11 @@ def ingest_suite(coo, dev, reps=3):
     torch.cuda.empty_cache()
     print("  host clock (s):", json.dumps({k: round(v, 4) for k, v in walls.items()}))
 
-    from hpfrec_tpu_torch.models import hpf as H
-
-    fits, on_card = {}, H.HPF._ingest_on_card
-    for label in ("card", "host", "card again"):
-        if label == "host":
-            H.HPF._ingest_on_card = lambda self, dev: False
-        m = HPF(k=K, stop_crit="train-llk", check_every=5, maxiter=10, random_seed=1,
-                device="cuda", verbose=False).fit(shuffled)
-        H.HPF._ingest_on_card = on_card
-        st = m.fit_stats_
-        fits[label] = m
-        print("  fit with the ingest on the %s: wall %.3f s, device_ingest %d, bytes_to_device "
-              "%d, phases (s) %s" % (label.split()[0], st.wall_seconds, st.device_ingest,
-                                     st.bytes_to_device,
-                                     json.dumps({k: round(v, 4) for k, v in st.phases.items()})))
-    a, b = fits["card"], fits["host"]
-    if not (np.array_equal(a.Theta, b.Theta) and np.array_equal(a.Beta, b.Beta)
-            and np.array_equal(a.seen, b.seen)
-            and np.array_equal(a._st_ix_user, b._st_ix_user)):
-        raise AssertionError("the fits with the ingest on the card and on the host differ")
-    print("  the fits' Theta, Beta and seen-items CSR bit-equal")
-    del fits, a, b, m
+    st = HPF(k=K, stop_crit="train-llk", check_every=5, maxiter=10, random_seed=1,
+             device="cuda", verbose=False).fit(shuffled).fit_stats_
+    print("  fit: wall %.3f s, bytes_to_device %d, phases (s) %s"
+          % (st.wall_seconds, st.bytes_to_device,
+             json.dumps({k: round(v, 4) for k, v in st.phases.items()})))
     torch.cuda.empty_cache()
     tot = {k: out["user"][k] + out["item"][k] for k in ("ms", "plain_ms", "bound_ms", "bytes")}
     return {"ell_fill": dict(tot, max_abs_err=0.0, bound_by="bytes", library_ms=None, ops=0,
@@ -1532,12 +1531,37 @@ def ingest_main():
     return 0
 
 
+def host_layouts(pdata, dtype, pad_shards=1):
+    """Both sides' ELL layouts of ``process_data``'s triplets, packed on the
+    host (``build_ell`` over ``build_csr``): the reference a fit's ingest
+    on the card is held to."""
+    from hpfrec_tpu_torch.ops.ell import build_ell
+    from hpfrec_tpu_torch.utils.data import build_csr
+
+    return [build_ell(*build_csr(r, c, pdata.y, n, m), n, dtype=dtype, pad_shards=pad_shards)
+            for r, c, n, m in ((pdata.ix_u, pdata.ix_i, pdata.nusers, pdata.nitems),
+                               (pdata.ix_i, pdata.ix_u, pdata.nitems, pdata.nusers))]
+
+
+def user_side(pdata, device):
+    """The user side (``ops.ingest.Csr``) of ``process_data``'s triplets on
+    ``device``, as a fit sorts it (``upload_triplets``, then
+    ``sort_sides``); the tests build theirs here too."""
+    from scipy.sparse import coo_array
+
+    from hpfrec_tpu_torch.ops import ingest as G
+
+    coo = coo_array((pdata.y, (pdata.ix_u, pdata.ix_i)), shape=(pdata.nusers, pdata.nitems))
+    trip = G.upload_triplets(coo, "maxiter", False, pdata.y.dtype, device)
+    return G.sort_sides(trip, items=False)[0]
+
+
 def layouts_for(coo, dtype, device):
-    from hpfrec_tpu_torch.ops.ell import build_layouts, layout_slots, to_device
+    from hpfrec_tpu_torch.ops.ell import layout_slots, to_device
     from hpfrec_tpu_torch.utils.data import process_data
 
     pdata = process_data(coo, "train-llk", False, dtype)
-    host_u, host_i = build_layouts(pdata, dtype)
+    host_u, host_i = host_layouts(pdata, dtype)
     slots = layout_slots(host_u) + layout_slots(host_i)
     return to_device(host_u, device), to_device(host_i, device), pdata, slots
 
@@ -1866,8 +1890,8 @@ def dp_exchange_suite(mesh, data, model, reps):
         return TOL["float32"]["rtol"] * max(float(r.double().abs().max()) for r in ref)
 
     # K12a, per iteration (both sides), and K12d, per train-llk check
-    sh = [E.to_device(h, dev, shard) for h in E.build_layouts(pdata, np.float32, n)]
-    full = sh if n == 1 else [E.to_device(h, dev) for h in E.build_layouts(pdata, np.float32)]
+    sh = [E.to_device(h, dev, shard) for h in host_layouts(pdata, np.float32, n)]
+    full = sh if n == 1 else [E.to_device(h, dev) for h in host_layouts(pdata, np.float32)]
     sides = ((t_tab, b_tab, 0), (b_tab, t_tab, 1))
     local = [E.all_bucket_sums(a, b, sh[j]) for a, b, j in sides]
     gathered = [P.all_gather_rows(mesh, x) for x in local]
@@ -1893,8 +1917,9 @@ def dp_exchange_suite(mesh, data, model, reps):
     del sh, full, local, gathered, bufs
 
     # K12c, per iteration
-    part = C.coo_stream(pdata, dev, None, shard)
-    whole = part if n == 1 else C.coo_stream(pdata, dev)
+    user = user_side(pdata, dev)
+    part = C.coo_stream(user, pdata.nitems, None, shard)
+    whole = part if n == 1 else C.coo_stream(user, pdata.nitems)
     su, si = P.sharded_coo_phi_sums(mesh, t_tab, b_tab, part)
     a, b = su.clone(), si.clone()
     ref = C.coo_phi_sums(t_tab, b_tab, whole)
@@ -2441,7 +2466,7 @@ def ts_step_suite(mesh, data, model, reps):
     host = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
                              model.Lambda_rte, model.k_rte, model.t_rte], "cpu")
     hp = Hyperparams(k=K)
-    lay_u, lay_i = (E.to_device(h, dev) for h in E.build_layouts(pdata, np.float32))
+    lay_u, lay_i = (E.to_device(h, dev) for h in host_layouts(pdata, np.float32))
     one = C._carry_init(type(host)(*[a.to(dev) for a in host]))
     one_ms = cuda_ms(lambda: E.cavi_step_ell_carried(one, lay_u, lay_i, hp), reps)
     windows, out = {}, None
@@ -2753,7 +2778,7 @@ def phase_3l(counters):
     from hpfrec_tpu_torch.models.state import state_from_numpy
     from hpfrec_tpu_torch.ops import metrics as M
     from hpfrec_tpu_torch.ops.cavi import device_blocked_coo
-    from hpfrec_tpu_torch.ops.ell import build_layouts, layout_slots, to_device
+    from hpfrec_tpu_torch.ops.ell import layout_slots, to_device
     from hpfrec_tpu_torch.utils.data import process_data, process_valset
     from hpfrec_tpu_torch.utils.evaluation import evaluate
 
@@ -2802,7 +2827,7 @@ def phase_3l(counters):
     if not (np.array_equal(pdata.user_mapping, model.user_mapping_)
             and np.array_equal(pdata.item_mapping, model.item_mapping_)):
         raise AssertionError("the rebuilt layouts index the users or items otherwise")
-    host_u, host_i = build_layouts(pdata, np.float32)
+    host_u, host_i = host_layouts(pdata, np.float32)
     slots = layout_slots(host_u) + layout_slots(host_i)
     lay_u, lay_i = to_device(host_u, dev), to_device(host_i, dev)
     fitted = state_from_numpy([model.Gamma_shp, model.Gamma_rte, model.Lambda_shp,
@@ -3380,12 +3405,12 @@ def main():
     print("[3g] K7c check at the fit's shapes (float32, fitted state, the fit's stream of %d "
           "triplets; times per iteration, both sides)" % pdata_fit.y.shape[0])
     real.update(coo_suite(pdata_fit, fitted, "float32", reps=3))
-    stream = C.coo_stream(pdata_full, dev)
+    stream = C.coo_stream(user_side(pdata_full, dev), pdata_full.nitems)
     t_tab, b_tab = C.side_derive(fitted.G_shp, fitted.G_rte)[0], C.side_derive(
         fitted.L_shp, fitted.L_rte)[0]
     print("[3g] K7c with ids in popularity order (item 0 the rank-1 item): %.4f ms"
           % cuda_ms(lambda: C.coo_phi_sums(t_tab, b_tab, stream), 3))
-    stream = C.coo_stream(pdata_fit, dev)
+    stream = C.coo_stream(user_side(pdata_fit, dev), pdata_fit.nitems)
     print("[3g] K5 over the fit's train stream (its train metric: %d triplets in %d blocks, "
           "float32, fitted state; times per check)" % (stream.nnz, stream.data.y.shape[0]))
     real["coo_llk"]["coo_train_stream"] = run_cases(

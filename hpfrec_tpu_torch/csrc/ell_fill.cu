@@ -1,14 +1,14 @@
 // K15 — a side's bucketed ELL layout filled from its CSR on the card.
 //
 // Replaces no kernel of hpfrec_tpu: the JAX package packs its layouts on
-// the host (hpfrec_tpu/ops/ell.py:build_ell, numpy), and so does this
-// package on the CPU and on every path but a one-device fit
-// (ops/ell.py:build_ell, the native ell_fill).  On one card the host
-// plans the layout from the side's row degrees (ops/ell.py:plan_ell: the
-// segments, the width ladder and its merges, the buckets' sizes) and this
-// kernel writes every bucket's (m, w) cols and vals, padding included,
-// into one slab of each that the buckets view, from the CSR the card
-// sorted (ops/ingest.py).  One launch a side.
+// the host (hpfrec_tpu/ops/ell.py:build_ell, numpy).  A fit on a card
+// packs them here: the host plans the layout from the side's row degrees
+// (ops/ell.py:plan_ell: the segments, the width ladder and its merges, the
+// buckets' sizes) and this kernel writes every bucket's (m, w) cols and
+// vals, padding included, into one slab of each that the buckets view,
+// from the CSR the card sorted (ops/ingest.py).  On a mesh a rank writes
+// its slice of every bucket, whose padding segments have no entries.  One
+// launch a side.
 //
 // Segment s (in layout order, bucket after bucket) belongs to the last
 // bucket b whose first segment is at or before s (a binary search over the

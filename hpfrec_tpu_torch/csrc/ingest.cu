@@ -2,11 +2,11 @@
 // CSR row pointers, on the card.
 //
 // Replace no function of hpfrec_tpu: the JAX package ingests on the host
-// (hpfrec_tpu/utils/data.py:process_data, its counting-sort CSR builds),
-// and so does this package on the CPU.  A fit on one card uploads the
-// caller's triplets once (ops/ingest.py) and sorts them there with
-// PyTorch's stable key sort; these two kernels are the rest of that
-// ingest beyond the sort, the payload gathers and plain casts.
+// (hpfrec_tpu/utils/data.py:process_data, its counting-sort CSR builds).
+// A fit on a card uploads the caller's triplets once (ops/ingest.py) and
+// sorts them there with PyTorch's stable key sort; these two kernels are
+// the rest of that ingest beyond the sort, the payload gathers and plain
+// casts.
 //
 // K15a ids_narrow: one pass over an id array of int32 or int64 that
 // writes it narrowed to int32 (as numpy's astype(int32) wraps) and the

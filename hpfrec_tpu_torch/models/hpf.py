@@ -48,7 +48,7 @@ import weakref
 import numpy as np
 import torch
 
-from ..ops.ingest import csr_sides, epoch_sides, pack_layouts, pack_side, upload_triplets
+from ..ops.ingest import sort_sides, upload_triplets
 from ..utils import data as data_utils
 from ..utils.profiling import FitStats, TopNStats, device_bytes, maybe_trace
 from .state import (Hyperparams, VariationalState, initialize_extra_rows,
@@ -511,26 +511,16 @@ class HPF:
         """The whole of a ``fit`` call after its checks, each step in a
         phase of ``stats``."""
         self._load_kernels(dev, stats)
-        pdata = None
-        if self._ingest_on_card(dev):
-            with stats.phase("reindex"):
-                pdata = upload_triplets(counts_df, self.stop_crit, self.reindex, self._dtype,
-                                        dev)
-        if pdata is None:
-            with stats.phase("reindex"):
-                pdata = data_utils.process_data(
-                    counts_df, self.stop_crit, self.reindex, self._dtype,
-                    sort_by_user=True)
-        else:
-            stats.device_ingest = pdata.nnz
-            stats.bytes_to_device += pdata.bytes_to_device
-        if pdata.user_mapping is None:
+        with stats.phase("reindex"):
+            trip = upload_triplets(counts_df, self.stop_crit, self.reindex, self._dtype, dev)
+        stats.bytes_to_device += trip.bytes_to_device
+        if trip.user_mapping is None:
             self.reindex = False
             self.produce_dicts = False
-        self.nusers = pdata.nusers
-        self.nitems = pdata.nitems
-        self.user_mapping_ = pdata.user_mapping
-        self.item_mapping_ = pdata.item_mapping
+        self.nusers = trip.nusers
+        self.nitems = trip.nitems
+        self.user_mapping_ = trip.user_mapping
+        self.item_mapping_ = trip.item_mapping
         if self.verbose:
             self._print_data_info()
 
@@ -572,7 +562,7 @@ class HPF:
             else:
                 state = initialize_state(self.nusers, self.nitems, hp, self._fit_seed,
                                          self._dtype)
-        nnz = pdata.nnz
+        nnz = trip.nnz
         stats.nnz = nnz
         self._nnz = nnz
         self._metric_ell = None
@@ -588,9 +578,9 @@ class HPF:
             print("Initializing optimization procedure...")
         st_time = time.time()
         if svi_mode:
-            state, colsums, seen = self._run_svi(state, pdata, hp, dev, stats)
+            state, colsums, seen = self._run_svi(state, trip, hp, dev, stats)
         else:
-            state, colsums, seen = self._run_full_batch(state, pdata, hp, dev, stats)
+            state, colsums, seen = self._run_full_batch(state, trip, hp, dev, stats)
         end_tm = (time.time() - st_time) / 60.0
         with stats.phase("metric_checks"):
             self._final_eval(state, colsums)
@@ -608,11 +598,9 @@ class HPF:
             with stats.phase("save"):
                 self._on_rank0(lambda: self._save_parameters(state))
         with stats.phase("metadata"):
-            # SVI stores the seen-items CSR whatever keep_data; the user
-            # side a run kept, else a host sort of the triplets
-            if self.keep_data or svi_mode:
-                self._store_metadata(seen if seen is not None
-                                     else csr_sides(pdata, items=False)[0])
+            # SVI stores the seen-items CSR whatever keep_data
+            if seen is not None:
+                self._store_metadata(seen)
             if self.produce_dicts and self.reindex:
                 self.user_dict_ = {self.user_mapping_[i]: i
                                    for i in range(self.user_mapping_.shape[0])}
@@ -643,14 +631,6 @@ class HPF:
         ``hpf.py:925``): ``shard_tables=True``, the ELL engine, more than one
         rank."""
         return self.shard_tables and self.engine == "ell" and self._n_ranks > 1
-
-    def _ingest_on_card(self, dev) -> bool:
-        """Whether a fit sorts and packs its triplets on the card
-        (``ops/ingest.py``, K15): a CUDA device, the ELL engine, one rank.
-        The COO engine, data-parallel meshes and the table-sharded engine
-        ingest and pack on the host, as every CPU fit does."""
-        return (dev.type == "cuda" and self.engine == "ell" and self._n_ranks == 1
-                and not self._table_sharded)
 
     def _real_state(self, state):
         """The fit's whole state, real rows in their original order, from
@@ -796,58 +776,59 @@ class HPF:
 
                 _cuda.load()
 
-    def _run_full_batch(self, state, pdata, hp, dev, stats):
+    def _run_full_batch(self, state, trip, hp, dev, stats):
         """Full-batch CAVI on the ELL engine (K1-K3; bfloat16 exp tables
         with ``gather_dtype='bfloat16'``) or the blocked-COO engine (K7c,
         K3); with a mesh, on the rank's share of the layouts or of the
         stream (K12a, K12c), or with ``shard_tables=True`` on the rank's
         rows of both tables (K13, ``parallel/table_sharded.py``), from the
-        host ``state`` (None: drawn on the card, ``_place_state``).  Returns
-        the final state (table-sharded: the rank's padded rows, which
-        ``_real_state`` gathers), a function giving its mean colsums (for
-        the train metric) and the user side's ``Csr`` where the layouts
-        were packed on the card and ``keep_data`` (else None)."""
+        uploaded triplets ``trip`` (sorted by ``sort_sides``; the
+        table-sharded engine packs its tiles on the host from the sides
+        copied back) and the host ``state`` (None: drawn on the card,
+        ``_place_state``).  Returns the final state (table-sharded: the
+        rank's padded rows, which ``_real_state`` gathers), a function
+        giving its mean colsums (for the train metric) and, with
+        ``keep_data``, the user side's ``Csr`` (else None)."""
         from ..ops.cavi import _carry_init, coo_stream, run_cavi_block_coo
-        from ..ops.ell import ell_to_device, gather_table_dtype, run_cavi_block_ell
+        from ..ops.ell import (device_ell, gather_table_dtype, pack_ell, run_cavi_block_ell,
+                               uploaded_bytes)
 
-        coo = ts = seen = None
-        gd = None
-        if self.engine == "coo":
-            with stats.phase("host_pack"):
-                coo = coo_stream(pdata, dev, self.block_size, self._shard)
-            stats.bytes_to_device += device_bytes(dev, coo)
+        coo = ts = None
+        gd = None if self.engine == "coo" else gather_table_dtype(self.gather_dtype)
+        with stats.phase("host_pack"):
+            user, item = sort_sides(trip, items=self.engine == "ell")
+            if self.engine == "coo":
+                coo = coo_stream(user, self.nitems, self.block_size, self._shard)
+            elif self._table_sharded:
+                from ..parallel.table_sharded import CARD_WINDOW_BYTES, prepare_table_sharded
+
+                user, item = user.to_host(), item.to_host()
+                g_item = 2 if gd is not None else np.dtype(self._dtype).itemsize
+                plan = prepare_table_sharded(
+                    user.indptr, user.cols.numpy(), user.vals.numpy(), item.indptr,
+                    item.cols.numpy(), item.vals.numpy(), self.nusers, self.nitems, self.k,
+                    self._n_ranks, g_item, dtype=self._dtype, window_bytes=CARD_WINDOW_BYTES)
+            else:
+                packs = [pack_ell(side.indptr, side.cols, side.vals, shard=self._shard)
+                         for side in (user, item)]
+            seen = user._replace(vals=None) if self.keep_data else None  # copied back last
+            del user, item
+        if coo is not None:
+            stats.bytes_to_device += device_bytes(dev, coo.user_bounds)
             self._metric_coo = coo.data
         elif self._table_sharded:
-            from ..parallel.table_sharded import (CARD_WINDOW_BYTES, TableSharded,
-                                                  prepare_table_sharded)
+            from ..parallel.table_sharded import TableSharded
 
-            gd = gather_table_dtype(self.gather_dtype)
-            g_item = 2 if gd is not None else np.dtype(self._dtype).itemsize
-            with stats.phase("host_pack"):
-                csr_u = data_utils.build_csr(pdata.ix_u, pdata.ix_i, pdata.y, self.nusers,
-                                             self.nitems)
-                csr_i = data_utils.build_csr(pdata.ix_i, pdata.ix_u, pdata.y, self.nitems,
-                                             self.nusers)
-                plan = prepare_table_sharded(*csr_u, *csr_i, self.nusers, self.nitems, self.k,
-                                             self._n_ranks, g_item, dtype=self._dtype,
-                                             window_bytes=CARD_WINDOW_BYTES)
-                del csr_u, csr_i
             with stats.phase("transfer"):
                 ts = self._table_shard = TableSharded(self.mesh, plan, self.nusers,
                                                       self.nitems, dev)
                 del plan
             stats.bytes_to_device += device_bytes(dev, ts.u, ts.i, ts.slots_dev)
         else:
-            gd = gather_table_dtype(self.gather_dtype)
-            with stats.phase("host_pack"):
-                packs, user = pack_layouts(pdata, self._dtype, self._n_ranks)
-                if user is not None and self.keep_data:
-                    seen = user._replace(vals=None)  # the seen-items CSR, copied back last
-                del user
             with stats.phase("transfer"):
-                (lay_u, sent_u), (lay_i, sent_i) = (ell_to_device(p, dev, self._shard)
-                                                    for p in packs)
-            stats.bytes_to_device += sent_u + sent_i
+                lay_u, lay_i = (device_ell(p) for p in packs)
+            stats.bytes_to_device += sum(uploaded_bytes(p, lay)
+                                         for p, lay in zip(packs, (lay_u, lay_i)))
             del packs
             self._metric_ell = lay_u
         if ts is not None:
@@ -895,7 +876,7 @@ class HPF:
         self.niter = iters_done - 1
         return carry.state, lambda: (carry.theta_colsum, carry.beta_colsum), seen
 
-    def _run_svi(self, state, pdata, hp, dev, stats):
+    def _run_svi(self, state, trip, hp, dev, stats):
         """Mini-batch SVI epochs (reference ``cython_loops.pxi:261-377``):
         user epochs over CSR rows, item epochs over CSC rows, alternating
         when both batch sizes are set (item epoch first, the reference's
@@ -904,20 +885,21 @@ class HPF:
         in ``hpfrec_tpu``, so the epoch schedule is the same; an epoch's
         shuffle and ``epoch_order`` run in the ``epoch_offsets`` phase
         inside the epoch's, and ``stats.batches`` counts its batches.
-        ``state`` is the host start (None: drawn on the card,
+        The epochs read the sides ``sort_sides`` left on the device, and a
+        train metric a user-side layout packed there or the blocked user
+        stream.  ``state`` is the host start (None: drawn on the card,
         ``_place_state``).  Returns the final state, a function giving its
         mean colsums and the user side's ``Csr`` (the seen-items CSR)."""
         from ..ops.cavi import side_derive
-        from ..ops.ell import ell_to_device
+        from ..ops.ell import device_ell, pack_ell, uploaded_bytes
         from ..ops.svi import epoch_order, svi_run_epoch
 
-        dt = self._dtype
         use_users = self.users_per_batch > 0
         use_items = self.items_per_batch > 0
         if use_items and self.verbose:
             print("Creating item indices for stochastic optimization...")
         with stats.phase("host_pack"):
-            csr_u, csr_i = csr_sides(pdata, items=use_items)
+            csr_u, csr_i = sort_sides(trip, items=use_items)
 
         seed = self._fit_seed
         rng = np.random.default_rng(seed=seed if (seed is not None and seed > 0) else None)
@@ -934,21 +916,20 @@ class HPF:
             or (self.verbose and self.stop_crit in ('diff-norm', 'maxiter')))
         ell_m = None
         if self.engine == "coo":
-            from ..ops.cavi import device_blocked_coo
+            from ..ops.cavi import blocked_stream
 
             with stats.phase("host_pack"):
-                self._metric_coo = device_blocked_coo(pdata.y, pdata.ix_u, pdata.ix_i, dev,
-                                                      self.block_size, self._shard)[0]
-            stats.bytes_to_device += device_bytes(dev, self._metric_coo)
+                self._metric_coo = blocked_stream(csr_u.vals, csr_u.row_ids(), csr_u.cols,
+                                                  self.block_size, self._shard)
         elif need_metric:
             with stats.phase("host_pack"):
-                ell_m = pack_side(csr_u, dt, self._n_ranks)
+                ell_m = pack_ell(csr_u.indptr, csr_u.cols, csr_u.vals, shard=self._shard)
         with stats.phase("transfer"):
             if ell_m is not None:
-                self._metric_ell, sent = ell_to_device(ell_m, dev, self._shard)
-                stats.bytes_to_device += sent
-            side_u, side_i, sent = epoch_sides(csr_u if use_users else None, csr_i, dt, dev)
-        stats.bytes_to_device += sent
+                self._metric_ell = device_ell(ell_m)
+                stats.bytes_to_device += uploaded_bytes(ell_m, self._metric_ell)
+            side_u = csr_u.epoch_side() if use_users else None
+            side_i = csr_i.epoch_side() if use_items else None
         seen = csr_u._replace(vals=None)  # the seen-items CSR, copied back last
         del csr_u, csr_i, ell_m
         state = self._place_state(state, hp, dev, stats)
@@ -1135,8 +1116,8 @@ class HPF:
 
     def _store_metadata(self, user):
         """Seen-items CSR for ``topN(exclude_seen=True)`` (reference
-        ``_store_metadata``, ``hpfrec/__init__.py:587-606``) from the user
-        side's ``Csr`` (copied back where it was sorted on the card); the
+        ``_store_metadata``, ``hpfrec/__init__.py:587-606``) from the fit's
+        user side, its ``Csr`` (copied back from the device); the
         serve-time metadata keeps the truncated indptr like the reference
         (``hpfrec/__init__.py:424``)."""
         indptr, indices = user.seen()

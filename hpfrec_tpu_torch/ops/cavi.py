@@ -56,19 +56,33 @@ class BlockedCOO(NamedTuple):
     ix_i: torch.Tensor  # int32
 
 
-def device_blocked_coo(y, ix_u, ix_i, device, block_size=None, shard=(0, 1)):
-    """Host triplets as a ``BlockedCOO`` on ``device`` (``block_coo``'s
-    padding), and the number of real triplets.  ``shard=(rank,
-    n_shards)`` uploads only the rank's equal share of the blocks
-    (``block_coo`` pads their count to a multiple of ``n_shards``); the
-    count is still that of all the triplets."""
-    from ..utils.data import block_coo
+def blocked_stream(y, ix_u, ix_i, block_size=None, shard=(0, 1)) -> BlockedCOO:
+    """Triplet tensors as the rank's share of their padded, blocked stream,
+    made where they are: ``utils.data.block_coo``'s blocks and padding,
+    their count a multiple of ``n_shards``, and an equal share of them
+    for ``shard=(rank, n_shards)``."""
+    from ..utils.data import block_shape
 
     rank, n_shards = shard
-    blk = block_coo(y, ix_u, ix_i, block_size=block_size, n_shards=n_shards)
-    per = blk.y.shape[0] // n_shards
-    return BlockedCOO(*(torch.from_numpy(a[rank * per:(rank + 1) * per]).to(device)
-                        for a in (blk.y, blk.ix_u, blk.ix_i))), blk.nnz
+    nnz = int(y.shape[0])
+    B, nblocks = block_shape(nnz, block_size, n_shards)
+    per = nblocks // n_shards
+    lo, hi = (min(nnz, j * per * B) for j in (rank, rank + 1))
+
+    def part(a):
+        out = a.new_zeros(per * B)
+        out[:hi - lo] = a[lo:hi]
+        return out.view(per, B)
+
+    return BlockedCOO(part(y), part(ix_u), part(ix_i))
+
+
+def device_blocked_coo(y, ix_u, ix_i, device, block_size=None, shard=(0, 1)):
+    """Host triplets as ``blocked_stream`` on ``device`` (only the rank's
+    share goes up), and the number of all the triplets."""
+    blk = blocked_stream(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (y, ix_u, ix_i)),
+                         block_size, shard)
+    return BlockedCOO(*(a.to(device) for a in blk)), int(y.shape[0])
 
 
 def _phi_block(t_tab, b_tab, y, iu, ii):
@@ -329,45 +343,35 @@ class CooStream(NamedTuple):
         return tuple(a.reshape(-1)[:self.nnz] for a in self.data)
 
 
-def coo_stream(pdata, device, block_size=None, shard=(0, 1)) -> CooStream:
-    """Upload processed, user-sorted triplets (``utils.data.ProcessedData``)
-    for the blocked-COO engine.  The item order is a stable counting sort
-    on the host (the CSC build of ``utils.data.build_csr`` over the triplet
-    positions), once per fit; from it the item-ordered user ids
-    (``item_users``) and each triplet's position in that order
-    (``item_pos``: ``item_users[item_pos[j]] == ix_u[j]``).  Counts must
-    fit int32.
+def coo_stream(user, n_items: int, block_size=None, shard=(0, 1)) -> CooStream:
+    """The blocked-COO engine's stream from a fit's user side
+    (``ops.ingest.Csr``, where it was sorted), whose entries are the
+    user-sorted triplets.  The item order is the stable sort of the
+    stream's item ids (``torch.sort(..., stable=True)``), once per fit;
+    from it the item-ordered user ids (``item_users``), each triplet's
+    position in that order (``item_pos``: ``item_users[item_pos[j]] ==
+    ix_u[j]``) and each item's run (K15b over the sorted ids).
 
-    ``shard=(rank, n_shards)`` uploads the rank's share of the stream: the
+    ``shard=(rank, n_shards)`` takes the rank's share of the stream: the
     stream is cut at user boundaries into near-equal shares
     (``utils.data.share``), and the share gets its own user bounds
     (empty for the other users) and item order."""
-    from ..utils.data import build_csr, share
-    from .ell import _INT32_MAX, _upload
+    from ..utils.data import share
+    from .ingest import csr_indptr
 
-    if not pdata.sorted_by_user:
-        raise ValueError("the blocked-COO engine needs user-sorted triplets")
-    if int(pdata.y.shape[0]) > _INT32_MAX:
-        raise ValueError("too many nonzeros for int32 indexing: %d" % int(pdata.y.shape[0]))
-    device = torch.device(device)
-    bounds = np.zeros(pdata.nusers + 1, dtype=np.int64)
-    np.cumsum(np.bincount(pdata.ix_u, minlength=pdata.nusers), out=bounds[1:])
-    u0, u1 = share(bounds, shard[1], shard[0])
-    lo, hi = int(bounds[u0]), int(bounds[u1])
-    y, ix_u, ix_i = pdata.y[lo:hi], pdata.ix_u[lo:hi], pdata.ix_i[lo:hi]
+    u0, u1 = share(user.indptr, shard[1], shard[0])
+    lo, hi = int(user.indptr[u0]), int(user.indptr[u1])
     nnz = hi - lo
-    bounds = np.clip(bounds - lo, 0, nnz)
-    data, _ = device_blocked_coo(y, ix_u, ix_i, device, block_size)
-    indptr_i, order, _ = build_csr(ix_i, np.arange(nnz, dtype=np.int32), y, pdata.nitems, nnz)
-    keys = np.repeat(np.arange(pdata.nitems, dtype=np.int32), np.diff(indptr_i))
-    runs = np.column_stack([indptr_i[:-1], indptr_i[1:]])
-    pos = np.empty(nnz, dtype=np.int32)
-    pos[order] = np.arange(nnz, dtype=np.int32)
-    return CooStream(data=data, nnz=nnz, user_bounds=_upload(bounds, np.int32, device),
-                     item_keys=_upload(keys, np.int32, device),
-                     item_users=_upload(ix_u[order], np.int32, device),
-                     item_pos=_upload(pos, np.int32, device),
-                     item_runs=_upload(runs, np.int32, device))
+    device = user.cols.device
+    ix_u, ix_i = user.row_ids(u0, u1), user.cols[lo:hi]
+    keys, order = torch.sort(ix_i, stable=True)
+    pos = torch.empty(nnz, dtype=torch.int32, device=device)
+    pos[order] = torch.arange(nnz, dtype=torch.int32, device=device)
+    runs = csr_indptr(keys, n_items)
+    return CooStream(data=blocked_stream(user.vals[lo:hi], ix_u, ix_i, block_size), nnz=nnz,
+                     user_bounds=(user.indptr_dev - lo).clamp_(0, nnz),
+                     item_keys=keys, item_users=ix_u[order], item_pos=pos,
+                     item_runs=torch.stack([runs[:-1], runs[1:]], dim=1))
 
 
 def coo_phi_sums(t_tab, b_tab, coo: CooStream):

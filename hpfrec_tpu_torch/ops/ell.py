@@ -20,11 +20,14 @@ The device half runs two hand-written CUDA kernels:
 - **K2** ``segment_table_sums`` (``csrc/segment_sums.cu``): segment sums
   to table order, split rows added in a fixed order (no atomics).
 
-A fit on one card packs its layouts there: ``plan_ell`` (shared with
+Every fit packs its layouts on its device: ``plan_ell`` (shared with
 ``build_ell``) plans a side on the host from its row pointers, and **K15**
 ``ell_fill`` (``csrc/ell_fill.cu``, through ``pack_ell``) fills every
-bucket from the side's CSR on the card into one slab of cols and one of
-vals that ``device_ell``'s buckets view.
+bucket, or on a mesh the rank's slice of every bucket, from the side's
+CSR (``ops/ingest.py``) into one slab of cols and one of vals that
+``device_ell``'s buckets view.  ``build_ell`` and ``to_device`` pack and
+upload on the host: the table-sharded engine's tiles and the tests'
+references.
 
 Each wrapper takes its plain PyTorch version for CPU tensors, launches the
 kernel for CUDA tensors, and counts its launches in ``.launches`` (K1's
@@ -216,9 +219,9 @@ def plan_ell(run_start, run_len, run_row, run_chunk, n_rows: int, max_width: int
     side's (row, column chunk) runs), without its cols and vals: runs split
     into segments of at most ``max_width``, widths on the ladder and small
     buckets merged, the buckets' sizes, ``inv_perm`` and the split-row
-    patch.  ``build_ell`` fills its buckets on the host from it, and a fit
-    on one card fills them there (``pack_ell``, K15), so the two cannot
-    pack different layouts.  On an untiled side every O(segments) step is
+    patch.  ``build_ell`` fills its buckets on the host from it, and every
+    fit on its device (``pack_ell``, K15), so the two cannot pack
+    different layouts.  On an untiled side every O(segments) step is
     a pass or an index (the bucket order a radix sort of small keys), none
     a comparison sort."""
     # split runs longer than max_width into bounded segments
@@ -320,7 +323,8 @@ def build_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
     ``col_chunk_rows`` (with ``n_cols``) enables column tiling: each row's
     sorted cols are partitioned at chunk boundaries into per-(row, chunk)
     segments whose cols are stored chunk-local, and each bucket carries its
-    span.  The layout is ``plan_ell``'s, filled here."""
+    span.  The layout is ``plan_ell``'s, filled here.  No fit packs here
+    but the table-sharded engine's (``parallel.table_sharded``)."""
     deg = np.diff(indptr).astype(np.int64)
     nnz = int(indices.shape[0])
 
@@ -369,25 +373,6 @@ def build_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
     return EllLayout(buckets=buckets, inv_perm=plan.inv_perm, split_rows=plan.split_rows,
                      split_seg_pos=plan.split_seg_pos, n_rows=n_rows,
                      col_spans=plan.col_spans)
-
-
-def build_layouts(pdata, dtype, pad_shards: int = 1) -> Tuple[EllLayout, EllLayout]:
-    """User- and item-side untiled layouts of processed triplets
-    (``utils.data.ProcessedData``): CSR then ELL packing per side, the two
-    sides built concurrently (their heavy parts are native calls that
-    release the GIL); ``pad_shards`` as in ``build_ell``."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from ..utils.data import build_csr
-
-    def side(rows, cols, n_rows, n_cols):
-        indptr, ind, dat = build_csr(rows, cols, pdata.y, n_rows, n_cols)
-        return build_ell(indptr, ind, dat, n_rows, dtype=dtype, pad_shards=pad_shards)
-
-    with ThreadPoolExecutor(max_workers=1) as ex:
-        item = ex.submit(side, pdata.ix_i, pdata.ix_u, pdata.nitems, pdata.nusers)
-        user = side(pdata.ix_u, pdata.ix_i, pdata.nusers, pdata.nitems)
-        return user, item.result()
 
 
 def layout_slots(layout) -> int:
@@ -452,6 +437,17 @@ def _gathered_positions(ms, n_shards: int) -> np.ndarray:
     return np.concatenate(pos) if pos else np.zeros(0, np.int64)
 
 
+def _shard_positions(ms, n_shards: int, inv_perm, split_seg_pos):
+    """``inv_perm`` and ``split_seg_pos`` of a layout whose buckets hold
+    ``ms`` segments, remapped to the rank-major order of the sums gathered
+    from ``n_shards`` ranks (as they are for one)."""
+    if n_shards == 1:
+        return inv_perm, split_seg_pos
+    where = _gathered_positions(ms, n_shards)
+    return where[inv_perm], np.where(split_seg_pos >= 0, where[np.maximum(split_seg_pos, 0)],
+                                     -1)
+
+
 def to_device(layout: EllLayout, device, shard: Tuple[int, int] = (0, 1)) -> DeviceEll:
     """Upload a host layout (from pinned memory when the target is CUDA).
     Counts must fit int32, which every kernel indexes with.
@@ -460,7 +456,8 @@ def to_device(layout: EllLayout, device, shard: Tuple[int, int] = (0, 1)) -> Dev
     n_shards, (rank + 1) * m / n_shards)`` of each bucket of m segments (a
     layout built with ``pad_shards=n_shards``) and the replicated
     reassembly arrays, its positions remapped to the rank-major order of
-    the gathered segment sums (``parallel.engine``)."""
+    the gathered segment sums (``parallel.engine``).  No fit calls it (a
+    fit's layouts are ``pack_ell``'s, placed by ``device_ell``)."""
     device = torch.device(device)
     rank, n_shards = shard
     ms = [int(b.rows.shape[0]) for b in layout.buckets]
@@ -473,12 +470,8 @@ def to_device(layout: EllLayout, device, shard: Tuple[int, int] = (0, 1)) -> Dev
     if any(m % n_shards for m in ms) or not 0 <= rank < n_shards:
         raise ValueError("shard %s of a layout whose buckets hold %s segments "
                          "(build it with pad_shards=%d)" % (shard, ms, n_shards))
-    inv_perm, split_seg_pos = layout.inv_perm, layout.split_seg_pos
-    if n_shards > 1:
-        where = _gathered_positions(ms, n_shards)
-        inv_perm = where[inv_perm]
-        split_seg_pos = np.where(split_seg_pos >= 0,
-                                 where[np.maximum(split_seg_pos, 0)], -1)
+    inv_perm, split_seg_pos = _shard_positions(ms, n_shards, layout.inv_perm,
+                                               layout.split_seg_pos)
     buckets = []
     start = 0
     for j, b in enumerate(layout.buckets):
@@ -514,13 +507,16 @@ def _device_ell(buckets, inv_perm, split_rows, split_seg_pos, n_rows, n_segs, n_
 
 class EllPack(NamedTuple):
     """A side's layout on the device before its upload of row ids and
-    reassembly arrays: the plan, and the slabs of every bucket's cols and
-    vals, bucket after bucket, that K15 filled (``pack_ell``)."""
+    reassembly arrays: the plan, the slabs of every bucket's cols and vals
+    (of the rank's slice of every bucket), bucket after bucket, that K15
+    filled, and the table row of each of those segments (``pack_ell``)."""
 
     plan: EllPlan
     cols: torch.Tensor  # (slots,) int32
     vals: torch.Tensor  # (slots,) the CSR's dtype
     bytes_to_device: int  # the segment table K15 read
+    rows: np.ndarray  # (segments,) int64, host; 0 for padding
+    shard: Tuple[int, int]
 
 
 def _ell_fill_plain(cols, vals, seg_src, seg_len, btab, out_cols, out_vals):
@@ -574,47 +570,67 @@ ell_fill.launches = 0
 
 
 def pack_ell(indptr: np.ndarray, cols: torch.Tensor, vals: torch.Tensor,
-             max_width: int = 8192) -> EllPack:
+             max_width: int = 8192, shard: Tuple[int, int] = (0, 1)) -> EllPack:
     """A side's untiled layout from its CSR on the device: ``plan_ell`` on
     the host from the row pointers ``indptr`` ((n_rows + 1,) int64, host),
     then K15 from ``cols`` / ``vals`` (the CSR's entries, on the device)
     into the slabs.  The same layout as ``build_ell(indptr, cols, vals,
-    n_rows, max_width)`` then ``to_device``, element for element."""
+    n_rows, max_width)`` then ``to_device``, element for element; with
+    ``shard=(rank, n_shards)``, as ``build_ell(..., pad_shards=n_shards)``
+    then ``to_device(..., shard=shard)``: the rank's slice of every
+    bucket, its padding segments inert (row 0, zero vals)."""
+    rank, n_shards = shard
     n_rows = int(indptr.shape[0]) - 1
-    plan = plan_ell(*untiled_runs(indptr), n_rows, max_width)
-    if int(plan.first[-1]) > _INT32_MAX or int(indptr[-1]) > _INT32_MAX:
+    plan = plan_ell(*untiled_runs(indptr), n_rows, max_width, pad_shards=n_shards)
+    if int(plan.m_pads.sum()) > _INT32_MAX or int(indptr[-1]) > _INT32_MAX:
         raise ValueError("pack_ell: %d segments over %d entries overflow int32"
-                         % (int(plan.first[-1]), int(indptr[-1])))
+                         % (int(plan.m_pads.sum()), int(indptr[-1])))
+    if not 0 <= rank < n_shards:
+        raise ValueError("pack_ell: shard %s" % (shard,))
+    per = plan.m_pads // n_shards
+    seg_src, seg_len, rows = plan.seg_start, plan.seg_len, plan.seg_row
+    if n_shards > 1:
+        # the rank's slice of every bucket: a real segment's index into the
+        # plan's lists, or past its bucket's real segments, padding
+        b = np.repeat(np.arange(len(per)), per)
+        q = rank * per[b] + np.arange(int(per.sum())) - np.repeat(np.cumsum(per) - per, per)
+        real = q < np.diff(plan.first)[b]
+        at = np.where(real, plan.first[b] + q, 0)
+        seg_src, seg_len, rows = (np.where(real, a[at], 0) for a in (seg_src, seg_len, rows))
     device = cols.device
-    slots = plan.m_pads * plan.widths
-    btab = np.stack([plan.first[:-1], np.cumsum(slots) - slots, plan.widths], axis=1)
-    seg_src = _upload(plan.seg_start, np.int32, device)
-    seg_len = _upload(plan.seg_len, np.int32, device)
+    slots = per * plan.widths
+    btab = np.stack([np.cumsum(per) - per, np.cumsum(slots) - slots, plan.widths], axis=1)
+    seg_src = _upload(seg_src, np.int32, device)
+    seg_len = _upload(seg_len, np.int32, device)
     btab_dev = _upload(btab, np.int64, device)
     total = int(slots.sum())
     out_cols = torch.empty(total, dtype=torch.int32, device=device)
     out_vals = torch.empty(total, dtype=vals.dtype, device=device)
     ell_fill(cols, vals, seg_src, seg_len, btab_dev, out_cols, out_vals)
     return EllPack(plan=plan, cols=out_cols, vals=out_vals,
-                   bytes_to_device=_nbytes(seg_src, seg_len, btab_dev))
+                   bytes_to_device=_nbytes(seg_src, seg_len, btab_dev), rows=rows, shard=shard)
 
 
 def device_ell(pack: EllPack) -> DeviceEll:
-    """The ``DeviceEll`` of a packed side: its buckets view the slabs, and
-    their row ids and the reassembly arrays are uploaded."""
-    plan = pack.plan
+    """The ``DeviceEll`` of a packed side (a rank's share of it): its
+    buckets view the slabs, and their row ids and the reassembly arrays
+    are uploaded."""
+    plan, n_shards = pack.plan, pack.shard[1]
     device = pack.cols.device
-    rows = _upload(plan.seg_row, np.int32, device)
-    buckets, slot = [], 0
-    for b, w in enumerate(plan.widths.tolist()):
-        s0, s1 = int(plan.first[b]), int(plan.first[b + 1])
-        n = (s1 - s0) * w
-        buckets.append(DeviceBucket(rows=rows[s0:s1], cols=pack.cols[slot:slot + n].view(-1, w),
+    per = (plan.m_pads // n_shards).tolist()
+    rows = _upload(pack.rows, np.int32, device)
+    buckets, slot, s0 = [], 0, 0
+    for m, w in zip(per, plan.widths.tolist()):
+        n = m * w
+        buckets.append(DeviceBucket(rows=rows[s0:s0 + m], cols=pack.cols[slot:slot + n].view(-1, w),
                                     vals=pack.vals[slot:slot + n].view(-1, w), col_off=0,
                                     start=s0))
         slot += n
-    return _device_ell(buckets, plan.inv_perm, plan.split_rows, plan.split_seg_pos,
-                       plan.n_rows, int(plan.first[-1]), 1, device)
+        s0 += m
+    inv_perm, split_seg_pos = _shard_positions(plan.m_pads, n_shards, plan.inv_perm,
+                                               plan.split_seg_pos)
+    return _device_ell(buckets, inv_perm, plan.split_rows, split_seg_pos, plan.n_rows, s0,
+                       n_shards, device)
 
 
 def uploaded_bytes(pack: EllPack, layout: DeviceEll) -> int:
@@ -622,19 +638,6 @@ def uploaded_bytes(pack: EllPack, layout: DeviceEll) -> int:
     table, then the row ids and reassembly arrays ``device_ell`` uploaded."""
     return pack.bytes_to_device + _nbytes(*(b.rows for b in layout.buckets), layout.inv_perm,
                                           layout.split_seg_pos, layout.split_indptr)
-
-
-def ell_to_device(packed, device, shard: Tuple[int, int] = (0, 1)):
-    """``(DeviceEll, bytes it took from the host)`` of a side packed on the
-    host (an ``EllLayout``: ``to_device`` uploads the rank's share) or on
-    the device (an ``EllPack``: ``device_ell`` views its slabs)."""
-    if isinstance(packed, EllPack):
-        layout = device_ell(packed)
-        return layout, uploaded_bytes(packed, layout)
-    from ..utils.profiling import device_bytes
-
-    layout = to_device(packed, device, shard)
-    return layout, device_bytes(torch.device(device), layout)
 
 
 def _nbytes(*tensors) -> int:

@@ -1,71 +1,84 @@
-"""A fit's triplets sorted into both sides' CSR on the device.
+"""A fit's triplets sorted into both sides' CSR on its device.
 
-A fit on one card (``HPF._ingest_on_card``) takes this path in place of
-``utils.data.process_data`` and the host CSR builds: the host coerces the
-input (no copies) and, with ``reindex=True``, filters and factorizes it as
-before; then the triplets go up once, in the dtypes they arrive in, and
-the card does the rest:
+Every fit takes this path, on a card or on the CPU (K15a and K15b take
+their plain versions below for CPU tensors): the host coerces the input
+(no copies) and, with ``reindex=True``, filters and factorizes it as
+``utils.data.process_data`` does; then the triplets go up once, in the
+dtypes they arrive in, and the device does the rest:
 
 - ``upload_triplets``: the low-count filter as an order-preserving
-  compaction (its count read back, so the host warns as before), K15a
-  (``narrow_ids``: the ids narrowed to int32 and their least and largest
-  values, read back once for the negative-id check and, without a shape,
-  the table sizes), the counts cast to the state dtype (``.to`` rounds to
-  nearest, as ``np.require`` does);
+  compaction (its count read back, so the host warns as ``process_data``
+  does), K15a (``narrow_ids``: the ids narrowed to int32 and their least
+  and largest values, read back once for the negative-id check and,
+  without a shape, the table sizes), the counts cast to the state dtype
+  (``.to`` rounds to nearest, as ``np.require`` does);
 - ``sort_sides``: a stable sort by user of the input order, then a stable
   sort by item of the user-sorted stream (``torch.sort(..., stable=True)``
   and the payload's gathers): the orders the native counting sort gives
   (``_native.coo_to_csr``), so every row lists its entries in the same
-  order; each side's row pointers from its sorted keys by K15b
-  (``csr_indptr``), copied back for the host's plan (``ops.ell.plan_ell``).
+  order as ``build_csr``'s; each side's row pointers from its sorted keys
+  by K15b (``csr_indptr``), copied back for the host's plan
+  (``ops.ell.plan_ell``).
 
-``ops.ell.pack_ell`` (K15) then fills the full-batch layouts from these
-sides, and SVI takes them as its ``EpochSide``s.  K15a and K15b take their
-plain versions below for CPU tensors (the CPU tests hold the whole path
-to the host's arrays) and count their launches in ``.launches``.
-
-A fit reads both ingests through one interface: ``csr_sides``,
-``pack_side`` / ``pack_layouts`` and ``epoch_sides`` take either
-``process_data``'s host arrays or ``upload_triplets``' device ones, and
-give ``Csr`` sides whose ``seen()`` is the seen-items CSR on the host;
-only the O(nnz) passes differ.
+Each engine builds what it needs from the two ``Csr`` sides: the ELL
+engine its layouts (``ops.ell.pack_ell``, K15, then ``device_ell``; a
+rank's slice of every bucket on a mesh), the blocked-COO engine its
+stream from the user side (``ops.cavi.coo_stream``), SVI its
+``EpochSide``s (``Csr.epoch_side``), the table-sharded engine its own
+host packer from ``Csr.to_host``; the seen-items CSR is the user side's
+``Csr.seen``.  K15a and K15b count their launches in ``.launches``.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..utils import data as data_utils
-from .ell import _INT32_MAX, _upload, build_ell, build_layouts, pack_ell
+from .ell import _INT32_MAX, _upload
 
 _ID_DTYPES = (np.dtype(np.int32), np.dtype(np.int64))
 _VALUE_DTYPES = (np.dtype(np.float32), np.dtype(np.float64))
 
 
 class Csr(NamedTuple):
-    """One side's CSR, each row's entries in input order: row pointers on
-    the host; the entries on the host (``build_csr``'s arrays), or on the
-    device after ``sort_sides``, with int32 row pointers there too.  A
-    user side kept only for ``seen()`` drops its ``vals`` (None)."""
+    """One side's CSR on the fit's device, each row's entries in the order
+    of the stream it was sorted from: row pointers on the host and on the
+    device.  A user side kept only for ``seen()`` drops its ``vals``
+    (None)."""
 
     indptr: np.ndarray  # (n_rows + 1,) int64, host
-    cols: Union[np.ndarray, torch.Tensor]  # (nnz,) int32, the other side's ids
-    vals: Union[np.ndarray, torch.Tensor]  # (nnz,) the state dtype
-    indptr_dev: Optional[torch.Tensor] = None  # (n_rows + 1,) int32, on the device
-
-    @property
-    def on_device(self) -> bool:
-        return self.indptr_dev is not None
+    cols: torch.Tensor  # (nnz,) int32, the other side's ids
+    vals: Optional[torch.Tensor]  # (nnz,) the state dtype
+    indptr_dev: torch.Tensor  # (n_rows + 1,) int32
 
     def seen(self):
         """The seen-items CSR on the host, ``(indptr int64, indices
-        int32)``: a user side's entries (copied back from the device)."""
-        cols = self.cols
-        return self.indptr, cols.cpu().numpy() if isinstance(cols, torch.Tensor) else cols
+        int32)``: a user side's entries copied back."""
+        return self.indptr, self.cols.cpu().numpy()
+
+    def to_host(self) -> "Csr":
+        """This side with its entries copied to the host (CPU tensors)."""
+        return self._replace(cols=self.cols.cpu(),
+                             vals=None if self.vals is None else self.vals.cpu())
+
+    def row_ids(self, r0: int = 0, r1: Optional[int] = None):
+        """The row of every entry of rows ``[r0, r1)`` (int32, where the
+        entries are)."""
+        r1 = self.indptr.shape[0] - 1 if r1 is None else r1
+        rows = torch.arange(r0, r1, dtype=torch.int32, device=self.cols.device)
+        return torch.repeat_interleave(rows, torch.diff(self.indptr_dev[r0:r1 + 1]),
+                                       output_size=int(self.indptr[r1] - self.indptr[r0]))
+
+    def epoch_side(self):
+        """SVI's ``EpochSide`` of this side, where it is."""
+        from .svi import EpochSide
+
+        return EpochSide(y=self.vals, cols=self.cols, indptr=self.indptr_dev,
+                         deg=np.diff(self.indptr).astype(np.int32))
 
 
 class DeviceTriplets:
@@ -160,18 +173,17 @@ def _to_device(a: np.ndarray, device):
 
 
 def upload_triplets(input_df, stop_crit: str, reindex: bool, dtype,
-                    device) -> Optional[DeviceTriplets]:
+                    device) -> DeviceTriplets:
     """``process_data``'s ingest with the triplets on ``device``: the same
     filter, checks, warnings, errors, sizes and mappings, and the same
     arrays in input order (not sorted by user; ``sort_sides`` sorts).
     Ids other than int32 / int64 are cast to int64 on the host and counts
     other than float32 / float64 to ``dtype``, as ``process_data`` casts
-    them.  None when the input holds more triplets than int32 indexes
-    (``process_data`` then takes it)."""
+    them.  Raises ``ValueError`` for more triplets than int32 indexes."""
     device = torch.device(device)
     u, i, y, nusers, nitems, forced_no_reindex = data_utils.coerce_triplets(input_df)
     if int(np.shape(y)[0]) > _INT32_MAX:
-        return None
+        raise ValueError("too many nonzeros for int32 indexing: %d" % int(np.shape(y)[0]))
     if forced_no_reindex:
         reindex = False
     tdt = torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
@@ -240,62 +252,3 @@ def sort_sides(trip: DeviceTriplets, items: bool = True):
     if not items:
         return user, None
     return user, Csr(host[trip.nusers + 1:], *sides[1], ptrs[1])
-
-
-# ---- one interface over both ingests ------------------------------------
-
-def csr_sides(pdata, items: bool = True):
-    """Both sides' CSR of a fit's triplets, ``(user, item)`` ``Csr``s
-    (``item`` None unless ``items``): sorted on the device (``sort_sides``,
-    which takes the tensors) after ``upload_triplets``, else built on the
-    host by ``build_csr`` from ``process_data``'s arrays."""
-    if isinstance(pdata, DeviceTriplets):
-        return sort_sides(pdata, items)
-    u, i, y = pdata.ix_u, pdata.ix_i, pdata.y
-    user = Csr(*data_utils.build_csr(u, i, y, pdata.nusers, pdata.nitems))
-    item = Csr(*data_utils.build_csr(i, u, y, pdata.nitems, pdata.nusers)) if items else None
-    return user, item
-
-
-def pack_side(csr: Csr, dtype, pad_shards: int = 1):
-    """A side's untiled ELL layout from its CSR: K15 on the device
-    (``pack_ell``, an ``EllPack``) for a side sorted there, else
-    ``build_ell`` on the host (an ``EllLayout``, ``pad_shards`` as there).
-    ``ops.ell.ell_to_device`` places either."""
-    if csr.on_device:
-        return pack_ell(csr.indptr, csr.cols, csr.vals)
-    return build_ell(csr.indptr, csr.cols, csr.vals, int(csr.indptr.shape[0]) - 1,
-                     dtype=dtype, pad_shards=pad_shards)
-
-
-def pack_layouts(pdata, dtype, pad_shards: int = 1):
-    """A full-batch fit's layouts, ``((user, item) packed sides, user
-    Csr)``: on the device both sides' ``csr_sides`` then ``pack_side``,
-    keeping the user side for the seen-items CSR; on the host
-    ``build_layouts`` (the two sides in two threads, CSR included), which
-    keeps none (None)."""
-    if not isinstance(pdata, DeviceTriplets):
-        return build_layouts(pdata, dtype, pad_shards), None
-    user, item = csr_sides(pdata)
-    return (pack_side(user, dtype), pack_side(item, dtype)), user
-
-
-def epoch_sides(user: Optional[Csr], item: Optional[Csr], dtype, device):
-    """SVI's ``EpochSide``s of the sides given (None for a side not
-    given), and the bytes that took from the host: a side sorted on the
-    device is used where it is, a host side is uploaded (``epoch_side``)."""
-    from ..utils.profiling import device_bytes
-    from .svi import EpochSide, epoch_side
-
-    device = torch.device(device)
-    out, sent = [], 0
-    for csr in (user, item):
-        if csr is None:
-            out.append(None)
-        elif csr.on_device:
-            out.append(EpochSide(y=csr.vals, cols=csr.cols, indptr=csr.indptr_dev,
-                                 deg=np.diff(csr.indptr).astype(np.int32)))
-        else:
-            out.append(epoch_side(csr.indptr, csr.cols, csr.vals, dtype, device))
-            sent += device_bytes(device, out[-1])
-    return out[0], out[1], sent

@@ -75,7 +75,8 @@ class EpochSide:
 
 def epoch_side(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
                dtype, device) -> EpochSide:
-    """Upload one side's CSR for SVI epochs.  Counts must fit int32."""
+    """Upload one side's CSR for SVI epochs.  Counts must fit int32.  No
+    fit calls it (a fit's sides are ``ops.ingest.Csr.epoch_side``)."""
     if int(indptr[-1]) > _INT32_MAX:
         raise ValueError("too many nonzeros for int32 indexing: %d" % int(indptr[-1]))
     device = torch.device(device)

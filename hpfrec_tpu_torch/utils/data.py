@@ -147,7 +147,8 @@ def _map_numpy(values, mapping):
 def process_data(input_df, stop_crit: str, reindex: bool, dtype=np.float32,
                  sort_by_user: bool = True) -> ProcessedData:
     """Full training-data pipeline (reference ``_process_data``,
-    ``hpfrec/__init__.py:434-523``)."""
+    ``hpfrec/__init__.py:434-523``).  No fit calls it: a fit ingests
+    through ``ops.ingest.upload_triplets``, which the tests hold to it."""
     u, i, y, nusers, nitems, forced_no_reindex = coerce_triplets(input_df)
     if forced_no_reindex:
         reindex = False
@@ -270,18 +271,25 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, int(x - 1).bit_length())
 
 
+def block_shape(nnz: int, block_size: Optional[int] = None, n_shards: int = 1,
+                min_align: int = 8):
+    """``(B, nblocks)`` of ``block_coo``'s stream of ``nnz`` triplets."""
+    if block_size is None:
+        block_size = min(_next_multiple(nnz, min_align), 1 << 18)
+    B = int(block_size)
+    return B, _next_multiple(max(1, -(-nnz // B)), n_shards)
+
+
 def block_coo(y: np.ndarray, ix_u: np.ndarray, ix_i: np.ndarray,
               block_size: Optional[int] = None, n_shards: int = 1,
               min_align: int = 8) -> BlockedHost:
     """Pad the COO stream and reshape to (nblocks, B), as
     ``hpfrec_tpu.utils.data.block_coo``.  Padding rows have y=0 (inert in
     every metric) and index 0 (in-bounds); ``nblocks`` is a multiple of
-    ``n_shards``."""
+    ``n_shards``.  No fit calls it (``ops.cavi.blocked_stream`` blocks a
+    fit's streams)."""
     nnz = int(y.shape[0])
-    if block_size is None:
-        block_size = min(_next_multiple(nnz, min_align), 1 << 18)
-    B = int(block_size)
-    nblocks = _next_multiple(max(1, -(-nnz // B)), n_shards)
+    B, nblocks = block_shape(nnz, block_size, n_shards, min_align)
     total = nblocks * B
 
     def _pad(a):
@@ -310,7 +318,8 @@ def share(bounds: np.ndarray, n_ranks: int, rank: int):
 def build_csr(ix_u: np.ndarray, ix_i: np.ndarray, y: np.ndarray, nusers: int,
               nitems: int):
     """CSR over the training triplets: (indptr (nU+1,) int64, indices int32,
-    data); the native counting sort when available, scipy otherwise."""
+    data); the native counting sort when available, scipy otherwise.  No
+    fit calls it (``ops.ingest.sort_sides`` sorts a fit's sides)."""
     from .. import _native
 
     if _native.available():

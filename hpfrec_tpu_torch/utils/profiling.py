@@ -156,20 +156,21 @@ class FitStats(CallStats):
     ingest to the fitted attributes on the host, so ``nnz_per_second`` is
     an end-to-end figure.  ``phases`` attributes the wall time (seconds):
 
-    - ``reindex``        triplet ingest, filtering and reindexing (a fit
-      that ingests on the card: the coercion, the upload, the filter and
-      the id checks there)
+    - ``reindex``        triplet ingest: the coercion and, with
+      ``reindex``, the host's filter and factorize; the upload, and
+      without ``reindex`` the filter and id checks on the device
     - ``valset``         validation-set ingest and upload
     - ``init_state``     the state's seeded start: on a CUDA device drawn
       on the card by K14 from numpy's seeded key (the host draw in the
       table-sharded engine), on the CPU drawn by numpy; or the
       checkpoint's, on resume
-    - ``host_pack``      CSR builds + ELL packing (full batch: both sides
-      concurrently, this is the span; SVI: the CSR/CSC and the metric
-      layout); on the card: the two key sorts, the host's plan of the
-      layouts and their fill (K15)
+    - ``host_pack``      both sides' key sorts on the device, then the
+      engine's structures: the ELL layouts' plan on the host and fill
+      (K15), the COO stream, the table-sharded tiles on the host (the
+      sides copied back), SVI's metric layout or stream
     - ``kernel_build``   building or loading the CUDA kernels (0 on CPU)
-    - ``transfer``       host->device upload of the layouts and the state
+    - ``transfer``       host->device upload of the layouts' row ids and
+      reassembly arrays (the table-sharded tiles) and the state
     - ``iterations``     the CAVI iteration blocks (full batch)
     - ``user_epochs`` / ``item_epochs``  the SVI epochs of each side
     - ``epoch_offsets``  inside each SVI epoch's phase: the host's part of
@@ -182,20 +183,19 @@ class FitStats(CallStats):
     - ``metadata``       the seen-items CSR (``keep_data``) and the id dicts
 
     Counters: ``nnz``, ``iterations``, ``checks`` (convergence checks
-    run), ``bytes_to_device`` (the layouts, the validation set and a
-    state drawn on the host; not a start drawn on the card, nor the 2.5
+    run), ``bytes_to_device`` (the triplets, what the layouts' fill and
+    reassembly read from the host, the validation set and a state drawn on
+    the host; not a start drawn on the card, nor the 2.5
     KB key it is drawn from), ``bytes_to_host`` (the state's copy back)
     and ``device_draws`` (the MT19937 words drawn on the card for the
     start: ``2 (nU + nI) k``, twice that in float64; 0 where the host drew
     it) and ``batches`` (the SVI batches run, each epoch's row count over
-    its batch size rounded up; 0 in full batch) and ``device_ingest`` (the
-    nonzeros sorted into CSR, and in full batch packed, on the card:
-    ``nnz`` where the fit ingests there, 0 where the host does).
+    its batch size rounded up; 0 in full batch).
     """
 
     ROOT = "hpf.fit"
     COUNTERS = ("nnz", "iterations", "checks", "bytes_to_device", "bytes_to_host",
-                "device_draws", "batches", "device_ingest")
+                "device_draws", "batches")
     NESTED = ("epoch_offsets",)
 
     nnz: int = 0
@@ -203,7 +203,6 @@ class FitStats(CallStats):
     checks: int = 0
     device_draws: int = 0
     batches: int = 0
-    device_ingest: int = 0
 
     @property
     def nnz_per_second(self) -> float:

@@ -151,7 +151,7 @@ def k13_nccl(CS, m, coo, reps, res):
     host = state_from_numpy([m.Gamma_shp, m.Gamma_rte, m.Lambda_shp, m.Lambda_rte, m.k_rte,
                              m.t_rte], "cpu")
     hp = Hyperparams(k=CS.K)
-    lay_u, lay_i = (E.to_device(h, dev) for h in E.build_layouts(pdata, np.float32))
+    lay_u, lay_i = (E.to_device(h, dev) for h in CS.host_layouts(pdata, np.float32))
     one = C._carry_init(type(host)(*[a.to(dev) for a in host]))
     res["one-device step ms"] = CS.cuda_ms(lambda: E.cavi_step_ell_carried(one, lay_u, lay_i, hp),
                                            reps)

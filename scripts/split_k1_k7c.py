@@ -72,7 +72,8 @@ def one(tree, reps):
     sys.path.insert(0, tree)
     import torch
 
-    from chip_smoke import K, MILLIONSONG, cuda_ms, kernel_split, powerlaw_coo, random_state
+    from chip_smoke import (K, MILLIONSONG, cuda_ms, host_layouts, kernel_split, powerlaw_coo,
+                            random_state, user_side)
     from hpfrec_tpu_torch import _cuda
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as E
@@ -97,7 +98,7 @@ def one(tree, reps):
           % (time.perf_counter() - t0, p.nusers, p.nitems, p.y.shape[0], K))
 
     # -- 1. K7c over the whole stream
-    stream = None if "--no-k7c" in sys.argv else C.coo_stream(p, dev)
+    stream = None if "--no-k7c" in sys.argv else C.coo_stream(user_side(p, dev), p.nitems)
     if stream is not None:
         ms = cuda_ms(lambda: C.coo_phi_sums(t_tab, b_tab, stream), reps)
         res["K7c ms"] = ms
@@ -116,7 +117,7 @@ def one(tree, reps):
         torch.cuda.empty_cache()
 
     # -- 2. K1 by bucket and side
-    lay_u, lay_i = (E.to_device(h, dev) for h in E.build_layouts(p, np.float32))
+    lay_u, lay_i = (E.to_device(h, dev) for h in host_layouts(p, np.float32))
     for side, (ts, to, lay) in (("user", (t_tab, b_tab, lay_u)),
                                 ("item", (b_tab, t_tab, lay_i))):
         seg = torch.empty((lay.n_segs, K), dtype=torch.float32, device=dev)

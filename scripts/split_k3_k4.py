@@ -138,7 +138,7 @@ def one(tree, reps):
     torch.cuda.empty_cache()
 
     # -- 2. K4 over the user layout, one launch and bucket by bucket
-    lay_u = E.to_device(E.build_layouts(p, np.float32)[0], dev)
+    lay_u = E.to_device(CS.host_layouts(p, np.float32)[0], dev)
     Theta, Beta = state.G_shp / state.G_rte, state.L_shp / state.L_rte
     shapes = torch.cat([state.G_shp.reshape(-1), state.L_shp.reshape(-1)]).cpu().numpy()
     l_shp = state.L_shp.cpu().double()

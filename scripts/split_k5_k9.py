@@ -190,7 +190,9 @@ def k5(CS, svi, cf, coo, val, reps, res):
     triplets = process_valset(val, "val-llk", svi.reindex, svi.user_mapping_, svi.item_mapping_,
                               svi.nusers, svi.nitems, np.float32, is_valset=False)
     vset = C.device_blocked_coo(*triplets, dev)[0]
-    stream = C.coo_stream(process_data(coo, "train-llk", True, np.float32), dev).data
+    pfit = process_data(coo, "train-llk", True, np.float32)
+    stream = C.coo_stream(CS.user_side(pfit, dev), pfit.nitems).data
+    del pfit
     print("COO train stream: %d slots in %d blocks; validation set: %d slots"
           % (stream.y.numel(), stream.y.shape[0], vset.y.numel()))
     for dt in (torch.float32, torch.float64):

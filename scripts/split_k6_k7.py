@@ -41,7 +41,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (K, MILLIONSONG, SVI_BATCHES, cuda_ms, holdout,  # noqa: E402
-                        kernel_split, powerlaw_coo, random_state)
+                        kernel_split, powerlaw_coo, random_state, user_side)
 
 
 def report(label, fn, reps, sort_fn=None):
@@ -116,7 +116,7 @@ def main():
     st = random_state(pfit.nusers, pfit.nitems, np.float32, dev, 2)
     t_fit = C.side_derive(st.G_shp, st.G_rte)[0]
     b_fit = C.side_derive(st.L_shp, st.L_rte)[0]
-    stream = C.coo_stream(pfit, dev)
+    stream = C.coo_stream(user_side(pfit, dev), pfit.nitems)
     print("K7c: %d triplets, %d users, %d items" % (stream.nnz, pfit.nusers, pfit.nitems))
     report("K7c", lambda: C.coo_phi_sums(t_fit, b_fit, stream), max(3, reps // 3))
     del stream, st, t_fit, b_fit

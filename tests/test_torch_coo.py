@@ -23,6 +23,7 @@ import pandas as pd
 import pytest
 import torch
 
+from chip_smoke import user_side
 from oracle import synth_counts
 
 
@@ -114,7 +115,8 @@ def test_coo_phi_sums_match_jax(dtype):
     y, iu, ii = synth_counts(40, 25, nnz=500, seed=3)
     pdata = process_data(np.column_stack([iu, ii, y]), "maxiter", False, dtype)
     assert pdata.ix_u[0] == 0 and pdata.ix_i.min() == 0
-    coo = C.coo_stream(pdata, "cpu", block_size=64)
+    user = user_side(pdata, "cpu")
+    coo = C.coo_stream(user, pdata.nitems, block_size=64)
     nnz = pdata.y.shape[0]
     assert coo.data.y.numel() > nnz  # a padded tail
     rng = np.random.default_rng(4)
@@ -130,7 +132,7 @@ def test_coo_phi_sums_match_jax(dtype):
     # in each share of a 3-way shard
     _check_item_order(coo, pdata.ix_u, pdata.ix_i, pdata.nusers, pdata.nitems)
     for rank in range(3):
-        part = C.coo_stream(pdata, "cpu", block_size=64, shard=(rank, 3))
+        part = C.coo_stream(user, pdata.nitems, block_size=64, shard=(rank, 3))
         _, iu, ii = (a.numpy() for a in part.flat())
         assert 0 < part.nnz < nnz
         _check_item_order(part, iu, ii, pdata.nusers, pdata.nitems)
@@ -171,23 +173,13 @@ def test_item_pos_maps_each_triplet_to_its_place_in_item_order(shard):
     keep = iu != 7  # user 7 has no triplet
     pdata = process_data(np.column_stack([iu, ii, y])[keep], "maxiter", False, np.float64)
     assert pdata.nusers == 60 and 7 not in pdata.ix_u
-    coo = C.coo_stream(pdata, "cpu", shard=shard)
+    user = user_side(pdata, "cpu")
+    coo = C.coo_stream(user, pdata.nitems, shard=shard)
     _, ix_u, ix_i = (a.numpy() for a in coo.flat())
     pos = coo.item_pos.numpy()
     np.testing.assert_array_equal(coo.item_users.numpy()[pos], ix_u)
     np.testing.assert_array_equal(coo.item_keys.numpy()[pos], ix_i)
     np.testing.assert_array_equal(np.sort(pos), np.arange(coo.nnz))
-
-
-def test_coo_stream_needs_user_sorted_triplets():
-    from hpfrec_tpu_torch.ops.cavi import coo_stream
-    from hpfrec_tpu_torch.utils.data import process_data
-
-    y, iu, ii = synth_counts(20, 15, nnz=100, seed=1)
-    pdata = process_data(np.column_stack([iu, ii, y]), "maxiter", False, np.float64,
-                         sort_by_user=False)
-    with pytest.raises(ValueError, match="user-sorted"):
-        coo_stream(pdata, "cpu")
 
 
 # ---- whole fits -------------------------------------------------------------

@@ -122,7 +122,9 @@ def test_weights_across_one_step_matches(fitted_pair):
     arrays = [mj.Gamma_shp, mj.Gamma_rte, mj.Lambda_shp, mj.Lambda_rte,
               mj.k_rte, mj.t_rte]
     pdata = DT.process_data(df.copy(), "train-llk", True, np.float64)
-    lay_t = ET.build_layouts(pdata, np.float64)
+    lay_t = [ET.build_ell(*DT.build_csr(r, c, pdata.y, n, m), n, dtype=np.float64)
+             for r, c, n, m in ((pdata.ix_u, pdata.ix_i, pdata.nusers, pdata.nitems),
+                                (pdata.ix_i, pdata.ix_u, pdata.nitems, pdata.nusers))]
     lay_j = [EJ.device_ell(lay) for lay in lay_t]
     hp = mt._hp()
     ref = EJ.run_cavi_block_ell(VJ(*[jnp.asarray(a) for a in arrays]), *lay_j,

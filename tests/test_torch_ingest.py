@@ -1,13 +1,14 @@
-"""The ingest a one-card fit runs on the device (``ops/ingest.py``, K15 in
+"""The ingest every fit runs on its device (``ops/ingest.py``, K15 in
 ``ops/ell.py``), run here on CPU tensors through its plain versions,
-against the host path it replaces, element for element: the filter,
-checks, warnings and errors of ``process_data``; both sides' CSR against
-``build_csr``; the full-batch layouts against ``build_layouts`` (or
-``build_ell``) then ``to_device``; the SVI sides' degrees against
-``epoch_side``'s.  ``build_ell``, now ``plan_ell`` and a fill, against the
-JAX package's.  And whole fits whose ingest takes this path (steered with
-a monkeypatch of ``HPF._ingest_on_card``, which only a CUDA device
-passes): factors, seen-items CSR and counters against the host path's."""
+against the host builders, element for element: the filter, checks,
+warnings and errors of ``process_data``; both sides' CSR against
+``build_csr``; the full-batch layouts, and a rank's slice of them,
+against ``build_ell`` then ``to_device``; the SVI sides' degrees against
+``epoch_side``'s; the blocked-COO stream against its construction from
+``process_data``; the table-sharded plan against one fed from
+``build_csr``.  ``build_ell``, now ``plan_ell`` and a fill, against the
+JAX package's.  And whole fits of every mode and engine: their phases,
+one sort of their sides, and the seen-items CSR against ``build_csr``."""
 
 import warnings
 
@@ -104,9 +105,18 @@ def _equal_device_ell(ref, got):
     assert (ref.n_rows, ref.n_segs, ref.n_shards) == (got.n_rows, got.n_segs, got.n_shards)
 
 
+def _host_layouts(host, dtype, max_width=8192, pad_shards=1):
+    """Both sides' layouts of ``process_data``'s triplets on the host:
+    ``build_ell`` over ``build_csr``."""
+    return [E.build_ell(*D.build_csr(r, o, host.y, n, m), n, max_width, dtype=dtype,
+                        pad_shards=pad_shards)
+            for r, o, n, m in ((host.ix_u, host.ix_i, host.nusers, host.nitems),
+                               (host.ix_i, host.ix_u, host.nitems, host.nusers))]
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_device_ingest_equals_the_host_path(case, dtype):
+def test_the_ingest_equals_the_host_builders(case, dtype):
     c = CASES[case]
     stop_crit = c.get("stop_crit", "train-llk")
     reindex = c.get("reindex", False)
@@ -134,17 +144,12 @@ def test_device_ingest_equals_the_host_path(case, dtype):
         ref_side = epoch_side(*ref, dtype, "cpu")
         np.testing.assert_array_equal(np.diff(side.indptr).astype(np.int32), ref_side.deg)
         _equal_tensor(side.indptr_dev, ref_side.indptr)
-    max_width = c.get("max_width")
-    if max_width is None:
-        refs = [E.to_device(lay, "cpu") for lay in E.build_layouts(host, dtype)]
-    else:
-        refs = [E.to_device(E.build_ell(*D.build_csr(r, o, host.y, n, m), n, max_width,
-                                        dtype=dtype), "cpu")
-                for r, o, n, m in ((host.ix_u, host.ix_i, nU, nI),
-                                   (host.ix_i, host.ix_u, nI, nU))]
+    max_width = c.get("max_width", 8192)
+    refs = [E.to_device(lay, "cpu") for lay in _host_layouts(host, dtype, max_width)]
+    if max_width == 16:
         assert refs[1].split_seg_pos.shape[0] > 0  # the case splits item rows
     for side, ref in zip((user, item), refs):
-        got = E.device_ell(E.pack_ell(side.indptr, side.cols, side.vals, max_width or 8192))
+        got = E.device_ell(E.pack_ell(side.indptr, side.cols, side.vals, max_width))
         _equal_device_ell(ref, got)
 
 
@@ -241,30 +246,95 @@ def test_plan_merges_cascade():
     assert plan.first.tolist() == [0, len(deg)]
 
 
-def test_a_cpu_fit_ingests_on_the_host():
-    from hpfrec_tpu_torch import HPF
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n_shards,rank", [(2, 0), (2, 1), (3, 0), (3, 1), (3, 2)])
+def test_a_rank_packs_its_slice_of_every_bucket(n_shards, rank, dtype):
+    """``pack_ell(..., shard=(rank, n_shards))`` then ``device_ell``: the
+    rank's slice of the layout padded for ``n_shards`` ranks, equal to
+    ``to_device(build_ell(..., pad_shards=n_shards), shard=...)``, on
+    cases with split rows, merged buckets and empty rows."""
+    for case in ("split_and_merged_buckets", "empty_rows"):
+        max_width = CASES[case].get("max_width", 8192)
+        host, card, _ = _host_and_card(_input(case), "train-llk", False, dtype)
+        refs = _host_layouts(host, dtype, max_width, n_shards)
+        if case == "split_and_merged_buckets":
+            assert refs[1].split_seg_pos.shape[0] > 0
+        segs = lambda lays: sum(b.rows.shape[0] for lay in lays for b in lay.buckets)  # noqa
+        assert segs(refs) > segs(_host_layouts(host, dtype, max_width))  # padding segments
+        for side, ref in zip(G.sort_sides(card), refs):
+            pack = E.pack_ell(side.indptr, side.cols, side.vals, max_width,
+                              shard=(rank, n_shards))
+            _equal_device_ell(E.to_device(ref, "cpu", (rank, n_shards)), E.device_ell(pack))
 
-    m = HPF(k=4, maxiter=3, check_every=3, verbose=False, device="cpu").fit(
-        _input("unsorted_duplicates"))
-    assert m.fit_stats_.device_ingest == 0 and m.fit_stats_.nnz > 0
+
+def _coo_stream_from_host(pdata, block_size, shard):
+    """The blocked-COO stream as the engine built it from ``process_data``'s
+    user-sorted triplets: a counting sort of the share's positions by item
+    on the host (``build_csr``), uploaded."""
+    from hpfrec_tpu_torch.ops.cavi import BlockedCOO, CooStream
+
+    bounds = np.zeros(pdata.nusers + 1, dtype=np.int64)
+    np.cumsum(np.bincount(pdata.ix_u, minlength=pdata.nusers), out=bounds[1:])
+    u0, u1 = D.share(bounds, shard[1], shard[0])
+    lo, hi = int(bounds[u0]), int(bounds[u1])
+    y, ix_u, ix_i = pdata.y[lo:hi], pdata.ix_u[lo:hi], pdata.ix_i[lo:hi]
+    nnz = hi - lo
+    data = BlockedCOO(*map(torch.from_numpy, D.block_coo(y, ix_u, ix_i, block_size)[:3]))
+    indptr_i, order, _ = D.build_csr(ix_i, np.arange(nnz, dtype=np.int32), y, pdata.nitems, nnz)
+    pos = np.empty(nnz, dtype=np.int32)
+    pos[order] = np.arange(nnz, dtype=np.int32)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))  # noqa: E731
+    return CooStream(data=data, nnz=nnz, user_bounds=up(np.clip(bounds - lo, 0, nnz)),
+                     item_keys=up(np.repeat(np.arange(pdata.nitems), np.diff(indptr_i))),
+                     item_users=up(ix_u[order]), item_pos=up(pos),
+                     item_runs=up(np.column_stack([indptr_i[:-1], indptr_i[1:]])))
 
 
-@pytest.mark.parametrize("engine,world_size,shard_tables,expect", [
-    ("ell", None, False, True), ("ell", 1, False, True), ("coo", None, False, False),
-    ("ell", 2, False, False), ("ell", 2, True, False), ("coo", 1, False, False)])
-def test_which_fits_ingest_on_the_card(engine, world_size, shard_tables, expect):
-    """One CUDA device (a mesh of one rank included) with the ELL engine
-    ingests on the card; the COO engine, data-parallel meshes, the
-    table-sharded engine and the CPU ingest on the host."""
-    import types
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shard", [(0, 1), (0, 2), (1, 2)])
+def test_coo_stream_from_the_user_side_equals_the_host_construction(shard, dtype):
+    from hpfrec_tpu_torch.ops.cavi import coo_stream
 
-    from hpfrec_tpu_torch import HPF
+    host, card, _ = _host_and_card(_input("empty_rows"), "train-llk", False, dtype)
+    user, _ = G.sort_sides(card, items=False)
+    got = coo_stream(user, host.nitems, 512, shard)
+    ref = _coo_stream_from_host(host, 512, shard)
+    assert got.nnz == ref.nnz and 0 < got.nnz <= host.nnz
+    for a, b in zip(got.data, ref.data):
+        _equal_tensor(a, b)
+    for name in ("user_bounds", "item_keys", "item_users", "item_pos", "item_runs"):
+        _equal_tensor(getattr(got, name), getattr(ref, name))
 
-    m = HPF(k=3, engine=engine, shard_tables=shard_tables, device="cpu")
-    if world_size is not None:
-        m.mesh = types.SimpleNamespace(world_size=world_size, rank=0)
-    assert m._ingest_on_card(torch.device("cuda")) is expect
-    assert m._ingest_on_card(torch.device("cpu")) is False
+
+def _equal_nested(a, b):
+    if isinstance(a, (tuple, list)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, z in zip(a, b):
+            _equal_nested(x, z)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("n_ranks", [2, 3])
+def test_table_sharded_plan_from_the_sides_equals_one_from_build_csr(n_ranks):
+    """The table-sharded engine's host packer fed from the sides copied
+    back (``Csr.to_host``) plans what it plans from ``build_csr``."""
+    from hpfrec_tpu_torch.parallel.table_sharded import prepare_table_sharded
+
+    host, card, _ = _host_and_card(_input("empty_rows"), "train-llk", False, np.float32)
+    nU, nI = host.nusers, host.nitems
+    user, item = (side.to_host() for side in G.sort_sides(card))
+    kw = dict(dtype=np.float32, window_bytes=4096)
+    got = prepare_table_sharded(user.indptr, user.cols.numpy(), user.vals.numpy(), item.indptr,
+                                item.cols.numpy(), item.vals.numpy(), nU, nI, 4, n_ranks, 4,
+                                **kw)
+    ref = prepare_table_sharded(*D.build_csr(host.ix_u, host.ix_i, host.y, nU, nI),
+                                *D.build_csr(host.ix_i, host.ix_u, host.y, nI, nU), nU, nI, 4,
+                                n_ranks, 4, **kw)
+    _equal_nested(tuple(got), tuple(ref))
 
 
 FIT_MODES = {
@@ -278,27 +348,29 @@ FIT_MODES = {
 }
 
 
-@pytest.mark.parametrize("use_float", [True, False])
+@pytest.mark.parametrize("engine", ["ell", "coo"])
 @pytest.mark.parametrize("mode", sorted(FIT_MODES))
-def test_a_fit_through_the_device_ingest_equals_the_host_path(monkeypatch, mode, use_float):
+def test_a_cpu_fit_sorts_its_sides_once(monkeypatch, mode, engine):
+    """A CPU fit of each mode and engine ingests through ``upload_triplets``
+    and one ``sort_sides`` (the metadata phase sorts nothing), in the
+    phases the benchmark reads; its seen-items CSR is ``build_csr``'s."""
     from hpfrec_tpu_torch import HPF
+    from hpfrec_tpu_torch.models import hpf as H
 
+    sorts = []
+    orig = H.sort_sides
+    monkeypatch.setattr(H, "sort_sides", lambda *a, **kw: sorts.append(a) or orig(*a, **kw))
     X = _input("unsorted_duplicates")
-    kw = dict(k=5, random_seed=7, verbose=False, device="cpu", use_float=use_float,
-              **FIT_MODES[mode])
-    host = HPF(**kw).fit(X)
-    monkeypatch.setattr(HPF, "_ingest_on_card", lambda self, dev: True)
-    card = HPF(**kw).fit(X)
-    assert host.fit_stats_.device_ingest == 0
-    assert card.fit_stats_.device_ingest == card.fit_stats_.nnz == host.fit_stats_.nnz
-    for name in ("Theta", "Beta"):
-        a, b = getattr(host, name), getattr(card, name)
-        assert a.dtype == b.dtype and np.array_equal(a, b)
-    assert host.niter == card.niter
-    for name in ("seen", "_st_ix_user", "_n_seen_by_user"):
-        assert hasattr(host, name) == hasattr(card, name)
-        if hasattr(host, name):
-            a, b = getattr(host, name), getattr(card, name)
-            assert a.dtype == b.dtype
-            np.testing.assert_array_equal(a, b)
-    assert set(card.fit_stats_.phases) >= {"reindex", "host_pack"}
+    m = HPF(k=5, random_seed=7, verbose=False, device="cpu", engine=engine,
+            **FIT_MODES[mode]).fit(X)
+    assert len(sorts) == 1
+    assert set(m.fit_stats_.phases) >= {"reindex", "host_pack", "transfer", "metadata"}
+    assert m.fit_stats_.nnz == X.nnz
+    if mode == "full_batch_no_keep_data":
+        assert not hasattr(m, "seen")
+        return
+    host = D.process_data(X, "train-llk", False)
+    indptr, ind, _ = D.build_csr(host.ix_u, host.ix_i, host.y, host.nusers, host.nitems)
+    assert m.seen.dtype == ind.dtype and np.array_equal(m.seen, ind)
+    assert np.array_equal(m._st_ix_user, indptr[:-1])
+    assert np.array_equal(m._n_seen_by_user, np.diff(indptr))

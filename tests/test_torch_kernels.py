@@ -782,13 +782,20 @@ def _coo(nU, nI, nnz, dtype, device, seed, block_size=None):
     """A fit's COO stream: user-sorted triplets (user 0's run first), items
     Zipf-skewed so item 0's run spans many 256-slot chunks, blocked with a
     padded tail when ``block_size`` does not divide nnz."""
+    y, iu, ii = _counts(nU, nI, nnz, seed)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    return _coo_of(np.column_stack([iu, ii, y]), npdt, device, block_size)
+
+
+def _coo_of(triplets, npdt, device, block_size=None):
+    """``process_data``'s triplets, and the blocked-COO stream a fit builds
+    from them on ``device``."""
+    from chip_smoke import user_side
     from hpfrec_tpu_torch.ops.cavi import coo_stream
     from hpfrec_tpu_torch.utils.data import process_data
 
-    y, iu, ii = _counts(nU, nI, nnz, seed)
-    npdt = np.float32 if dtype == torch.float32 else np.float64
-    pdata = process_data(np.column_stack([iu, ii, y]), "maxiter", False, npdt)
-    return pdata, coo_stream(pdata, device, block_size)
+    pdata = process_data(triplets, "maxiter", False, npdt)
+    return pdata, coo_stream(user_side(pdata, device), pdata.nitems, block_size)
 
 
 @pytest.mark.gpu
@@ -837,7 +844,6 @@ def test_coo_phi_sums_user_runs_across_groups(cuda, dtype, k):
     pass through ``item_pos``; repeats bit-identical."""
     from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops.svi import phi_sums_tables
-    from hpfrec_tpu_torch.utils.data import process_data
 
     rng = np.random.default_rng(31)
     degrees = np.array(_RUN_DEGREES * 12)
@@ -847,8 +853,7 @@ def test_coo_phi_sums_user_runs_across_groups(cuda, dtype, k):
     ii[rng.random(len(iu)) < 0.3] = 5
     y = rng.poisson(2.0, len(iu)) + 1.0
     npdt = np.float32 if dtype == torch.float32 else np.float64
-    pdata = process_data(np.column_stack([iu, ii, y]), "maxiter", False, npdt)
-    coo = C.coo_stream(pdata, cuda)
+    _, coo = _coo_of(np.column_stack([iu, ii, y]), npdt, cuda)
     assert np.array_equal(np.diff(coo.user_bounds.cpu().numpy()), degrees)
     t = _tables(nU, k, dtype, cuda, 3)
     b = _tables(nI, k, dtype, cuda, 4)
@@ -1888,47 +1893,73 @@ def _spy(monkeypatch, module, name, seen):
     monkeypatch.setattr(module, name, wrapped)
 
 
+# a CUDA fit against the same fit on CPU tensors: chip_smoke's phase-4 limits
+# (max relative difference of every element of Theta and Beta)
+_AGREE_FACTORS = {True: 6e-3, False: 1e-9}
+_AGREE_SVI_FACTORS = {True: 5e-5, False: 1e-11}
+
+
+def _card_and_cpu_fits(monkeypatch, module, name, X, kw):
+    """The fit of ``X`` on the card and on the CPU, each with the calls of
+    ``module.name`` made during it, ``(args, result)``."""
+    from hpfrec_tpu_torch import HPF
+
+    fits, calls = [], []
+    for device in ("cuda", "cpu"):
+        seen = []
+        _spy(monkeypatch, module, name, seen)
+        fits.append(HPF(**dict(kw, device=device)).fit(X))
+        monkeypatch.undo()
+        calls.append(seen)
+    return fits, calls
+
+
+def _assert_same_seen(card, cpu):
+    for name in ("seen", "_st_ix_user", "_n_seen_by_user"):
+        a, b = getattr(card, name), getattr(cpu, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _assert_factors_agree(card, cpu, limit):
+    for name in ("Theta", "Beta"):
+        a, b = getattr(card, name), getattr(cpu, name)
+        assert a.dtype == b.dtype and np.abs(a / b - 1).max() <= limit
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("use_float", [True, False])
 def test_a_cuda_fit_ingests_on_the_card(cuda, monkeypatch, use_float):
-    """A one-device CUDA fit sorts and packs on the card: its layouts equal
-    the host path's (``build_layouts`` then ``to_device``), its factors
-    and seen-items CSR equal a fit whose layouts the host built, and
-    ``device_ingest`` counts its nonzeros; under ``engine='coo'`` it is 0."""
+    """A CUDA fit sorts and packs on the card what the same fit on CPU
+    tensors packs, element for element (K15 against its plain version
+    inside a fit), its seen-items CSR is the CPU fit's and its factors
+    agree; a COO fit's stream is the CPU fit's, element for element."""
     from scipy.sparse import coo_array
 
-    from hpfrec_tpu_torch import HPF
+    from hpfrec_tpu_torch.ops import cavi as C
     from hpfrec_tpu_torch.ops import ell as E
-    from hpfrec_tpu_torch.utils.data import process_data
 
     y, iu, ii = _unsorted_counts(900, 300, 20_000, seed=6)
     X = coo_array((y, (iu, ii)), shape=(900, 300))
     kw = dict(k=7, maxiter=20, check_every=10, stop_crit="train-llk", random_seed=5,
-              use_float=use_float, verbose=False, device="cuda")
-    packed = []
-    _spy(monkeypatch, E, "device_ell", packed)
-    card = HPF(**kw).fit(X)
-    assert card.fit_stats_.device_ingest == card.fit_stats_.nnz == X.nnz
-    dt = np.float32 if use_float else np.float64
-    host_lays = [E.to_device(lay, cuda)
-                 for lay in E.build_layouts(process_data(X, "train-llk", False, dt), dt)]
-    assert len(packed) == 2
-    for (_, got), ref in zip(packed, host_lays):
-        for a, b in zip(ref.buckets, got.buckets):
-            assert all(torch.equal(x, z) for x, z in zip(a[:3], b[:3])) and a[3:] == b[3:]
+              use_float=use_float, verbose=False)
+    (card, cpu), (got, want) = _card_and_cpu_fits(monkeypatch, E, "device_ell", X, kw)
+    assert len(got) == len(want) == 2
+    for (_, a), (_, b) in zip(got, want):
+        assert a.inv_perm.is_cuda and len(a.buckets) == len(b.buckets)
+        for x, z in zip(a.buckets, b.buckets):
+            assert all(torch.equal(p.cpu(), q) for p, q in zip(x[:3], z[:3])) and x[3:] == z[3:]
         for name in ("inv_perm", "split_seg_pos", "split_indptr"):
-            assert torch.equal(getattr(ref, name), getattr(got, name))
-
-    monkeypatch.setattr(HPF, "_ingest_on_card", lambda self, dev: False)
-    host = HPF(**kw).fit(X)
-    assert host.fit_stats_.device_ingest == 0
-    assert np.array_equal(card.Theta, host.Theta) and np.array_equal(card.Beta, host.Beta)
-    for name in ("seen", "_st_ix_user", "_n_seen_by_user"):
-        a, b = getattr(card, name), getattr(host, name)
-        assert a.dtype == b.dtype and np.array_equal(a, b)
-    monkeypatch.undo()
-    coo = HPF(**dict(kw, engine="coo")).fit(X)
-    assert coo.fit_stats_.device_ingest == 0
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
+    _assert_same_seen(card, cpu)
+    _assert_factors_agree(card, cpu, _AGREE_FACTORS[use_float])
+    (card, cpu), (got, want) = _card_and_cpu_fits(monkeypatch, C, "coo_stream", X,
+                                                  dict(kw, engine="coo"))
+    (_, a), (_, b) = got[0], want[0]
+    assert a.nnz == b.nnz == X.nnz
+    for x, z in zip((*a.data, *a[2:]), (*b.data, *b[2:])):
+        assert x.is_cuda and torch.equal(x.cpu(), z)
+    _assert_same_seen(card, cpu)
+    _assert_factors_agree(card, cpu, _AGREE_FACTORS[use_float])
 
 
 @pytest.mark.gpu
@@ -1936,35 +1967,25 @@ def test_a_cuda_fit_ingests_on_the_card(cuda, monkeypatch, use_float):
                                      dict(users_per_batch=250)])
 def test_a_cuda_svi_fit_ingests_on_the_card(cuda, monkeypatch, batches):
     """An SVI fit on the card takes its epoch sides from the card's sort:
-    equal to ``epoch_side`` of the host's CSR; the factors and seen-items
-    CSR equal the host path's fit."""
+    each epoch's side equal to the same fit's on CPU tensors; the
+    seen-items CSR is the CPU fit's and the factors agree."""
     from scipy.sparse import coo_array
 
-    from hpfrec_tpu_torch import HPF
     from hpfrec_tpu_torch.ops import svi as S
-    from hpfrec_tpu_torch.utils.data import build_csr, process_data
 
     y, iu, ii = _unsorted_counts(900, 300, 20_000, seed=8)
     X = coo_array((y, (iu, ii)), shape=(900, 300))
     kw = dict(k=7, maxiter=4, check_every=2, stop_crit="train-llk", random_seed=5,
-              verbose=False, device="cuda", **batches)
-    epochs = []
-    _spy(monkeypatch, S, "svi_run_epoch", epochs)
-    card = HPF(**kw).fit(X)
-    assert card.fit_stats_.device_ingest == X.nnz
-    p = process_data(X, "train-llk", False, np.float32)
-    refs = {True: S.epoch_side(*build_csr(p.ix_u, p.ix_i, p.y, 900, 300), np.float32, cuda),
-            False: S.epoch_side(*build_csr(p.ix_i, p.ix_u, p.y, 300, 900), np.float32, cuda)}
-    for args, _ in epochs:
-        side, ref = args[1], refs[args[6]]
-        assert all(torch.equal(getattr(side, f), getattr(ref, f)) for f in ("y", "cols",
-                                                                          "indptr"))
+              verbose=False, **batches)
+    (card, cpu), (got, want) = _card_and_cpu_fits(monkeypatch, S, "svi_run_epoch", X, kw)
+    assert len(got) == len(want) == 4
+    for (a, _), (b, _) in zip(got, want):
+        side, ref = a[1], b[1]
+        assert a[6] == b[6] and side.y.is_cuda
+        assert all(torch.equal(getattr(side, f).cpu(), getattr(ref, f))
+                   for f in ("y", "cols", "indptr"))
         assert np.array_equal(side.deg, ref.deg) and side.deg.dtype == ref.deg.dtype
-    monkeypatch.undo()
-    monkeypatch.setattr(HPF, "_ingest_on_card", lambda self, dev: False)
-    host = HPF(**kw).fit(X)
-    assert host.fit_stats_.device_ingest == 0
-    assert np.array_equal(card.Theta, host.Theta) and np.array_equal(card.Beta, host.Beta)
-    for name in ("seen", "_st_ix_user", "_n_seen_by_user"):
-        a, b = getattr(card, name), getattr(host, name)
-        assert a.dtype == b.dtype and np.array_equal(a, b)
+    _assert_same_seen(card, cpu)
+    _assert_factors_agree(card, cpu, _AGREE_SVI_FACTORS[True])
+    rows = torch.tensor([5, 0, 9, 5, 2], dtype=torch.int32)
+    assert torch.equal(S.build_row_mask(11, rows.to(cuda)).cpu(), S.build_row_mask(11, rows))

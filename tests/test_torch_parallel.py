@@ -138,10 +138,16 @@ def _pdata(nU=70, nI=50, nnz=900, seed=8):
 def test_coo_local_halves_sum_to_the_whole(n_ranks):
     from hpfrec_tpu_torch.ops import cavi as C
 
+    from hpfrec_tpu_torch.ops.ingest import Csr
+    from hpfrec_tpu_torch.utils.data import build_csr
+
     pdata = _pdata()
+    indptr, cols, vals = build_csr(pdata.ix_u, pdata.ix_i, pdata.y, pdata.nusers, pdata.nitems)
+    user = Csr(indptr, torch.from_numpy(cols), torch.from_numpy(vals),
+               torch.from_numpy(indptr.astype(np.int32)))
     t_tab, b_tab = _tables(pdata.nusers, pdata.nitems, 4, 2)
-    su, si = C.coo_phi_sums(t_tab, b_tab, C.coo_stream(pdata, "cpu"))
-    parts = [C.coo_stream(pdata, "cpu", block_size=64, shard=(r, n_ranks))
+    su, si = C.coo_phi_sums(t_tab, b_tab, C.coo_stream(user, pdata.nitems))
+    parts = [C.coo_stream(user, pdata.nitems, block_size=64, shard=(r, n_ranks))
              for r in range(n_ranks)]
     assert sum(p.nnz for p in parts) == pdata.y.shape[0]
     assert max(p.nnz for p in parts) - min(p.nnz for p in parts) < 60  # near-equal

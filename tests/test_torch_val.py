@@ -110,6 +110,24 @@ def test_block_coo_matches_jax(block_size):
         np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
 
 
+@pytest.mark.parametrize("block_size,n_shards", [(None, 1), (7, 1), (7, 3), (16, 4)])
+def test_device_blocked_coo_is_a_rank_share_of_jax_block_coo(block_size, n_shards):
+    """Every rank's share of the blocked stream (its equal run of blocks)
+    against the JAX package's padded blocks, and the count of all."""
+    from hpfrec_tpu.utils.data import block_coo as bj
+    from hpfrec_tpu_torch.ops.cavi import device_blocked_coo
+
+    y, iu, ii = synth_counts(30, 20, nnz=101, seed=2)
+    ref = bj(y, iu, ii, block_size=block_size, n_shards=n_shards)
+    per = ref.y.shape[0] // n_shards
+    for rank in range(n_shards):
+        got, nnz = device_blocked_coo(y, iu, ii, "cpu", block_size, (rank, n_shards))
+        assert nnz == ref.nnz
+        for a, b in zip(got, (ref.y, ref.ix_u, ref.ix_i)):
+            assert a.dtype == torch.from_numpy(b).dtype
+            np.testing.assert_array_equal(a.numpy(), b[rank * per:(rank + 1) * per])
+
+
 def _blocked_pair(y, iu, ii, block_size):
     import jax.numpy as jnp
 
