@@ -159,6 +159,11 @@ ingest suite alone: K15 (and K15a, K15b, the two stable key sorts) at the
 MillionSong shape, the card's layouts against the host path's, and a fit
 with its ingest on the card and on the host (the factors bit-equal).
 
+``python3 chip_smoke.py --copy-back`` times a fit's copy back alone at the
+MillionSong shape (``copy_back_suite``): the pageable copy with the
+divisions on the host, the pinned ring with a one-thread fill and as a fit
+takes it, the link and the host fill alone, and the ring's sizes.
+
 ``python3 chip_smoke.py --seeded-start`` runs phase 1's build and the seeded
 start alone: K14's checks and times as in phase 3, then the full-batch fit
 of phase 3 from the card's start and from the host's (its phases,
@@ -1525,6 +1530,199 @@ def ingest_main():
     print("[1] kernels built/loaded in %.1f s" % (time.perf_counter() - t0))
     print("[K15] a fit's ingest on the card")
     print(json.dumps(ingest_suite(powerlaw_coo(**MILLIONSONG, seed=0), torch.device("cuda"))))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _median(xs):
+    return float(np.median(xs))
+
+
+def copy_back_suite(reps=5):
+    """A fit's copy back at the TasteProfile shape (1,019,318 x 376,768,
+    k=50, float32: the six state tensors, 564,018,744 B, then 38.7M int32
+    seen-items entries, 154.8 MB), four ways, in turns: ``pageable`` (each
+    tensor into an ``np.empty`` array by ``torch.from_numpy(out).copy_(t)``,
+    Theta and Beta divided on the host: the path before ``ops/staging.py``),
+    ``staged_1t`` (``to_host`` into fresh arrays with the native copy on
+    one thread, Theta and Beta divided on the card), ``staged`` (the same
+    on every thread) and ``staged_ready`` (into ``HostArrays`` made ahead,
+    as a card fit makes them during its loop; the time to make them beside
+    it); every way's arrays equal bit for bit.  Beside them: the link alone
+    (one 204 MB tensor into a pinned buffer and into pageable memory, CUDA
+    events), the host fill alone (the native copy of a warm buffer into
+    fresh memory at 1 thread and at every thread), and ``staged`` at each
+    (chunk, ring) size, with the ring's first allocation.  Host clock;
+    seconds, medians of ``reps``."""
+    import torch
+
+    from hpfrec_tpu_torch import _native
+    from hpfrec_tpu_torch.ops import staging
+
+    dev = torch.device("cuda")
+    nU, nI = MILLIONSONG["nU"], MILLIONSONG["nI"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    shapes = ((nU, K), (nU, K), (nI, K), (nI, K), (nU, 1), (nI, 1))
+    state = [torch.rand(sh, generator=g, device=dev) + 0.3 for sh in shapes]
+    seen = torch.randint(0, nI, (MILLIONSONG["nnz"],), dtype=torch.int32, device=dev,
+                         generator=g)
+    state_bytes = nbytes(*state)
+    threads = _native.num_threads()
+
+    def pageable_one(t):
+        out = np.empty(tuple(t.shape), dtype=torch.empty((), dtype=t.dtype).numpy().dtype)
+        torch.from_numpy(out).copy_(t)
+        return out
+
+    def pageable():
+        G_shp, G_rte, L_shp, L_rte, k_rte, t_rte = (pageable_one(t) for t in state)
+        return [G_shp / G_rte, L_shp / L_rte, G_shp, G_rte, L_shp, L_rte, k_rte, t_rte]
+
+    def staged(ready=None):
+        return staging.to_host([state[0] / state[1], state[2] / state[3]] + state, ready)
+
+    specs = [((nU, K), np.float32), ((nI, K), np.float32)]
+    specs += [(tuple(t.shape), np.float32) for t in state]
+    specs.append(((seen.shape[0],), np.int32))
+
+    def made_ready():
+        ready = staging.HostArrays(specs)
+        ready._thread.join()
+        return ready
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        return time.perf_counter() - t0, out
+
+    forms = {"pageable": (pageable, lambda: pageable_one(seen)),
+             "staged_1t": (staged, lambda: staging.to_host([seen])[0]),
+             "staged": (staged, lambda: staging.to_host([seen])[0]),
+             "staged_ready": ("ready", None)}
+    t0 = time.perf_counter()
+    staging.to_host([seen[:1]])
+    first_alloc_s = time.perf_counter() - t0
+    walls = {name: {"copy_back": [], "metadata": []} for name in forms}
+    walls["staged_ready"]["made"] = []
+    ref = None
+    for rep in range(reps):
+        order = list(forms) if rep % 2 == 0 else list(forms)[::-1]
+        for name in order:
+            _native.set_num_threads(1 if name == "staged_1t" else 0)
+            (back, meta) = forms[name]
+            if back == "ready":
+                s0, ready = timed(made_ready)
+                walls[name]["made"].append(s0)
+                back = lambda: staged(ready)  # noqa: E731
+                meta = lambda: staging.to_host([seen], ready)[0]  # noqa: E731
+            s1, arrays = timed(back)
+            s2, ids = timed(meta)
+            walls[name]["copy_back"].append(s1)
+            walls[name]["metadata"].append(s2)
+            if ref is None:
+                ref = [a.tobytes() for a in arrays] + [ids.tobytes()]
+            elif [a.tobytes() for a in arrays] + [ids.tobytes()] != ref:
+                raise AssertionError("the copy back of %s differs in bits" % name)
+            del arrays, ids
+    _native.set_num_threads(0)
+    made = walls["staged_ready"].pop("made")
+    out = {name: {phase: _median(v) for phase, v in w.items()} for name, w in walls.items()}
+    out["staged_ready"]["made"] = _median(made)
+    for name, w in out.items():
+        print("[copy back] %-10s copy_back %.4f s (%.2f GB/s of the state), metadata %.4f s "
+              "(%.2f GB/s); runs %s" % (name, w["copy_back"], state_bytes / w["copy_back"] / 1e9,
+                                        w["metadata"], seen.nbytes / w["metadata"] / 1e9,
+                                        json.dumps(walls[name])))
+    print("[copy back] staged_ready: the arrays made (allocated, pages touched) in %.4f s ahead, "
+          "as a fit makes them during its loop; runs %s" % (_median(made), json.dumps(made)))
+    print("[copy back] every way's arrays bit-equal (Theta and Beta: the card's quotient is "
+          "the host's)")
+
+    # the link alone, and the host fill alone
+    big = state[0]
+    pinned = torch.empty(big.nbytes, dtype=torch.uint8, pin_memory=True)
+    flat = big.reshape(-1).view(torch.uint8)
+    link_pinned = big.nbytes / cuda_ms(lambda: pinned.copy_(flat, non_blocking=True), 3) / 1e6
+    t_pg = []
+    for _ in range(3):
+        s1, _a = timed(lambda: pageable_one(big))
+        t_pg.append(s1)
+    src = pinned.numpy()
+    fill = {}
+    for n_thr in (1, threads):
+        _native.set_num_threads(n_thr)
+        ts = []
+        for _ in range(3):
+            dst = np.empty(src.shape, dtype=np.uint8)
+            t0 = time.perf_counter()
+            _native.copy_bytes(dst, src)
+            ts.append(time.perf_counter() - t0)
+            del dst
+        fill[n_thr] = big.nbytes / _median(ts) / 1e9
+    _native.set_num_threads(0)
+    print("[copy back] link: pinned DtoH %.2f GB/s; pageable DtoH into fresh memory %.2f GB/s; "
+          "host fill into fresh memory %s GB/s by threads"
+          % (link_pinned, big.nbytes / _median(t_pg) / 1e9,
+             json.dumps({k: round(v, 2) for k, v in fill.items()})))
+    del pinned, src
+
+    # the (chunk, ring) sizes
+    default = (staging.CHUNK_BYTES, staging.RING)
+    sweep = {}
+    try:
+        for chunk_mib in (4, 8, 16, 32, 64):
+            for ring in (2, 4):
+                staging.CHUNK_BYTES, staging.RING = chunk_mib << 20, ring
+                t0 = time.perf_counter()
+                staging._ring = staging._Ring()
+                alloc = time.perf_counter() - t0
+                ts = []
+                for _ in range(3):
+                    s1, arrays = timed(lambda: staging.to_host(
+                        [state[0] / state[1], state[2] / state[3]] + state,
+                        _chunk_bytes=chunk_mib << 20))
+                    ts.append(s1)
+                    del arrays
+                sweep["%dMiBx%d" % (chunk_mib, ring)] = dict(copy_back_s=_median(ts),
+                                                             alloc_s=alloc)
+    finally:
+        staging.CHUNK_BYTES, staging.RING = default
+        staging._ring = None
+    print("[copy back] staged by chunk x ring (copy_back s, the ring's allocation s):",
+          json.dumps(sweep))
+    return dict(forms=out, state_bytes=state_bytes, seen_bytes=seen.nbytes,
+                first_alloc_s=first_alloc_s, link_pinned_GBps=link_pinned,
+                fill_GBps=fill, sweep=sweep, chunk_bytes=default[0], ring=default[1],
+                threads=threads)
+
+
+def copy_back_main():
+    """``--copy-back``: ``copy_back_suite`` alone, with the card, its
+    host's cores and transparent-hugepage mode (read, not set)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --copy-back: needs a CUDA card", file=sys.stderr)
+        return 1
+    from hpfrec_tpu_torch import _native
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print("[1] card (nvidia-smi name, power.limit):", smi.splitlines()[0])
+    thp = {}
+    for name in ("enabled", "defrag"):
+        try:
+            with open("/sys/kernel/mm/transparent_hugepage/" + name) as f:
+                thp[name] = f.read().strip()
+        except OSError as e:
+            thp[name] = "unreadable: %s" % e
+    print("[1] transparent hugepages:", json.dumps(thp), "; nproc", os.cpu_count(),
+          "; native threads", _native.num_threads(), _native.build_info().runtime)
+    res = copy_back_suite()
+    print(json.dumps({"copy_back": dict(res, thp=thp)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -3657,4 +3855,6 @@ if __name__ == "__main__":
         sys.exit(seeded_start_main())
     if sys.argv[1:] == ["--ingest"]:
         sys.exit(ingest_main())
+    if sys.argv[1:] == ["--copy-back"]:
+        sys.exit(copy_back_main())
     sys.exit(main())

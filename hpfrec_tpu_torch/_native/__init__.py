@@ -1,5 +1,6 @@
 """ctypes bindings of the host C++ helpers (CSR build, batch row gather,
-ELL fill, in-row column sort, integer factorize).
+ELL fill, in-row column sort, integer factorize, first touch and byte
+copy of fresh host memory).
 
 The library is built on first use from ``csr_ops.cpp`` beside this file
 (see ``build.py``), threaded by OpenMP (PyTorch's own runtime) or by
@@ -44,6 +45,10 @@ def _declare(lib):
         getattr(lib, f"sort_csr_cols_{t}").restype = None
     lib.factorize_i64.argtypes = [_P, _I64, _P, _P]
     lib.factorize_i64.restype = ctypes.c_int64
+    lib.copy_bytes.argtypes = [_P, _P, _I64, _I64]
+    lib.copy_bytes.restype = None
+    lib.touch_pages.argtypes = [_P, _I64, _I64]
+    lib.touch_pages.restype = None
 
 
 def _load():
@@ -200,3 +205,32 @@ def factorize_i64(ids: np.ndarray):
     nuniq = int(lib.factorize_i64(ids.ctypes.data, n, codes.ctypes.data,
                                   uniques.ctypes.data))
     return codes, uniques[:nuniq].copy()
+
+
+def copy_bytes(dst: np.ndarray, src: np.ndarray, block: int = 1 << 21) -> None:
+    """``dst[:] = src`` for contiguous uint8 arrays of one size, in blocks
+    of ``block`` bytes spread over the library's threads."""
+    lib = _need()
+    for a in (dst, src):
+        if a.dtype != np.uint8 or a.ndim != 1 or not a.flags.c_contiguous:
+            raise TypeError("copy_bytes: contiguous 1-d uint8 arrays")
+    if not dst.flags.writeable:
+        raise ValueError("copy_bytes: 'dst' is read-only")
+    if dst.shape != src.shape:
+        raise ValueError("copy_bytes: %d bytes into %d" % (src.shape[0], dst.shape[0]))
+    if block < 1:
+        raise ValueError("copy_bytes: 'block' must be positive")
+    lib.copy_bytes(dst.ctypes.data, src.ctypes.data, dst.shape[0], int(block))
+
+
+def touch_pages(dst: np.ndarray, block: int = 1 << 21) -> None:
+    """Write a zero every 4 KB of a contiguous uint8 array, over the
+    library's threads: its pages faulted in."""
+    lib = _need()
+    if dst.dtype != np.uint8 or dst.ndim != 1 or not dst.flags.c_contiguous:
+        raise TypeError("touch_pages: a contiguous 1-d uint8 array")
+    if not dst.flags.writeable:
+        raise ValueError("touch_pages: 'dst' is read-only")
+    if block < 1:
+        raise ValueError("touch_pages: 'block' must be positive")
+    lib.touch_pages(dst.ctypes.data, dst.shape[0], int(block))

@@ -6,7 +6,8 @@
 // host-bound at 48M+ nonzeros is the data layer: COO->CSR conversion,
 // user-sorted layout construction, and the per-batch ragged gather used by
 // SVI epochs (the reference's get_i_batch_pass1/2, pxi:770-797).  Those are
-// the C++ loops here, exposed through ctypes (see __init__.py).
+// the C++ loops here, exposed through ctypes (see __init__.py), with the
+// threaded first touch and byte copy of a fit's host results.
 //
 // Build (build.py): g++ -O3 -shared -fPIC -fopenmp against the OpenMP
 // runtime that PyTorch has loaded, else -pthread -DHPF_STD_THREADS (the same
@@ -299,6 +300,27 @@ void sort_csr_cols_f64(const int64_t* indptr, int64_t nrows, int32_t* indices,
 }  // extern "C"
 
 extern "C" {
+
+// ---------------------------------------------------------------------
+// A parallel byte copy: dst[0, n) = src[0, n), in blocks of `block` bytes
+// taken by the threads as they come free.  A fit's results come back to
+// the host through it, one staged chunk at a time, while the next chunks
+// still cross the link.
+// ---------------------------------------------------------------------
+void copy_bytes(char* dst, const char* src, int64_t n, int64_t block) {
+    parallel_chunks(n, block, [&](int64_t lo, int64_t hi) {
+        std::memcpy(dst + lo, src + lo, (size_t)(hi - lo));
+    });
+}
+
+// First touch of fresh memory: a zero written every 4 KB, in blocks of
+// `block` bytes over the threads, so that its pages are faulted in.  The
+// fit's host results are touched so while the card still iterates.
+void touch_pages(char* dst, int64_t n, int64_t block) {
+    parallel_chunks(n, block, [&](int64_t lo, int64_t hi) {
+        for (int64_t i = lo; i < hi; i += 4096) dst[i] = 0;
+    });
+}
 
 // ---------------------------------------------------------------------
 // Factorize int64 ids in first-occurrence order (pd.factorize semantics

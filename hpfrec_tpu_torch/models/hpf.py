@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..ops.ingest import sort_sides, upload_triplets
+from ..ops.staging import HostArrays, to_host
 from ..utils import data as data_utils
 from ..utils.profiling import FitStats, TopNStats, device_bytes, maybe_trace
 from .state import (Hyperparams, VariationalState, initialize_extra_rows,
@@ -60,15 +61,6 @@ def _as_float(x, name):
         x = float(x)
     assert isinstance(x, float), f"'{name}' must be a number"
     return x
-
-
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A host copy of a tensor in memory that numpy owns (so that its
-    write flag can be turned off and on again)."""
-    out = np.empty(tuple(t.shape), dtype=np.float32 if t.dtype == torch.float32
-                   else np.float64)
-    torch.from_numpy(out).copy_(t)
-    return out
 
 
 def _host_to_device(a, device) -> torch.Tensor:
@@ -306,6 +298,7 @@ class HPF:
         self._dev_state_cache = None
         self._beta_dev_cache = None
         self._beta_colsum_cache = None
+        self._ready = None  # a card fit's host results, made during its loop
 
     # ------------------------------------------------------------------
     # internals
@@ -422,25 +415,29 @@ class HPF:
     def _state_refs(self):
         return tuple(getattr(self, name, None) for name in self._STATE_ATTRS)
 
-    def _state_to_host(self, state: VariationalState):
+    def _state_to_host(self, state: VariationalState) -> int:
         """Pull the fitted variational parameters back to host numpy (the
         reference's attribute names); these attributes are the source of
         truth between calls.  With ``keep_all_objs`` the device state stays
         cached for the next online update, keyed on the held host arrays
-        and their fingerprint."""
-        G_shp, G_rte, L_shp, L_rte, k_rte, t_rte = (_to_host(a) for a in state)
-        self._own("Theta", G_shp / G_rte)
-        self._own("Beta", L_shp / L_rte)
+        and their fingerprint.  Returns the bytes copied back."""
+        # Theta and Beta divided where the state is (IEEE division on both
+        # sides, so the bits of the host's quotient), then copied back
+        # with the state where it is kept
+        factors = [state.G_shp / state.G_rte, state.L_shp / state.L_rte]
+        arrays = to_host(factors + (list(state) if self.keep_all_objs else []), self._ready)
+        self._own("Theta", arrays[0])
+        self._own("Beta", arrays[1])
         self._beta_dev_cache = self._beta_colsum_cache = None
         self._dev_state_cache = None
         if self.keep_all_objs:
-            for name, arr in zip(self._STATE_ATTRS,
-                                 (G_shp, G_rte, L_shp, L_rte, k_rte, t_rte)):
+            for name, arr in zip(self._STATE_ATTRS, arrays[2:]):
                 self._own(name, arr)
             # a table-sharded fit's state comes back on the host: not cached
             if state.G_shp.device.type == self._torch_device().type:
                 self._dev_state_cache = (self._state_fingerprint(), state, self._state_refs())
             self._freeze_owned(self._STATE_ATTRS)
+        return sum(a.nbytes for a in arrays)
 
     def _state_from_host(self) -> VariationalState:
         """The device state from the host attributes, from the cache when
@@ -499,8 +496,11 @@ class HPF:
 
         stats = FitStats(device=dev)
         self.fit_stats_ = stats
-        with maybe_trace(self.profile_dir if self._shard[0] == 0 else None), stats.run():
-            self._fit(counts_df, val_set, resume, svi_mode, dev, stats)
+        try:
+            with maybe_trace(self.profile_dir if self._shard[0] == 0 else None), stats.run():
+                self._fit(counts_df, val_set, resume, svi_mode, dev, stats)
+        finally:
+            self._ready = None
         if self.profile_dir and self.mesh is not None:
             self._on_rank0(lambda: None)  # the trace is on disk when fit returns
         if self.verbose:
@@ -576,6 +576,9 @@ class HPF:
 
         if self.verbose:
             print("Initializing optimization procedure...")
+        if dev.type == "cuda":
+            # the host's pages of the results faulted in while the card iterates
+            self._ready = HostArrays(self._result_specs(nnz, svi_mode))
         st_time = time.time()
         if svi_mode:
             state, colsums, seen = self._run_svi(state, trip, hp, dev, stats)
@@ -591,9 +594,9 @@ class HPF:
         if self.verbose:
             self._print_final_msg(self.niter + 1, self._last_llk, self._last_rmse, end_tm)
 
+        staged = to_host.staged_bytes
         with stats.phase("copy_back"):
-            self._state_to_host(state)
-        stats.bytes_to_host += sum(a.numel() * a.element_size() for a in state)
+            stats.bytes_to_host += self._state_to_host(state)
         if self.save_folder is not None:
             with stats.phase("save"):
                 self._on_rank0(lambda: self._save_parameters(state))
@@ -601,12 +604,26 @@ class HPF:
             # SVI stores the seen-items CSR whatever keep_data
             if seen is not None:
                 self._store_metadata(seen)
+                stats.bytes_to_host += self.seen.nbytes
             if self.produce_dicts and self.reindex:
                 self.user_dict_ = {self.user_mapping_[i]: i
                                    for i in range(self.user_mapping_.shape[0])}
                 self.item_dict_ = {self.item_mapping_[i]: i
                                    for i in range(self.item_mapping_.shape[0])}
+        stats.staged_bytes = to_host.staged_bytes - staged
         self.is_fitted = True
+
+    def _result_specs(self, nnz, svi_mode):
+        """``(shape, dtype)`` of each array a fit copies back: Theta and
+        Beta, the state where it is kept, the seen-items CSR's entries."""
+        nU, nI, k, dt = self.nusers, self.nitems, self.k, self._dtype
+        specs = [((nU, k), dt), ((nI, k), dt)]
+        if self.keep_all_objs:
+            specs += [((nU, k), dt), ((nU, k), dt), ((nI, k), dt), ((nI, k), dt),
+                      ((nU, 1), dt), ((nI, 1), dt)]
+        if svi_mode or self.keep_data:
+            specs.append(((nnz,), np.int32))
+        return specs
 
     def _save_mappings(self):
         from ..utils.io import series_csv
@@ -1107,7 +1124,7 @@ class HPF:
         (``cython_loops.pxi:44-49, 408-411``)."""
         if self.verbose:
             print("Saving final parameters to .csv files...")
-        G_shp, G_rte, L_shp, L_rte, k_rte, t_rte = (_to_host(a) for a in state)
+        G_shp, G_rte, L_shp, L_rte, k_rte, t_rte = to_host(state)
         names = ["Theta", "Beta", "Gamma_shp", "Gamma_rte", "Lambda_shp",
                  "Lambda_rte", "kappa_rte", "tau_rte"]
         objs = [G_shp / G_rte, L_shp / L_rte, G_shp, G_rte, L_shp, L_rte, k_rte, t_rte]
@@ -1120,7 +1137,7 @@ class HPF:
         user side, its ``Csr`` (copied back from the device); the
         serve-time metadata keeps the truncated indptr like the reference
         (``hpfrec/__init__.py:424``)."""
-        indptr, indices = user.seen()
+        indptr, indices = user.seen(self._ready)
         self._n_seen_by_user = (indptr[1:] - indptr[:-1]).astype(np.int64)
         self._st_ix_user = indptr[:-1]
         self.seen = indices

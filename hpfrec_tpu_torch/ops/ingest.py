@@ -39,6 +39,7 @@ import torch
 
 from ..utils import data as data_utils
 from .ell import _INT32_MAX, _upload
+from .staging import to_host
 
 _ID_DTYPES = (np.dtype(np.int32), np.dtype(np.int64))
 _VALUE_DTYPES = (np.dtype(np.float32), np.dtype(np.float64))
@@ -55,10 +56,11 @@ class Csr(NamedTuple):
     vals: Optional[torch.Tensor]  # (nnz,) the state dtype
     indptr_dev: torch.Tensor  # (n_rows + 1,) int32
 
-    def seen(self):
+    def seen(self, ready=None):
         """The seen-items CSR on the host, ``(indptr int64, indices
-        int32)``: a user side's entries copied back."""
-        return self.indptr, self.cols.cpu().numpy()
+        int32)``: a user side's entries copied back (``staging.to_host``,
+        into an array of ``ready`` where it holds one)."""
+        return self.indptr, to_host([self.cols], ready)[0]
 
     def to_host(self) -> "Csr":
         """This side with its entries copied to the host (CPU tensors)."""

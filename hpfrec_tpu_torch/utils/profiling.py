@@ -178,29 +178,34 @@ class FitStats(CallStats):
       and the offsets' uploads), before K9 and the batches are issued
     - ``metric_checks``  convergence checks + the final metric
     - ``checkpoints``    checkpoint writes
-    - ``copy_back``      the state's copy to the host, Theta and Beta
+    - ``copy_back``      Theta and Beta divided where the state is, and
+      their copy to the host with the state's (``keep_all_objs``)
     - ``save``           ``save_folder``'s files
     - ``metadata``       the seen-items CSR (``keep_data``) and the id dicts
 
     Counters: ``nnz``, ``iterations``, ``checks`` (convergence checks
     run), ``bytes_to_device`` (the triplets, what the layouts' fill and
     reassembly read from the host, the validation set and a state drawn on
-    the host; not a start drawn on the card, nor the 2.5
-    KB key it is drawn from), ``bytes_to_host`` (the state's copy back)
-    and ``device_draws`` (the MT19937 words drawn on the card for the
-    start: ``2 (nU + nI) k``, twice that in float64; 0 where the host drew
-    it) and ``batches`` (the SVI batches run, each epoch's row count over
-    its batch size rounded up; 0 in full batch).
+    the host; not a start drawn on the card, nor the 2.5 KB key it is
+    drawn from), ``bytes_to_host`` (what the fit copied back: Theta and
+    Beta, the state where it is kept, the seen-items CSR's entries),
+    ``staged_bytes`` (the part of it that crossed from a card through
+    ``ops.staging``'s pinned ring; 0 on the CPU), ``device_draws`` (the
+    MT19937 words drawn on the card for the start: ``2 (nU + nI) k``,
+    twice that in float64; 0 where the host drew it) and ``batches`` (the
+    SVI batches run, each epoch's row count over its batch size rounded
+    up; 0 in full batch).
     """
 
     ROOT = "hpf.fit"
     COUNTERS = ("nnz", "iterations", "checks", "bytes_to_device", "bytes_to_host",
-                "device_draws", "batches")
+                "staged_bytes", "device_draws", "batches")
     NESTED = ("epoch_offsets",)
 
     nnz: int = 0
     iterations: int = 0
     checks: int = 0
+    staged_bytes: int = 0
     device_draws: int = 0
     batches: int = 0
 

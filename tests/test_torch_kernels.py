@@ -1989,3 +1989,102 @@ def test_a_cuda_svi_fit_ingests_on_the_card(cuda, monkeypatch, batches):
     _assert_factors_agree(card, cpu, _AGREE_SVI_FACTORS[True])
     rows = torch.tensor([5, 0, 9, 5, 2], dtype=torch.int32)
     assert torch.equal(S.build_row_mask(11, rows.to(cuda)).cpu(), S.build_row_mask(11, rows))
+
+
+# ---- a fit's results back through the pinned ring (ops/staging.py) -------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32, torch.int64])
+@pytest.mark.parametrize("nbytes", [0, 1, 4096, 64 * 1024, 37 * 4096 + 24])
+def test_staged_copy_equals_cpu_numpy(cuda, dtype, nbytes):
+    """Through the ring in 4 KB chunks (more chunks than buffers): sizes 0
+    and 1, under one chunk, many chunks, many and a rest."""
+    from hpfrec_tpu_torch.ops import staging
+
+    item = torch.empty((), dtype=dtype).element_size()
+    n = nbytes if nbytes <= 1 else nbytes // item
+    t = torch.arange(n, dtype=torch.int64, device=cuda).mul_(2654435761).to(dtype)
+    before = staging.to_host.staged_bytes
+    (a,) = staging.to_host([t], _chunk_bytes=4096)
+    ref = t.cpu().numpy()
+    assert a.dtype == ref.dtype and a.shape == ref.shape and a.tobytes() == ref.tobytes()
+    assert a.flags.owndata and staging.to_host.staged_bytes - before == t.nbytes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [4096, None])
+def test_staged_copy_waits_for_the_kernel_that_wrote_it(cuda, chunk):
+    """A tensor written on the current stream right before the copy, behind
+    a long kernel: every chunk holds what the kernel wrote; a second call
+    leaves the first call's arrays as they were."""
+    from hpfrec_tpu_torch.ops import staging
+
+    kw = {} if chunk is None else dict(_chunk_bytes=chunk)
+    n = (3 << 20) + 5
+    x = torch.zeros(n, dtype=torch.float32, device=cuda)
+    y = torch.zeros((1000, 7), dtype=torch.float64, device=cuda)
+    torch.cuda._sleep(200_000_000)
+    x.add_(torch.arange(n, dtype=torch.float32, device=cuda))
+    y.add_(3.25)
+    a, b = staging.to_host([x, y], **kw)
+    assert np.array_equal(a, np.arange(n, dtype=np.float32)) and np.all(b == 3.25)
+    x.neg_()
+    c, = staging.to_host([x], **kw)
+    assert np.array_equal(c, -np.arange(n, dtype=np.float32))
+    assert np.array_equal(a, np.arange(n, dtype=np.float32)) and not np.shares_memory(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_float", [True, False])
+@pytest.mark.parametrize("batches", [{}, dict(users_per_batch=200, items_per_batch=90)],
+                         ids=["full_batch", "svi"])
+def test_a_cuda_fits_results_come_back_exact(cuda, monkeypatch, use_float, batches):
+    """A card fit's Theta and Beta are the bits of the host's quotient of
+    its own state; its six state arrays and seen-items CSR are the
+    ``.cpu().numpy()`` of the device tensors they came from, each filled
+    into an array made ready during the loop; every byte it copied back
+    crossed the pinned ring (``staged_bytes``)."""
+    from scipy.sparse import coo_array
+
+    from hpfrec_tpu_torch import HPF
+
+    y, iu, ii = _unsorted_counts(900, 300, 20_000, seed=6)
+    X = coo_array((y, (iu, ii)), shape=(900, 300))
+    held = {}
+    orig_state, orig_meta = HPF._state_to_host, HPF._store_metadata
+
+    def state_to_host(self, state):
+        held["state"] = [t.cpu().numpy() for t in state]
+        return orig_state(self, state)
+
+    def store_metadata(self, user):
+        held["seen"] = user.cols.cpu().numpy()
+        return orig_meta(self, user)
+
+    from hpfrec_tpu_torch.ops.staging import HostArrays
+
+    taken = []
+    orig_take = HostArrays.take
+
+    def take(self, shape, dtype):
+        a = orig_take(self, shape, dtype)
+        taken.append(a is not None)
+        return a
+
+    monkeypatch.setattr(HPF, "_state_to_host", state_to_host)
+    monkeypatch.setattr(HPF, "_store_metadata", store_metadata)
+    monkeypatch.setattr(HostArrays, "take", take)
+    m = HPF(k=7, maxiter=4, check_every=2, stop_crit="train-llk", random_seed=5,
+            use_float=use_float, verbose=False, device="cuda", **batches).fit(X)
+    # every array came back into one made ready during the loop
+    assert taken == [True] * 9 and m._ready is None
+    G_shp, G_rte, L_shp, L_rte, _, _ = held["state"]
+    assert m.Theta.tobytes() == (G_shp / G_rte).tobytes()
+    assert m.Beta.tobytes() == (L_shp / L_rte).tobytes()
+    for name, ref in zip(HPF._STATE_ATTRS, held["state"]):
+        a = getattr(m, name)
+        assert a.dtype == ref.dtype and a.tobytes() == ref.tobytes() and a.flags.owndata
+    assert m.seen.dtype == held["seen"].dtype and m.seen.tobytes() == held["seen"].tobytes()
+    st = m.fit_stats_
+    back = sum(a.nbytes for a in (m.Theta, m.Beta, *held["state"], m.seen))
+    assert st.staged_bytes == st.bytes_to_host == back > 0

@@ -65,7 +65,11 @@ def test_a_fit_is_accounted_from_entry_to_return(mode):
     assert st.iterations == m.niter + 1 and st.nnz == _counts().nnz
     assert st.checks == 3
     state = (m.Gamma_shp, m.Gamma_rte, m.Lambda_shp, m.Lambda_rte, m.k_rte, m.t_rte)
-    assert st.bytes_to_host == sum(a.nbytes for a in state)
+    # copied back: Theta and Beta, the state, the seen-items CSR's entries;
+    # none of it through the card's pinned ring on a CPU fit
+    back = (m.Theta, m.Beta) + state + (m.seen,)
+    assert st.bytes_to_host == sum(a.nbytes for a in back)
+    assert st.staged_bytes == 0
     assert st.bytes_to_device >= sum(a.nbytes for a in state)
 
 
@@ -95,6 +99,7 @@ def test_the_verbose_breakdown_prints_the_counters(capsys):
     tail = out[out.index("Wall-time breakdown:"):]
     assert "copy_back" in tail and "init_state" in tail
     assert "checks 3" in tail and "bytes_to_host" in tail and "bytes_to_device" in tail
+    assert "staged_bytes 0" in tail
 
 
 @pytest.mark.parametrize("mode", sorted(FITS))
